@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's headline path once on an NVIDIA GPU and check its kernels.
+"""Drive the PyTorch port's main paths once on an NVIDIA GPU and check its kernels.
 
     python3 chip_smoke.py
 
@@ -15,7 +15,20 @@ nothing of JAX. Phases, each of which must pass:
 3. actions kernel against its plain version (bit-exact);
 4. action-stream kernel against the plain Philox (bit-exact, uniform, seeded);
 5. bench kernel against its plain version (bit-exact);
-6. timings with CUDA events, median of 5 runs after a warm-up.
+6. timings with CUDA events, median of 5 runs after a warm-up;
+7. the fast-PPO trainer at full width, with every counter set to 0 just
+   before: 16,384 envs on 21x21, the default ``FastPPOConfig`` (hidden 512,
+   T=64, 2 epochs x 8 minibatches), ``train_many_fast`` for 3 updates, then
+   the trained policy's loss and gradient on one fresh minibatch through
+   ``fused_minibatch_grads``; the same 3 updates with ``throughput()``. The
+   pool, indexed-gradient and actions kernels must have run 3, 48 and 192
+   times, and no plain version at all;
+8. pool kernel against its plain version (bit-exact) at n=32,768;
+9. gradient kernels against their plain version at N=131,072, H=512, F=67
+   (the CPU suite's tolerances), indexed against gathered (rtol 1e-6), and
+   two launches bit-identical;
+10. fast-PPO timings with CUDA events: ms per update, collect, update phase,
+   pool and gradient kernels against their plain versions.
 
 It prints one JSON line of per-kernel results, then, as its last line,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
@@ -37,6 +50,7 @@ HERE = Path(__file__).resolve().parent
 SOURCE = "gym_craftingworld_tpu_torch/csrc/packed_fused.cu"
 JAX_KERNELS = "gym_craftingworld_tpu/ops/packed_fused.py"
 B_MAIN = 16384
+PPO_UPDATES = 3
 DEVICE = "cuda"
 
 
@@ -280,11 +294,244 @@ def main() -> int:
                     launches=launches[name], max_abs_err=r["err"], ms=r["ms"],
                     plain_ms=r["plain_ms"])
                for name, r in results.items()]
+    kernels += fast_ppo_phases(cw, dev, tag)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+# ---------------------------------------------------------------------------
+# the fast-PPO trainer (phases 7-10)
+# ---------------------------------------------------------------------------
+
+
+def grads_err(got: dict, want: dict):
+    """(max |got - want|, max relative error, min cosine) over the gradients."""
+    worst_abs, worst_rel, worst_cos = 0.0, 0.0, 1.0
+    for k in want:
+        a, b = got[k].double(), want[k].double()
+        worst_abs = max(worst_abs, float((a - b).abs().max()))
+        worst_rel = max(worst_rel, float((a - b).abs().max() / b.abs().max().clamp_min(1e-6)))
+        worst_cos = min(worst_cos, float((a * b).sum() / (a.norm() * b.norm() + 1e-12)))
+    return worst_abs, worst_rel, worst_cos
+
+
+def random_minibatch(gen, dev, n, F):
+    """The CPU suite's random minibatch (binary features at 30%), on the card."""
+    r = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    old_v = r(n)
+    return ((torch.rand((n, F), generator=gen, device=dev) < 0.3).to(torch.bfloat16),
+            torch.randint(0, 6, (n,), generator=gen, device=dev, dtype=torch.int32),
+            -r(n).abs() - 0.5, old_v, r(n), old_v + 0.5 * r(n))
+
+
+def fast_ppo_phases(cw, dev, tag):
+    from gym_craftingworld_tpu_torch.ops import fused_reset as fr
+    from gym_craftingworld_tpu_torch.ops import fused_update as fu
+    from gym_craftingworld_tpu_torch.ops import packed_fused as pf
+    from gym_craftingworld_tpu_torch.train import fast_ppo as fp
+
+    cfg, B, T_ = cw.ray_config(), B_MAIN, PPO_UPDATES
+    F = fp.feature_rows(cfg)
+    wrappers = {"pool": fr.pool_picks, "ppo_grads": fu.fused_minibatch_grads,
+                "ppo_grads_indexed": fu.fused_minibatch_grads_indexed,
+                "packed_actions": pf.rollout_packed_actions,
+                "packed_bench": pf.rollout_packed_bench,
+                "action_stream": pf.fused_action_stream}
+    plains = [fr.fresh_packed_plain, fu.ppo_grads_plain, pf.rollout_packed_actions_plain,
+              pf.rollout_packed_bench_plain, pf.action_stream_plain]
+    gen = torch.Generator(device=dev)
+
+    # ---- 7. the trainer at full width, counted ------------------------------
+    main_launches = {}
+    for preset, fppo in (("default", fp.FastPPOConfig()),
+                         ("throughput", fp.FastPPOConfig.throughput())):
+        gen.manual_seed(7)
+        env = fr.fresh_packed_fused(cfg, 11, B, device=dev)
+        ts = fp.init_fast_train_state(gen, cfg, fppo)
+        w1_0 = ts.params.w1.detach().clone()
+        torch.cuda.synchronize()
+        for w in wrappers.values():
+            w.launches = 0
+        for f in plains:
+            f.calls = 0
+        t0 = time.perf_counter()
+        ts, env, gen, m = fp.train_many_fast(cfg, fppo, ts, env, T_, gen)
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t0
+        launches = {k: w.launches for k, w in wrappers.items()}  # of the 3 updates
+        if preset == "default":
+            # score the trained policy: its loss and gradient on one fresh minibatch
+            with torch.no_grad():
+                pool = fp._fresh_pool(cfg, gen, 2 * B)
+                u = fp.gumbel_uniforms(gen, (fppo.rollout_steps, 6, B))
+                env, traj = fp._collect(cfg, fppo, ts.params, env, pool, u)
+                _, last_value = fp.apply_policy(ts.params, fp.features(cfg, env))
+                adv, ret = fp._gae(fppo, traj, last_value)
+            n_mb = fppo.rollout_steps * B // fppo.num_minibatches
+            batch = (traj.feat.permute(0, 2, 1).reshape(-1, F)[:n_mb],) + tuple(
+                x.reshape(-1)[:n_mb] for x in (traj.action, traj.log_prob, traj.value, adv, ret))
+            g_eval, aux_eval = fu.fused_minibatch_grads(fppo, ts.params, batch)
+            torch.cuda.synchronize()
+        calls = {f.__name__: f.calls for f in plains}
+        n_mb_total = T_ * fppo.update_epochs * fppo.num_minibatches
+        print(f"{tag} fast PPO {preset}: B={B} hidden={fppo.hidden} T={fppo.rollout_steps} "
+              f"{fppo.update_epochs}x{fppo.num_minibatches} minibatches, {T_} updates in "
+              f"{t_train * 1e3:.1f} ms (cold, host clock); launches {launches}; "
+              f"plain calls {calls}")
+        check(launches["pool"] == T_, f"pool kernel once per update ({launches['pool']})")
+        check(launches["ppo_grads_indexed"] == n_mb_total,
+              f"indexed gradient kernel once per minibatch ({launches['ppo_grads_indexed']})")
+        check(launches["packed_actions"] == T_ * fppo.rollout_steps,
+              f"actions kernel once per collect step ({launches['packed_actions']})")
+        check(all(c == 0 for c in calls.values()), f"no plain version ran: {calls}")
+        metrics = {k: v.tolist() for k, v in m.items()}
+        print(f"{tag} fast PPO {preset} metrics: {json.dumps(metrics)}")
+        check(all(math.isfinite(x) for v in metrics.values() for x in v), "finite metrics")
+        check(all(len(v) == T_ for v in metrics.values()), "metrics stacked per update")
+        check(not torch.equal(w1_0, ts.params.w1), "w1 changed")
+        check(abs(metrics["entropy"][0] - math.log(6)) < 0.05,
+              f"first update's entropy within 0.05 of log 6 ({metrics['entropy'][0]:.4f})")
+        check(bool(((env.slot_key >= 0) & (env.slot_key <= cfg.n_cells + 1)).all()),
+              "env keys in range after training")
+        if preset == "default":
+            main_launches = {k: w.launches for k, w in wrappers.items()}  # the whole path
+            print(f"{tag} launches of the whole default path (training and scoring): "
+                  f"{main_launches}")
+            check(main_launches["ppo_grads"] == 1, "the scoring gradient ran through the kernel")
+            check(all(f.calls == 0 for f in plains), "no plain version ran while scoring")
+            check(all(torch.isfinite(g).all() for g in g_eval.values())
+                  and all(math.isfinite(float(v)) for v in aux_eval.values()),
+                  "finite scoring gradient and loss")
+            check(all(g_eval[k].shape == getattr(ts.params, k).shape for k in g_eval),
+                  "gradient shapes")
+            print(f"{tag} trained policy on one fresh minibatch: "
+                  f"{ {k: round(float(v), 6) for k, v in aux_eval.items()} }")
+
+    results = {}
+    # ---- 8. pool kernel vs plain ----------------------------------------------
+    n_pool = 2 * B
+    for cfg_ in (cfg, cw.flat_config(stacking=False), cw.flat_config(selected_task_indices=(1, 4))):
+        for seeds in ((1234, 77), (-5, 2**31 - 1)):
+            sd = torch.tensor(seeds, dtype=torch.int32, device=dev)
+            got = fr.assemble(cfg_, fr.pool_picks(cfg_, sd, n_pool))
+            want = fr.fresh_packed_plain(cfg_, sd, n_pool)
+            err = max_abs_diff(list(zip(got, want)))
+            check(err == 0, f"pool kernel bit-exact, tolerance 0 ({cfg_.height}x{cfg_.width} "
+                  f"stacking={cfg_.stacking} tasks={cfg_.selected_task_indices}, err {err})")
+        des = got.desired.to(torch.int64)
+        bits = ((des[:, None] >> torch.arange(9, device=dev)) & 1).sum(dim=1)
+        print(f"{tag} pool kernel == plain: {cfg_.height}x{cfg_.width} n={n_pool} "
+              f"stacking={cfg_.stacking} tasks={cfg_.selected_task_indices}; tasks per world "
+              f"{torch.bincount(bits, minlength=10).tolist()}")
+    sd = torch.tensor([1234, 77], dtype=torch.int32, device=dev)
+    agent = fr.fresh_packed_plain(cfg, sd, n_pool).init_agent_key.to(torch.int64)
+    counts = torch.bincount(agent, minlength=cfg.n_cells).double()
+    expected = n_pool / cfg.n_cells
+    chi2 = float(((counts - expected) ** 2 / expected).sum())
+    check(chi2 < 440 + 6 * math.sqrt(880), f"agent cell uniform (chi2 {chi2:.1f}, dof 440)")
+    results["pool"] = dict(
+        err=0, ms=time_ms(lambda: fr.pool_picks(cfg, sd, n_pool)),
+        plain_ms=time_ms(lambda: fr.fresh_packed_plain(cfg, sd, n_pool)),
+        shape=f"n={n_pool} 21x21", replaces="gym_craftingworld_tpu/ops/fused_reset.py:71",
+        source="gym_craftingworld_tpu_torch/csrc/fused_reset.cu")
+    ms_entry = time_ms(lambda: fr.fresh_packed_fused(cfg, sd[0], n_pool, seed2=sd[1]))
+    print(f"{tag} fresh_packed_fused (entry point, assembly included) n={n_pool}: "
+          f"{ms_entry:.4f} ms; agent-cell chi2 {chi2:.1f} (dof 440)")
+
+    # ---- 9. gradient kernels vs plain -----------------------------------------
+    fppo = fp.FastPPOConfig()
+    gen.manual_seed(3)
+    params = fp.init_params(gen, cfg, fppo)
+    N = fppo.rollout_steps * B // fppo.num_minibatches
+    batch = random_minibatch(gen, dev, N, F)
+    w = fu.weights(params)
+    rest = fu._rest(*batch[1:])
+    gk, ak = fu.fused_minibatch_grads(fppo, params, batch)
+    gk2, _ = fu.fused_minibatch_grads(fppo, params, batch)
+    gp, *rows = fu.ppo_grads_plain(fppo, w, batch[0], *rest)
+    _, ap = fu._finish(fppo, N, gp, *rows)
+    err_abs, err_rel, cos = grads_err(gk, gp)
+    loss_err = max(abs(float(ak[k]) - float(ap[k])) / (2e-4 + 2e-3 * abs(float(ap[k]))) for k in ak)
+    print(f"{tag} gradient kernel vs plain N={N} H={fppo.hidden} F={F}: max abs err {err_abs:.3e}, "
+          f"max rel err {err_rel:.3e} (limit 3e-2), min cosine {cos:.7f} (limit 0.999), "
+          f"loss err / tolerance {loss_err:.3e}; kernel {ak['loss']:.7f} plain {ap['loss']:.7f}")
+    check(err_rel < 3e-2 and cos > 0.999 and loss_err <= 1, "gradient kernel within tolerance")
+    check(all(torch.equal(gk[k], gk2[k]) for k in gk), "two launches give the same bits")
+    BLK = fp.shuffle_block(fppo.rollout_steps, B, fppo.num_minibatches)
+    NB = fppo.rollout_steps * B // BLK
+    featb = (torch.rand((NB, BLK, F), generator=gen, device=dev) < 0.3).to(torch.bfloat16)
+    ids = torch.randperm(NB, generator=gen, device=dev)[: NB // fppo.num_minibatches]
+    gi, ai = fu.fused_minibatch_grads_indexed(fppo, params, featb, ids, batch[1:])
+    gathered = (featb[ids].reshape(N, F),) + batch[1:]
+    gg, ag = fu.fused_minibatch_grads(fppo, params, gathered)
+    idx_rel = max(float(((gi[k] - gg[k]).abs() / gg[k].abs().clamp_min(1e-30)).max()) for k in gi)
+    check(all(torch.allclose(gi[k], gg[k], rtol=1e-6, atol=0) for k in gi)
+          and abs(float(ai["loss"]) - float(ag["loss"])) <= 1e-6 * abs(float(ag["loss"])),
+          f"indexed equals gathered at rtol 1e-6 ({idx_rel:.3e})")
+    gpi, *rows_i = fu.ppo_grads_plain(fppo, w, gathered[0], *fu._rest(*batch[1:]))
+    err_abs_i, err_rel_i, cos_i = grads_err(gi, gpi)
+    check(err_rel_i < 3e-2 and cos_i > 0.999, "indexed kernel within tolerance of plain")
+    print(f"{tag} indexed kernel == gathered kernel (max rel diff {idx_rel:.3e}); vs plain: "
+          f"max abs err {err_abs_i:.3e}, max rel err {err_rel_i:.3e}, min cosine {cos_i:.7f}")
+    results["ppo_grads"] = dict(
+        err=err_abs, ms=time_ms(lambda: fu.fused_minibatch_grads(fppo, params, batch)),
+        plain_ms=time_ms(lambda: fu._finish(fppo, N, *fu.ppo_grads_plain(
+            fppo, fu.weights(params), batch[0], *fu._rest(*batch[1:])))),
+        shape=f"N={N} H={fppo.hidden}", replaces="gym_craftingworld_tpu/ops/fused_update.py:57",
+        source="gym_craftingworld_tpu_torch/csrc/fused_update.cu")
+    results["ppo_grads_indexed"] = dict(
+        err=err_abs_i,
+        ms=time_ms(lambda: fu.fused_minibatch_grads_indexed(fppo, params, featb, ids, batch[1:])),
+        plain_ms=time_ms(lambda: fu._finish(fppo, N, *fu.ppo_grads_plain(
+            fppo, fu.weights(params), featb[ids].reshape(N, F), *fu._rest(*batch[1:])))),
+        shape=f"N={N} H={fppo.hidden} BLK={BLK}",
+        replaces="gym_craftingworld_tpu/ops/fused_update.py:270",
+        source="gym_craftingworld_tpu_torch/csrc/fused_update.cu")
+
+    # ---- 10. fast-PPO timings ----------------------------------------------------
+    for preset, fppo in (("default", fp.FastPPOConfig()),
+                         ("throughput", fp.FastPPOConfig.throughput())):
+        gen.manual_seed(5)
+        state = {"ts": fp.init_fast_train_state(gen, cfg, fppo),
+                 "env": fr.fresh_packed_fused(cfg, 12, B, device=dev)}
+
+        def step(**kw):
+            state["ts"], state["env"], _, _ = fp.train_step_fast(
+                cfg, fppo, state["ts"], state["env"], gen, **kw)
+
+        ms_k = time_ms(step)
+        ms_p = time_ms(lambda: step(fused_pool=False, fused_update=False))
+        ms_k2 = time_ms(step)
+        env0 = state["env"]
+        pool = fp._fresh_pool(cfg, gen, 2 * B)
+        u = fp.gumbel_uniforms(gen, (fppo.rollout_steps, 6, B))
+        with torch.no_grad():
+            ms_collect = time_ms(lambda: fp._collect(cfg, fppo, state["ts"].params, env0, pool, u))
+            _, traj = fp._collect(cfg, fppo, state["ts"].params, env0, pool, u)
+            _, lv = fp.apply_policy(state["ts"].params, fp.features(cfg, env0))
+            adv, ret = fp._gae(fppo, traj, lv)
+        NBp = fppo.rollout_steps * B // fp.shuffle_block(fppo.rollout_steps, B, fppo.num_minibatches)
+        perms = torch.stack([torch.randperm(NBp, generator=gen, device=dev)
+                             for _ in range(fppo.update_epochs)])
+        ms_update = time_ms(lambda: fp._update_phase(fppo, state["ts"], traj, adv, ret, perms))
+        ms_pool = time_ms(lambda: fp._fresh_pool(cfg, gen, 2 * B))
+        ms_gae = time_ms(lambda: fp._gae(fppo, traj, lv))
+        env_steps = B * fppo.rollout_steps
+        print(f"{tag} fast PPO {preset} B={B} hidden={fppo.hidden}: "
+              f"{ms_k:.2f} / {ms_k2:.2f} ms per update through the kernels "
+              f"({env_steps / (ms_k2 / 1e3):.4e} env-steps/s), {ms_p:.2f} ms with "
+              f"fused_pool=False, fused_update=False (median of 5, CUDA events); stages: "
+              f"pool {ms_pool:.3f} ms, collect {ms_collect:.2f} ms, GAE {ms_gae:.3f} ms, "
+              f"update phase {ms_update:.2f} ms")
+    for name, r in results.items():
+        print(f"{tag} {name} {r['shape']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms")
+    return [dict(name=name, route="cuda", source=r["source"], replaces=r["replaces"],
+                 launches=main_launches[name], max_abs_err=r["err"], ms=r["ms"],
+                 plain_ms=r["plain_ms"])
+            for name, r in results.items()]
 
 
 if __name__ == "__main__":

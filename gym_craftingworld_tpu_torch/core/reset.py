@@ -45,14 +45,22 @@ def sample_desired(cfg: EnvConfig, k: torch.Tensor, perm: torch.Tensor):
     return hit.any(dim=2).to(torch.int8)
 
 
+def ordered_cells(scores: torch.Tensor, k: int) -> torch.Tensor:
+    """The ``k`` best cells of each row of ``scores``, best first (int64[B, k]).
+
+    A stable descending sort: ties go to the lower cell index, as in XLA's
+    ``top_k``.
+    """
+    return torch.sort(scores, dim=1, descending=True, stable=True).indices[:, :k]
+
+
 def sample_world(cfg: EnvConfig, scores: torch.Tensor):
     """Place one of each object + the agent on distinct cells, from scores f32[B, H*W].
 
     Returns ``(objects int8[B,H,W], agent int32[B,2], init_objects int8[B,H,W])``.
     """
     B = scores.shape[0]
-    order = torch.sort(scores, dim=1, descending=True, stable=True).indices
-    idx = order[:, : C.N_OBJECTS + 1]  # 9 distinct ordered cells
+    idx = ordered_cells(scores, C.N_OBJECTS + 1)  # 9 distinct ordered cells
     codes = torch.arange(1, C.N_OBJECTS + 1, dtype=torch.int8, device=scores.device)
     flat = torch.zeros((B, cfg.n_cells), dtype=torch.int8, device=scores.device)
     flat.scatter_(1, idx[:, : C.N_OBJECTS], codes.expand(B, -1))

@@ -6,8 +6,11 @@ The JAX package's states arrive as dicts of numpy arrays keyed by field name
 ``rng``: the JAX package's uint32 key data becomes the port's opaque int64
 field, and goes back to uint32 on the way out.
 
-The headline slice has no model parameters, so there are no weights to
-convert yet.
+Weights cross the same way: the fast-PPO policy's ``MLPParams`` as a dict of
+f32 numpy arrays under the JAX names (``w1 b1 w2 b2 wl bl wv bv``, JAX
+layouts), and its Adam state as optax's ``ScaleByAdamState`` fields: a dict
+``{"count": int32 scalar, "mu": {...}, "nu": {...}}`` with one such dict of
+arrays per moment.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import torch
 from gym_craftingworld_tpu_torch.core.slots import SlotState
 from gym_craftingworld_tpu_torch.core.state import EnvState
 from gym_craftingworld_tpu_torch.ops.packed_rollout import PackedState
+from gym_craftingworld_tpu_torch.train.fast_ppo import PARAM_NAMES, AdamState, MLPParams
 
 
 def _tensors(names, d: dict, device) -> dict:
@@ -62,3 +66,31 @@ def slot_state_to_numpy(state: SlotState) -> dict:
 
 def packed_state_to_numpy(state: PackedState) -> dict:
     return _arrays(state._asdict().items())
+
+
+def mlp_params_from_numpy(d: dict, device="cpu") -> MLPParams:
+    """The JAX ``MLPParams`` (a dict of numpy arrays) as the port's module."""
+    H, F = np.shape(d["w1"])
+    params = MLPParams(F, H, device=device)
+    with torch.no_grad():
+        for k in PARAM_NAMES:
+            getattr(params, k).copy_(torch.from_numpy(np.array(d[k], dtype=np.float32)))
+    return params
+
+
+def mlp_params_to_numpy(params: MLPParams) -> dict:
+    return {k: getattr(params, k).detach().cpu().numpy() for k in PARAM_NAMES}
+
+
+def adam_state_from_numpy(d: dict, device="cpu") -> AdamState:
+    """optax ``ScaleByAdamState`` fields (numpy) as the port's ``AdamState``."""
+    moment = lambda m: {k: torch.from_numpy(np.array(m[k], dtype=np.float32)).to(device)
+                        for k in PARAM_NAMES}
+    count = torch.tensor(int(np.asarray(d["count"])), dtype=torch.int32, device=device)
+    return AdamState(count, moment(d["mu"]), moment(d["nu"]))
+
+
+def adam_state_to_numpy(state: AdamState) -> dict:
+    moment = lambda m: {k: m[k].detach().cpu().numpy() for k in PARAM_NAMES}
+    return {"count": np.int32(int(state.count)), "mu": moment(state.mu),
+            "nu": moment(state.nu)}

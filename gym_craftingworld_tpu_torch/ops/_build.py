@@ -1,8 +1,9 @@
 """Build the package's CUDA kernels with ``nvcc`` and bind them with ``ctypes``.
 
-On first CUDA use, ``load()`` compiles ``csrc/*.cu`` for Hopper (``sm_90a``)
-into one shared library with a plain C interface, under ``build/kernels/`` at
-the root of the checkout, and loads it. The library's name carries a hash of
+On first CUDA use, ``load()`` compiles ``csrc/*.cu`` for Hopper (``sm_90a``),
+one ``nvcc`` per source, all started together, and links the objects into one
+shared library with a plain C interface, under ``build/kernels/`` at the root
+of the checkout, and loads it. The library's name carries a hash of
 the sources and flags, so an edited source is rebuilt and an unchanged one is
 loaded as it is. Only sources in the repository are compiled.
 
@@ -26,18 +27,26 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I, _U32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
-# C signatures of the entry points in csrc/packed_fused.cu
+_P, _I, _U32, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
+# C signatures of the entry points in csrc/*.cu
 _SIGNATURES = {
+    # packed_fused.cu
     # in[13], out[9], checksum, B, T, height, width, max_steps, reward_equal, seed, stream
     "cw_packed_bench": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _U32, _P),
     # in[13], out[9], actions, reward, done, B, T, height, width, max_steps, reward_equal, stream
     "cw_packed_actions": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # out, B, T, seed, stream
     "cw_action_stream": (_P, _I, _I, _U32, _P),
+    # fused_reset.cu
+    # seeds, picks, n, hw, sel_mask, n_sel, n_tasks, stacking, stream
+    "cw_pool": (_P, _P, _I, _I, _U32, _I, _I, _I, _P),
+    # fused_update.cu
+    # in[13], work[8], out[6], n, f, h, blk, s_w1, s_w2, s_head,
+    # clip_eps, vf_coef, ent_coef, stream
+    "cw_ppo_grads": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P),
 }
 
 
@@ -84,17 +93,37 @@ def build() -> tuple[Path, float, str]:
     if not cus:
         raise KernelBuildError(f"no CUDA sources in {CSRC}")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    tag = f"{path.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{cu.stem}.o" for cu in cus]
     tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cus)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                    text=True))
+             for cmd in ([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(cu)]
+                         for cu, o in zip(cus, objs))]
+    logs, failed = [], []
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        logs.append(out)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+    try:
+        if not failed:
+            cmd = [nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            logs.append(proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                failed.append(f"link failed ({proc.returncode}):\n{' '.join(cmd)}\n{logs[-1]}")
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise KernelBuildError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+        raise KernelBuildError("\n".join(failed))
     os.replace(tmp, path)  # atomic: a concurrent process never loads half a file
-    return path, seconds, log
+    return path, seconds, "".join(logs)
 
 
 @functools.lru_cache(maxsize=None)

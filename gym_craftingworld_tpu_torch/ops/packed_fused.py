@@ -13,7 +13,7 @@ thread per env, the whole packed state in registers for all T steps):
 Each wrapper launches its kernel for a CUDA tensor and runs its plain
 version (``*_plain``, beside it) for a CPU tensor; there is no other
 dispatch and no fallback. Each counts its kernel launches in its plain
-integer attribute ``launches``.
+integer attribute ``launches``, and each plain version its calls in ``calls``.
 
 The public entry points keep the JAX signatures, minus ``interpret=`` and
 ``block=``: they run ``transpose_in`` → ``pack`` → wrapper → ``unpack`` →
@@ -65,6 +65,7 @@ _OUT_FIELDS = tuple(f for f in PackedState._fields if f not in _CONST_FIELDS)
 def action_stream_plain(batch_size: int, seed: int, num_steps: int,
                         device="cpu") -> torch.Tensor:
     """The Philox action stream as int32[T, B], in plain torch."""
+    action_stream_plain.calls += 1
     n4 = (num_steps + 3) // 4
     t4 = torch.arange(n4, dtype=torch.int64, device=device)[:, None]
     env = torch.arange(batch_size, dtype=torch.int64, device=device)[None, :]
@@ -78,6 +79,7 @@ def action_stream_plain(batch_size: int, seed: int, num_steps: int,
 def rollout_packed_actions_plain(cfg: EnvConfig, p: PackedState,
                                  actions: torch.Tensor):
     """Plain version of the actions kernel: (PackedState, reward int32[T, B], done bool[T, B])."""
+    rollout_packed_actions_plain.calls += 1
     T, B = actions.shape
     reward = torch.empty((T, B), dtype=torch.int32, device=actions.device)
     done = torch.empty((T, B), dtype=torch.bool, device=actions.device)
@@ -90,6 +92,7 @@ def rollout_packed_actions_plain(cfg: EnvConfig, p: PackedState,
 def rollout_packed_bench_plain(cfg: EnvConfig, p: PackedState, seed: int,
                                num_steps: int):
     """Plain version of the bench kernel: (PackedState, int32[B] reward sums)."""
+    rollout_packed_bench_plain.calls += 1
     B = p.agent_r.shape[0]
     actions = action_stream_plain(B, seed, num_steps, p.agent_r.device)
     acc = torch.zeros((B,), dtype=torch.int32, device=p.agent_r.device)
@@ -97,6 +100,11 @@ def rollout_packed_bench_plain(cfg: EnvConfig, p: PackedState, seed: int,
         p, res = _step_p_unrolled(cfg, p, actions[t])
         acc += res.reward
     return p, acc
+
+
+action_stream_plain.calls = 0
+rollout_packed_actions_plain.calls = 0
+rollout_packed_bench_plain.calls = 0
 
 
 # --------------------------------------------------------------------------
