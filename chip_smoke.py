@@ -28,7 +28,19 @@ nothing of JAX. Phases, each of which must pass:
    (the CPU suite's tolerances), indexed against gathered (rtol 1e-6), and
    two launches bit-identical;
 10. fast-PPO timings with CUDA events: ms per update, collect, update phase,
-   pool and gradient kernels against their plain versions.
+   pool and gradient kernels against their plain versions;
+11. the engine ladder at full width, with every counter set to 0 just before:
+   16,384 worlds on 21x21 and the Philox stream of one episode (T=300) run
+   through the grid ``rollout``, ``fused_rollout_actions``, ``fused_rollout``,
+   ``fused_rollout_t`` and ``fused_rollout_packed_bench`` from one state; all
+   five must agree (rewards, dones, final states, checksum), the three slot
+   kernels must have run once each and no plain version at all;
+12. the three slot kernels against their plain versions (bit-exact) on 21x21
+   at B=16,384, on 8x8 with pickups and drops, on a ragged batch, from the
+   ladder's final state, and from synthetic states no reset reaches;
+13. ladder timings with CUDA events: each slot kernel against its plain
+   version, env-steps/s of the seeded slot kernels beside the packed bench
+   kernel's, and ms per step of the three plain-torch engines.
 
 It prints one JSON line of per-kernel results, then, as its last line,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
@@ -36,6 +48,8 @@ It prints one JSON line of per-kernel results, then, as its last line,
 
 from __future__ import annotations
 
+import dataclasses
+import importlib
 import json
 import math
 import statistics
@@ -51,6 +65,9 @@ SOURCE = "gym_craftingworld_tpu_torch/csrc/packed_fused.cu"
 JAX_KERNELS = "gym_craftingworld_tpu/ops/packed_fused.py"
 B_MAIN = 16384
 PPO_UPDATES = 3
+# steps per launch when timing the seeded slot kernels: the [T, B] reward and
+# done slabs (5 bytes an env-step, 671 MB at B_MAIN) bound one launch's T
+T_CHUNK = 8192
 DEVICE = "cuda"
 
 
@@ -295,6 +312,7 @@ def main() -> int:
                     plain_ms=r["plain_ms"])
                for name, r in results.items()]
     kernels += fast_ppo_phases(cw, dev, tag)
+    kernels += ladder_phases(cw, dev, tag)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -530,6 +548,234 @@ def fast_ppo_phases(cw, dev, tag):
         print(f"{tag} {name} {r['shape']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms")
     return [dict(name=name, route="cuda", source=r["source"], replaces=r["replaces"],
                  launches=main_launches[name], max_abs_err=r["err"], ms=r["ms"],
+                 plain_ms=r["plain_ms"])
+            for name, r in results.items()]
+
+
+# ---------------------------------------------------------------------------
+# the engine ladder and the slot-layout kernels (phases 11-13)
+# ---------------------------------------------------------------------------
+
+
+def off_grid_at_origin(slots, sm):
+    """The packed layout keeps no cell for a held or removed slot (its unpack
+    writes (0, 0)); the slot layouts keep the last one."""
+    on = (slots.slot_stat == sm.ON_GRID)[..., None]
+    return slots._replace(slot_pos=torch.where(on, slots.slot_pos, 0))
+
+
+def synthetic_slots(sm, cfg, B, gen, dev):
+    """Slot states no reset reaches: any slot types (repeats included), slots
+    crowded onto four cells per env, the agent on one of them half the time,
+    any status mix (several held, removed), any task bits."""
+    H, W = cfg.height, cfg.width
+    r = lambda hi, shape: torch.randint(0, hi, shape, generator=gen, device=dev,
+                                        dtype=torch.int32)
+    hot = r(H * W, (B, 4))
+    pos = torch.where(r(10, (B, 8)) < 7, hot.gather(1, r(4, (B, 8)).long()),
+                      r(H * W, (B, 8)))
+    agent = torch.where(r(2, (B,)) == 0, hot[:, 0], r(H * W, (B,)))
+    init_pos = torch.where(r(2, (B, 8)) == 0, pos, r(H * W, (B, 8)))
+    init_agent = torch.where(r(5, (B,)) < 2, agent, r(H * W, (B,)))
+    rc = lambda lin: torch.stack([lin // W, lin % W], dim=-1).to(torch.int32)
+    stat = torch.tensor([0, 0, 0, 0, 1, 2], dtype=torch.int32, device=dev)[r(6, (B, 8)).long()]
+    achieved = r(2, (B, 9)).to(torch.int8)
+    desired = torch.where(r(10, (B, 1)) < 3, achieved, r(2, (B, 9)).to(torch.int8))
+    init_type = torch.argsort(torch.rand((B, 8), generator=gen, device=dev), dim=1) + 1
+    return sm.SlotState(
+        slot_type=r(8, (B, 8)) + 1, slot_pos=rc(pos), slot_stat=stat, agent=rc(agent),
+        desired=desired, achieved=achieved, init_type=init_type.to(torch.int32),
+        init_pos=rc(init_pos), init_agent=rc(init_agent), step_num=r(12, (B,)),
+        rng=torch.zeros((B, 2), dtype=torch.int64, device=dev))
+
+
+def ladder_phases(cw, dev, tag):
+    from gym_craftingworld_tpu_torch.core import slots as sm
+    from gym_craftingworld_tpu_torch.core import validate
+    from gym_craftingworld_tpu_torch.ops import packed_fused as pf
+    from gym_craftingworld_tpu_torch.ops import packed_rollout as pr
+    from gym_craftingworld_tpu_torch.ops import transposed_rollout as tr
+
+    # the package re-exports the entry-point function under the module's name
+    fr = importlib.import_module("gym_craftingworld_tpu_torch.ops.fused_rollout")
+    frt = importlib.import_module("gym_craftingworld_tpu_torch.ops.fused_rollout_t")
+
+    cfg, B = cw.ray_config(), B_MAIN
+    T_MAIN, SEED = cfg.max_steps, 11
+    wrappers = {"fused_rollout": fr.rollout_slots_seeded,
+                "fused_rollout_actions": fr.rollout_slots_actions,
+                "fused_rollout_t": frt.rollout_t_seeded,
+                "packed_bench": pf.rollout_packed_bench,
+                "action_stream": pf.fused_action_stream}
+    plains = [fr.rollout_slots_seeded_plain, fr.rollout_slots_actions_plain,
+              frt.rollout_t_seeded_plain, pf.rollout_packed_bench_plain,
+              pf.action_stream_plain]
+
+    # ---- 11. the ladder at full width, counted --------------------------------
+    state = cw.reset_from_seed(cfg, 21, B, device=dev)
+    slots = sm.from_env_state(state)
+    torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
+    for f in plains:
+        f.calls = 0
+    t0 = time.perf_counter()
+    stream = pf.fused_action_stream(B, SEED, T_MAIN, device=dev)
+    grid, gout = cw.rollout(cfg, state, stream)
+    s8, r8, d8 = cw.ops.fused_rollout_actions(cfg, slots, stream)
+    s7, r7, d7 = cw.ops.fused_rollout(cfg, slots, SEED, T_MAIN)
+    s9, r9, d9 = frt.fused_rollout_t(cfg, slots, SEED, T_MAIN)
+    s1, checksum = pf.fused_rollout_packed_bench(cfg, slots, SEED, T_MAIN)
+    torch.cuda.synchronize()
+    t_ladder = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    calls = {f.__name__: f.calls for f in plains}
+    print(f"{tag} ladder B={B} T={T_MAIN} seed={SEED}: grid rollout, kernels 8, 7, 9 and the "
+          f"packed bench in {t_ladder * 1e3:.1f} ms (cold, host clock); launches {launches}; "
+          f"plain calls {calls}")
+    check(all(launches[k] == 1 for k in ("fused_rollout", "fused_rollout_actions",
+                                         "fused_rollout_t")),
+          f"each slot kernel launched once: {launches}")
+    check(all(c == 0 for c in calls.values()), f"no plain version ran: {calls}")
+    for name, (r, d) in {"8": (r8, d8), "7": (r7, d7), "9": (r9, d9)}.items():
+        check(r.dtype == torch.int32 and d.dtype == torch.bool, f"kernel {name} output dtypes")
+        check(torch.equal(r, gout.reward) and torch.equal(d, gout.done),
+              f"kernel {name}'s rewards and dones equal the grid rollout's")
+    for name, s in {"7": s7, "9": s9}.items():
+        for f in sm.SlotState._fields:
+            a, b = getattr(s, f), getattr(s8, f)
+            check(a.dtype == b.dtype and torch.equal(a, b), f"kernels {name} and 8 agree on {f}")
+    packed_view = off_grid_at_origin(s8, sm)
+    for f in sm.SlotState._fields:
+        check(torch.equal(getattr(packed_view, f), getattr(s1, f)),
+              f"the slot kernels and the packed bench agree on {f}")
+    for name, a, b in zip(("objects", "agent", "holding"), sm.to_grid(s8, cfg),
+                          (grid.objects, grid.agent, grid.holding)):
+        check(torch.equal(a, b), f"to_grid of the slot state equals the grid's {name}")
+    total = int(r8.sum(dtype=torch.int64))
+    check(total == int(checksum), f"reward sum {total} equals the bench checksum {int(checksum)}")
+    check(bool(validate.check_state(cfg, grid).all()), "check_state passes on the grid state")
+    objects, agent, holding = sm.to_grid(s7, cfg)
+    check(bool(validate.check_state(cfg, dataclasses.replace(
+        grid, objects=objects, agent=agent, holding=holding)).all()),
+        "check_state passes on the slot state's grid")
+    check(bool((grid.step_num == T_MAIN).all()) and bool(d8[-1].all()),
+          "every env is done at max_steps")
+    n_off = int((s8.slot_stat != sm.ON_GRID).sum())
+    print(f"{tag} ladder agrees on all five rungs: reward sum {total}, successes "
+          f"{int((r8 == cfg.max_steps).sum())}, achieved bits {int(s8.achieved.sum())}, "
+          f"off-grid slots {n_off}")
+
+    # ---- 12. slot kernels vs plain ----------------------------------------------
+    gen = torch.Generator(device=dev)
+    worst = {k: 0 for k in ("fused_rollout", "fused_rollout_actions", "fused_rollout_t")}
+
+    def compare(name, got, want):
+        err = max_abs_diff(list(zip(got[0], want[0])) + [(got[1], want[1]), (got[2], want[2])])
+        worst[name] = max(worst[name], err)
+        return err
+
+    cfg9 = cw.ray_config(height=9, width=9, max_steps=12, reward_equal=False)
+    gen.manual_seed(76)
+    cases = [("21x21", cfg, B, False, None),
+             ("8x8 mix", cw.flat_config(reward_equal=False), 4096, True, None),
+             ("21x21 ragged", cfg, B - 1, False, None),
+             ("ladder final state", cfg, B, False, s8),
+             ("synthetic states", cfg9, B, False, synthetic_slots(sm, cfg9, B, gen, dev))]
+    for label, cfg_, B_, mix, start in cases:
+        T = 64
+        sl = start if start is not None else sm.from_env_state(
+            cw.reset_from_seed(cfg_, 31, B_, device=dev))
+        gen.manual_seed(77)
+        actions = torch.randint(0, 6, (T, B_), generator=gen, device=dev, dtype=torch.int32)
+        if mix:  # regular pickups and drops, so crafting fires
+            t = torch.arange(T, device=dev)[:, None]
+            actions = torch.where(t % 7 == 6, 4, torch.where(t % 11 == 10, 5, actions % 4))
+            actions = actions.to(torch.int32).contiguous()
+        ts = tr.transpose_in(sl)
+        errs = {
+            "fused_rollout_actions": compare(
+                "fused_rollout_actions", fr.rollout_slots_actions(cfg_, sl, actions),
+                fr.rollout_slots_actions_plain(cfg_, sl, actions)),
+            "fused_rollout": compare(
+                "fused_rollout", fr.rollout_slots_seeded(cfg_, sl, 5, T),
+                fr.rollout_slots_seeded_plain(cfg_, sl, 5, T)),
+            "fused_rollout_t": compare(
+                "fused_rollout_t", frt.rollout_t_seeded(cfg_, ts, 5, T),
+                frt.rollout_t_seeded_plain(cfg_, ts, 5, T)),
+        }
+        check(all(e == 0 for e in errs.values()),
+              f"slot kernels bit-exact, tolerance 0 ({label}: {errs})")
+        got = fr.rollout_slots_actions(cfg_, sl, actions)
+        print(f"{tag} slot kernels == plain: {label} {cfg_.height}x{cfg_.width} B={B_} T={T} "
+              f"reward_equal={cfg_.reward_equal}; max |err| {errs}; actions kernel: successes "
+              f"{int((got[1] == cfg_.max_steps).sum())}, achieved bits {int(got[0].achieved.sum())}, "
+              f"removed slots {int((got[0].slot_stat == sm.REMOVED).sum())}")
+
+    # ---- 13. ladder timings ----------------------------------------------------
+    sl = sm.from_env_state(cw.reset_from_seed(cfg, 41, B, device=dev))
+    ts = tr.transpose_in(sl)
+    T = 256
+    gen.manual_seed(3)
+    acts = torch.randint(0, 6, (T, B), generator=gen, device=dev, dtype=torch.int32)
+    results = {
+        "fused_rollout": (lambda: fr.rollout_slots_seeded(cfg, sl, 9, T),
+                          lambda: fr.rollout_slots_seeded_plain(cfg, sl, 9, T)),
+        "fused_rollout_actions": (lambda: fr.rollout_slots_actions(cfg, sl, acts),
+                                  lambda: fr.rollout_slots_actions_plain(cfg, sl, acts)),
+        "fused_rollout_t": (lambda: frt.rollout_t_seeded(cfg, ts, 9, T),
+                            lambda: frt.rollout_t_seeded_plain(cfg, ts, 9, T)),
+    }
+    results = {k: dict(ms=time_ms(kern), plain_ms=time_ms(plain))
+               for k, (kern, plain) in results.items()}
+    for name, r in results.items():
+        print(f"{tag} {name} B={B} T={T}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms")
+    print(f"{tag} entry points B={B} T={T}: fused_rollout "
+          f"{time_ms(lambda: cw.ops.fused_rollout(cfg, sl, 9, T)):.4f} ms, fused_rollout_t "
+          f"(transposes included) {time_ms(lambda: frt.fused_rollout_t(cfg, sl, 9, T)):.4f} ms")
+
+    # env-steps/s: a run is a chain of launches of T_CHUNK steps each, as many
+    # as make one run take >= 0.2 s; the packed bench kernel by phase 6's
+    # method beside them
+
+    def chained(step_fn, start, n):
+        def run():
+            s = start
+            for i in range(n):
+                s = step_fn(s, i)
+        return run
+
+    rates = {}
+    for name, fn, start in (
+            ("fused_rollout (kernel 7)", lambda s, i: fr.rollout_slots_seeded(cfg, s, i, T_CHUNK)[0], sl),
+            ("fused_rollout_t (kernel 9)", lambda s, i: frt.rollout_t_seeded(cfg, s, i, T_CHUNK)[0], ts)):
+        probe = time_ms(chained(fn, start, 1), reps=3)
+        n = max(1, math.ceil(250 / probe))
+        ms = time_ms(chained(fn, start, n))
+        rates[name] = B * T_CHUNK * n / (ms / 1e3)
+        print(f"{tag} {name} B={B}: {n} launches x T={T_CHUNK}, {ms:.2f} ms/run, "
+              f"{rates[name]:.4e} env-steps/s (median of 5)")
+    p = pr.pack(cfg, ts)
+    probe = time_ms(lambda: pf.rollout_packed_bench(cfg, p, 7, 4096), reps=3)
+    T = min(4 * math.ceil(0.25 / (probe / 1e3 / 4096) / 4), 1 << 22)
+    ms = time_ms(lambda: pf.rollout_packed_bench(cfg, p, 7, T))
+    print(f"{tag} packed bench kernel (kernel 1) B={B} T={T}: {ms:.2f} ms/run, "
+          f"{B * T / (ms / 1e3):.4e} env-steps/s (median of 5)")
+
+    T = 32
+    gen.manual_seed(4)
+    for name, fn in (("grid rollout_random", lambda: cw.rollout_random(cfg, state, gen, T)),
+                     ("rollout_slots_random", lambda: sm.rollout_slots_random(cfg, sl, gen, T)),
+                     ("rollout_t_random", lambda: tr.rollout_t_random(cfg, sl, gen, T))):
+        ms = time_ms(fn)
+        print(f"{tag} {name} B={B} T={T}: {ms / T:.4f} ms per step (plain torch, median of 5)")
+
+    source = "gym_craftingworld_tpu_torch/csrc/fused_rollout.cu"
+    replaces = {"fused_rollout": "gym_craftingworld_tpu/ops/fused_rollout.py:227",
+                "fused_rollout_actions": "gym_craftingworld_tpu/ops/fused_rollout.py:242",
+                "fused_rollout_t": "gym_craftingworld_tpu/ops/fused_rollout_t.py:165"}
+    return [dict(name=name, route="cuda", source=source, replaces=replaces[name],
+                 launches=launches[name], max_abs_err=worst[name], ms=r["ms"],
                  plain_ms=r["plain_ms"])
             for name, r in results.items()]
 

@@ -11,6 +11,9 @@ reference reset pipeline (``craftingworld_ray.py:156-218``) in two layers:
   ``torch.Generator`` on the target device. ``torch`` and ``jax.random`` give
   different numbers from one seed, so these resets agree with the JAX ones in
   distribution, not bit for bit.
+* The fixed-init-state reset has the same two layers: ``generate_pool`` /
+  ``generate_pool_from_scores`` make the pool, ``reset_from_pool`` /
+  ``reset_from_pool_draws`` draw each env's world from it.
 
 World placement is one stable descending sort of iid uniform scores per env:
 iid scores rank the cells in a uniform permutation, so the first 9 cells in
@@ -88,10 +91,16 @@ def reset_from_draws(
       goal_scores: float32[B, 7, H*W], goal-imagination scores
         (see ``core/imagine.py`` for the row order).
     """
-    B = world_scores.shape[0]
-    device = world_scores.device
-    desired = sample_desired(cfg, k, perm)
     objects, agent, init_objects = sample_world(cfg, world_scores)
+    return _state_from_world(cfg, sample_desired(cfg, k, perm), objects, agent,
+                             init_objects, goal_scores)
+
+
+def _state_from_world(cfg: EnvConfig, desired, objects, agent, init_objects,
+                      goal_scores) -> EnvState:
+    """A fresh EnvState around a placed world: goal imagination and bookkeeping."""
+    B = objects.shape[0]
+    device = objects.device
     agent_idx = agent[:, 0] * cfg.width + agent[:, 1]
     goal_flat, goal_agent_idx = imagine_goal(
         goal_scores, objects.reshape(B, -1), agent_idx, desired
@@ -114,6 +123,16 @@ def reset_from_draws(
     )
 
 
+def _task_draws(cfg: EnvConfig, B: int, draw: dict):
+    """(k, perm) for ``sample_desired``, drawn from ``draw``'s generator."""
+    if cfg.stacking:
+        k = torch.randint(0, cfg.number_of_tasks, (B,), **draw) + 1
+    else:
+        k = torch.ones((B,), dtype=torch.int64, device=draw["device"])
+    perm = torch.argsort(torch.rand((B, len(cfg.selected_task_indices)), **draw), dim=1)
+    return k, perm
+
+
 def reset(cfg: EnvConfig, batch_size: int, generator: torch.Generator,
           device=None) -> EnvState:
     """Batched reset drawing every random choice from ``generator``.
@@ -123,14 +142,63 @@ def reset(cfg: EnvConfig, batch_size: int, generator: torch.Generator,
     device = generator.device if device is None else torch.device(device)
     B, n = batch_size, cfg.n_cells
     draw = dict(generator=generator, device=device)
-    if cfg.stacking:
-        k = torch.randint(0, cfg.number_of_tasks, (B,), **draw) + 1
-    else:
-        k = torch.ones((B,), dtype=torch.int64, device=device)
-    perm = torch.argsort(torch.rand((B, len(cfg.selected_task_indices)), **draw), dim=1)
+    k, perm = _task_draws(cfg, B, draw)
     world_scores = torch.rand((B, n), **draw)
     goal_scores = torch.rand((B, N_GOAL_SCORE_ROWS, n), **draw)
     return reset_from_draws(cfg, k, perm, world_scores, goal_scores)
+
+
+def generate_pool_from_scores(cfg: EnvConfig, scores: torch.Tensor):
+    """Pool worlds from placement scores float32[N, H*W] (one ``sample_world`` row each).
+
+    Returns ``(objects int8[N, H, W], agent int32[N, 2])``.
+    """
+    objects, agent, _ = sample_world(cfg, scores)
+    return objects, agent
+
+
+def generate_pool(cfg: EnvConfig, generator: torch.Generator, num_states: int,
+                  device=None):
+    """Pre-generate ``num_states`` worlds (reference generate_fixed_states)."""
+    device = generator.device if device is None else torch.device(device)
+    scores = torch.rand((num_states, cfg.n_cells), generator=generator, device=device)
+    return generate_pool_from_scores(cfg, scores)
+
+
+def reset_from_pool_draws(cfg: EnvConfig, k: torch.Tensor, perm: torch.Tensor,
+                          pick: torch.Tensor, goal_scores: torch.Tensor,
+                          pool_objects: torch.Tensor, pool_agent: torch.Tensor) -> EnvState:
+    """Fixed-init-state reset as a pure function of its draws.
+
+    The reference ``fixed_init_state`` path (craftingworld_ray.py:116-118,
+    630-644): task sampling as in ``reset_from_draws``, then env ``b`` takes
+    pool world ``pick[b]`` (int[B]) in place of a fresh placement; goal
+    imagination from ``goal_scores`` float32[B, 7, H*W].
+    """
+    pick = pick.to(torch.int64)
+    objects = pool_objects[pick]
+    agent = pool_agent[pick]
+    # Pool worlds come from sample_world: the agent's cell holds no object.
+    agent_idx = (agent[:, 0] * cfg.width + agent[:, 1]).to(torch.int64)
+    init_objects = objects.reshape(objects.shape[0], -1).clone()
+    init_objects.scatter_(1, agent_idx[:, None], C.AGENT_INIT_MARK)
+    return _state_from_world(cfg, sample_desired(cfg, k, perm), objects, agent,
+                             init_objects.view(objects.shape), goal_scores)
+
+
+def reset_from_pool(cfg: EnvConfig, batch_size: int, generator: torch.Generator,
+                    pool_objects: torch.Tensor, pool_agent: torch.Tensor) -> EnvState:
+    """Batched fixed-init-state reset: each env draws one pool entry uniformly.
+
+    The draws come from ``generator``, on the pool's device.
+    """
+    device = pool_objects.device
+    B = batch_size
+    draw = dict(generator=generator, device=device)
+    k, perm = _task_draws(cfg, B, draw)
+    pick = torch.randint(0, pool_objects.shape[0], (B,), **draw)
+    goal_scores = torch.rand((B, N_GOAL_SCORE_ROWS, cfg.n_cells), **draw)
+    return reset_from_pool_draws(cfg, k, perm, pick, goal_scores, pool_objects, pool_agent)
 
 
 def reset_from_seed(cfg: EnvConfig, seed: int, batch_size: int,

@@ -29,8 +29,8 @@ class EnvState:
 
     Field names and dtypes are the JAX ``EnvState``'s, except ``rng``: there
     it holds JAX key data (uint32[B, 2]); here it is an opaque int64[B, 2]
-    that the port carries but never reads. The port's own per-env key scheme
-    arrives with auto-reset, in a later slice.
+    that the port carries but never reads. The port's auto-reset draws fresh
+    worlds from a ``torch.Generator`` instead (``core/rollout.py``).
     """
 
     # Live world.

@@ -1,8 +1,8 @@
 """Carry states between the JAX package and this one, through numpy.
 
 The JAX package's states arrive as dicts of numpy arrays keyed by field name
-(``{k: np.asarray(v) ...}`` of an ``EnvState``, ``SlotState`` or
-``PackedState``), and leave the same way. Every field keeps its dtype except
+(``{k: np.asarray(v) ...}`` of an ``EnvState``, ``SlotState``,
+``TSlotState`` or ``PackedState``), and leave the same way. Every field keeps its dtype except
 ``rng``: the JAX package's uint32 key data becomes the port's opaque int64
 field, and goes back to uint32 on the way out.
 
@@ -23,6 +23,7 @@ import torch
 from gym_craftingworld_tpu_torch.core.slots import SlotState
 from gym_craftingworld_tpu_torch.core.state import EnvState
 from gym_craftingworld_tpu_torch.ops.packed_rollout import PackedState
+from gym_craftingworld_tpu_torch.ops.transposed_rollout import TSlotState
 from gym_craftingworld_tpu_torch.train.fast_ppo import PARAM_NAMES, AdamState, MLPParams
 
 
@@ -51,6 +52,10 @@ def slot_state_from_numpy(d: dict, device="cpu") -> SlotState:
     return SlotState(**_tensors(SlotState._fields, d, device))
 
 
+def tslot_state_from_numpy(d: dict, device="cpu") -> TSlotState:
+    return TSlotState(**_tensors(TSlotState._fields, d, device))
+
+
 def packed_state_from_numpy(d: dict, device="cpu") -> PackedState:
     return PackedState(**_tensors(PackedState._fields, d, device))
 
@@ -61,6 +66,10 @@ def env_state_to_numpy(state: EnvState) -> dict:
 
 
 def slot_state_to_numpy(state: SlotState) -> dict:
+    return _arrays(state._asdict().items())
+
+
+def tslot_state_to_numpy(state: TSlotState) -> dict:
     return _arrays(state._asdict().items())
 
 

@@ -40,6 +40,13 @@ _SIGNATURES = {
     "cw_packed_actions": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # out, B, T, seed, stream
     "cw_action_stream": (_P, _I, _I, _U32, _P),
+    # fused_rollout.cu
+    # in[10], out[6], actions (NULL: Philox), reward, done, B, T, height, width,
+    # max_steps, reward_equal, seed, stream
+    "cw_fused_rollout": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _U32, _P),
+    # in[14], out[8], reward, done, B, T, height, width, max_steps, reward_equal,
+    # seed, stream
+    "cw_fused_rollout_t": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _U32, _P),
     # fused_reset.cu
     # seeds, picks, n, hw, sel_mask, n_sel, n_tasks, stacking, stream
     "cw_pool": (_P, _P, _I, _I, _U32, _I, _I, _I, _P),

@@ -34,6 +34,7 @@ import torch
 from gym_craftingworld_tpu_torch import constants as C
 from gym_craftingworld_tpu_torch.config import EnvConfig
 from gym_craftingworld_tpu_torch.core.slots import SlotState
+from gym_craftingworld_tpu_torch.core.step import scan
 from gym_craftingworld_tpu_torch.ops import _build
 from gym_craftingworld_tpu_torch.ops.packed_rollout import (
     PackedState,
@@ -80,13 +81,8 @@ def rollout_packed_actions_plain(cfg: EnvConfig, p: PackedState,
                                  actions: torch.Tensor):
     """Plain version of the actions kernel: (PackedState, reward int32[T, B], done bool[T, B])."""
     rollout_packed_actions_plain.calls += 1
-    T, B = actions.shape
-    reward = torch.empty((T, B), dtype=torch.int32, device=actions.device)
-    done = torch.empty((T, B), dtype=torch.bool, device=actions.device)
-    for t in range(T):
-        p, res = _step_p_unrolled(cfg, p, actions[t])
-        reward[t], done[t] = res.reward, res.done
-    return p, reward, done
+    p, out = scan(lambda s, a: _step_p_unrolled(cfg, s, a), p, actions)
+    return p, out.reward, out.done
 
 
 def rollout_packed_bench_plain(cfg: EnvConfig, p: PackedState, seed: int,

@@ -33,7 +33,7 @@ import torch
 from gym_craftingworld_tpu_torch import constants as C
 from gym_craftingworld_tpu_torch.config import EnvConfig
 from gym_craftingworld_tpu_torch.core.slots import HELD, ON_GRID, REMOVED, SlotState
-from gym_craftingworld_tpu_torch.core.step import StepResult
+from gym_craftingworld_tpu_torch.core.step import StepResult, scan
 from gym_craftingworld_tpu_torch.ops.transposed_rollout import (
     TSlotState,
     transpose_in,
@@ -469,25 +469,12 @@ def _step_p_unrolled(cfg: EnvConfig, s: PackedState, action: torch.Tensor,
     ), move_ok | can_pickup | can_drop)
 
 
-def _scan(cfg: EnvConfig, p: PackedState, actions: torch.Tensor, step=_step_p):
-    """Step ``p`` through actions [T, B]; per-step outputs stacked [T, B]."""
-    T, B = actions.shape
-    dev = actions.device
-    reward = torch.empty((T, B), dtype=torch.int32, device=dev)
-    done = torch.empty((T, B), dtype=torch.bool, device=dev)
-    changed = torch.empty((T, B), dtype=torch.bool, device=dev)
-    for t in range(T):
-        p, res = step(cfg, p, actions[t])
-        reward[t], done[t], changed[t] = res
-    return p, StepResult(reward=reward, done=done, changed=changed)
-
-
 def rollout_p(cfg: EnvConfig, slots: SlotState, actions, num_steps: int):
     """Step ``actions`` int[T, B] through the packed engine; SlotState I/O."""
     del num_steps
     ts = transpose_in(slots)
     p = pack(cfg, ts)
-    p, out = _scan(cfg, p, actions.to(i16))
+    p, out = scan(lambda s, a: _step_p(cfg, s, a), p, actions.to(i16))
     return transpose_out(unpack(cfg, p, ts.desired, _init_rows(ts)), slots.rng), out
 
 

@@ -1,9 +1,11 @@
 """Transposed slot layout: slot axis first.
 
-Counterpart of ``gym_craftingworld_tpu/ops/transposed_rollout.py``. Only the
-layout and its two conversions are ported so far; they sit on the packed
-engines' path (``ops/packed_rollout.py``). The transposed step ``_step_t``
-comes later.
+Counterpart of ``gym_craftingworld_tpu/ops/transposed_rollout.py``: the slot
+state stored as ``[8, B]`` (and the task vectors as ``[9, B]``, int32), its
+two conversions, and a rollout over it. ``_step_t`` is the slot step of
+``core/slots.py`` with the slot axis first; the packed engines
+(``ops/packed_rollout.py``) and the transposed fused kernel
+(``ops/fused_rollout_t.py``) start from this layout.
 """
 
 from __future__ import annotations
@@ -12,7 +14,10 @@ from typing import NamedTuple
 
 import torch
 
-from gym_craftingworld_tpu_torch.core.slots import SlotState
+from gym_craftingworld_tpu_torch import constants as C
+from gym_craftingworld_tpu_torch.config import EnvConfig
+from gym_craftingworld_tpu_torch.core.slots import SlotState, _step_fields
+from gym_craftingworld_tpu_torch.core.step import scan
 
 
 class TSlotState(NamedTuple):
@@ -70,3 +75,23 @@ def transpose_out(t: TSlotState, rng) -> SlotState:
         step_num=t.step_num,
         rng=rng,
     )
+
+
+def _step_t(cfg: EnvConfig, s: TSlotState, action: torch.Tensor):
+    """One batched step in the transposed layout; ``action`` int[B]. ``s`` is not modified."""
+    new, res = _step_fields(cfg, s._asdict(), action, dim=0)
+    return s._replace(**new), res
+
+
+def rollout_t_random(cfg: EnvConfig, slots: SlotState, generator: torch.Generator,
+                     num_steps: int):
+    """T random-action steps in the transposed layout; returns ``(SlotState, StepResult)``.
+
+    The actions are ``torch.randint`` draws from ``generator``, int32 ``[T, B]``,
+    as in ``core/slots.py::rollout_slots_random``.
+    """
+    B = slots.agent.shape[0]
+    actions = torch.randint(0, C.N_ACTIONS, (num_steps, B), generator=generator,
+                            device=slots.agent.device, dtype=torch.int32)
+    ts, out = scan(lambda s, a: _step_t(cfg, s, a), transpose_in(slots), actions)
+    return transpose_out(ts, slots.rng), out
