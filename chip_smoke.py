@@ -1,13 +1,17 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths once on an NVIDIA GPU and check its kernels.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py               # every phase
+    python3 chip_smoke.py --gemm-core   # phases 1, 9a and 9 only
 
 Needs one CUDA card and ``nvcc`` (on PATH or under CUDA_HOME); imports
 nothing of JAX. Phases, each of which must pass:
 
 1. device and build: print the card's name and power limit, build
-   ``gym_craftingworld_tpu_torch/csrc`` with nvcc for sm_90a;
+   ``gym_craftingworld_tpu_torch/csrc`` with nvcc for sm_90a, print ptxas's
+   registers and spills, the max SM clock and each integer kernel's SASS
+   instructions (``nvdisasm -g``), static and on a warp's path, from which
+   its instruction-rate bound is taken;
 2. main path, with the kernels' launch counters set to 0 just before: reset
    16,384 worlds on the 21x21 grid, convert them to slots, run the fused bench
    rollout, then fetch its action stream and replay it step by step; the
@@ -24,11 +28,17 @@ nothing of JAX. Phases, each of which must pass:
    pool, indexed-gradient and actions kernels must have run 3, 48 and 192
    times, and no plain version at all;
 8. pool kernel against its plain version (bit-exact) at n=32,768;
-9. gradient kernels against their plain version at N=131,072, H=512, F=67
-   (the CPU suite's tolerances), indexed against gathered (rtol 1e-6), and
-   two launches bit-identical;
+9. (9a) the gradient's bf16 product core (``gemm_bf16_kernel``) against its
+   plain version on one tile, a ragged shape and the five product shapes of a
+   minibatch, each output within 1e-5 of the plain result relative to
+   sum |a_i b_i|; then the gradient kernels against their plain version at
+   N=131,072, H=512, F=67 (the CPU suite's tolerances), indexed against
+   gathered (rtol 1e-6), and two launches bit-identical;
 10. fast-PPO timings with CUDA events: ms per update, collect, update phase,
-   pool and gradient kernels against their plain versions;
+   pool and gradient kernels against their plain versions, the peak device
+   memory of one default update; the indexed gradient kernel's device time
+   per sub-kernel (``torch.profiler``), its TFLOP/s and share of its bound,
+   and the five products as five bf16 ``torch.matmul`` calls (the yardstick);
 11. the engine ladder at full width, with every counter set to 0 just before:
    16,384 worlds on 21x21 and the Philox stream of one episode (T=300) run
    through the grid ``rollout``, ``fused_rollout_actions``, ``fused_rollout``,
@@ -44,6 +54,12 @@ nothing of JAX. Phases, each of which must pass:
 
 It prints one JSON line of per-kernel results, then, as its last line,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
+Each kernel's ``bound_ms`` is the larger of its bytes (each input read once,
+each output written once) over 3.35 TB/s and its operations over the peak:
+989 TFLOP/s bf16 for the gradient, and for the integer kernels one
+warp-instruction a clock on each of 132 x 4 schedulers at the max SM clock,
+over the SASS instructions a warp issues on the run's path (``parse_nvdisasm``:
+a branch on the data takes its shorter side).
 """
 
 from __future__ import annotations
@@ -52,6 +68,8 @@ import dataclasses
 import importlib
 import json
 import math
+import os
+import re
 import statistics
 import subprocess
 import sys
@@ -102,6 +120,164 @@ def time_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+# ---------------------------------------------------------------------------
+# bounds: the least time the card could take for a kernel's work
+# ---------------------------------------------------------------------------
+
+PEAK_BF16 = 989e12  # H100 SXM dense bf16 FLOP/s (NVIDIA data sheet)
+PEAK_BYTES = 3.35e12  # HBM3 bytes/s
+SMS, SCHEDULERS = 132, 4  # one warp-instruction a clock per scheduler
+SASS = {}  # mangled kernel name -> SassPaths
+SM_CLOCK_HZ = 0.0
+# Conditions that the launch decides, and that some lane of every warp enters
+# on the runs whose bounds are taken: the step guard of a trip of four
+# unrolled steps (those runs' T are multiples of 4) and the pool kernel's lane
+# tests and Philox-group test (at 21x21 every group of 32 lanes holds a cell).
+# A branch on any other source line depends on the data.
+ENTERED = re.compile(r"t0 \+ j < T|g < pg|lane [<>]=? 4|lane == p")
+
+
+@dataclasses.dataclass
+class SassPaths:
+    """One kernel's SASS instructions (NOPs left out), counted statically and
+    on the path a warp issues: before its outermost loop, in one trip of the
+    loop, and after it."""
+
+    static: int
+    static_body: int
+    pro: int
+    body: int
+    epi: int
+
+
+def sass_paths(library: Path) -> dict:
+    """``parse_nvdisasm`` of each kernel of the built library: its cubins
+    (``cuobjdump -xelf``) as ``nvdisasm -g`` prints them, with the source line
+    of each instruction (the build passes ``-lineinfo``)."""
+    import shutil
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    from gym_craftingworld_tpu_torch.ops import _build
+
+    def tool(name):
+        return shutil.which(name) or str(Path(CUDA_HOME or "/usr/local/cuda") / "bin" / name)
+
+    sources = {}
+
+    def line_text(where):  # "" for a line of the toolkit's headers
+        path = _build.CSRC / Path(where[0]).name
+        if path not in sources:
+            sources[path] = path.read_text().splitlines() if path.is_file() else []
+        return sources[path][where[1] - 1] if where[1] <= len(sources[path]) else ""
+
+    tmp = _build.BUILD_DIR / f"sass.{os.getpid()}"
+    tmp.mkdir(parents=True)
+    try:
+        subprocess.run([tool("cuobjdump"), "-xelf", "all", str(library.resolve())], cwd=tmp,
+                       capture_output=True, check=True, timeout=300)
+        out = {}
+        for cubin in sorted(tmp.glob("*.cubin")):
+            out.update(parse_nvdisasm(subprocess.run(
+                [tool("nvdisasm"), "-g", "-c", str(cubin)], capture_output=True, text=True,
+                check=True, timeout=300).stdout, line_text))
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def parse_nvdisasm(text: str, line_text) -> dict:
+    """{kernel: SassPaths} of the text ``nvdisasm -g -c`` prints.
+
+    A warp issues an instruction when any of its lanes runs it, and it issues
+    predicated instructions whatever their predicate. So a warp's path takes,
+    at each branch on a condition in ``ENTERED`` (``line_text`` gives the
+    branch's source line), the side with more instructions, and at any other
+    branch the side with fewer: the count is the least the run's data lets a
+    warp issue. An inner loop counts one trip.
+    """
+    funcs, name, where = {}, None, None
+    for raw in text.splitlines():
+        line = raw.strip()
+        m = re.fullmatch(r"\.text\.(\S+):", line)
+        if m:
+            name, where = m.group(1), None
+            funcs[name] = ([], {})
+            continue
+        if name is None:
+            continue
+        ins, labels = funcs[name]
+        m = re.fullmatch(r"(\.L_x_\d+):", line)
+        if m:
+            labels[m.group(1)] = len(ins)
+            continue
+        m = re.match(r'//## File "([^"]+)", line (\d+)', line)
+        if m:
+            where = (m.group(1), int(m.group(2)))
+            continue
+        m = re.match(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);", line)
+        if m and not m.group(1).startswith("NOP"):
+            ins.append((m.group(1).strip(), where))
+    return {k: _paths(ins, labels, line_text) for k, (ins, labels) in funcs.items()}
+
+
+def _paths(ins, labels, line_text) -> SassPaths:
+    end = len(ins)  # past an EXIT
+    succ, entered, loops = [], [], []
+    for i, (op, where) in enumerate(ins):
+        m = re.match(r"@(!?U?P\w+)\s+(.*)", op)
+        cond, op = (m.group(1) not in ("PT", "UPT"), m.group(2)) if m else (False, op)
+        mnem = op.split()[0]
+        entered.append(bool(where and ENTERED.search(line_text(where))))
+        if mnem.startswith(("EXIT", "RET")):
+            succ.append([end, i + 1] if cond else [end])
+        elif mnem.startswith("BRA"):
+            m = re.search(r"`\((\.L_x_\d+)\)", op)
+            check(m is not None, f"a branch with a label: {op}")
+            t = labels[m.group(1)]
+            cond = cond or "," in op  # BRA.DIV and uniform-predicate forms
+            succ.append([i + 1, t] if cond else [t])
+            if t < i:
+                loops.append((i - t, t, i))
+        else:
+            succ.append([i + 1])
+
+    def walk(start, stop):
+        cost = [math.inf] * (end + 1)
+        cost[end] = 0 if stop is None else math.inf
+        for i in range(end - 1, start - 1, -1):
+            if stop is not None and i >= stop:
+                cost[i] = 1 if i == stop else math.inf
+                continue
+            opts = [cost[s] for s in succ[i] if s > i and cost[s] < math.inf]
+            if opts:
+                cost[i] = 1 + (max if entered[i] else min)(opts)
+        check(cost[start] < math.inf, f"a path from instruction {start}")
+        return cost[start]
+
+    if not loops:
+        return SassPaths(end, 0, walk(0, None), 0, 0)
+    _, head, latch = max(loops)
+    pro = walk(0, head) - 1 if head else 0
+    return SassPaths(end, latch - head + 1, pro, walk(head, latch), walk(latch + 1, None))
+
+
+def instruction_bound_ms(kernel: str, warps: int, trips: int) -> float:
+    """Least time at one warp-instruction a clock on every scheduler: ``warps``
+    warps, each issuing the kernel's path (``parse_nvdisasm``) with ``trips``
+    trips of its outermost loop."""
+    hits = [v for k, v in SASS.items() if kernel in k]
+    check(len(hits) == 1, f"one SASS function matches {kernel} ({len(hits)})")
+    p = hits[0]
+    return warps * (p.pro + p.body * trips + p.epi) / (SMS * SCHEDULERS * SM_CLOCK_HZ) * 1e3
+
+
+def bound(instr_ms: float, nbytes: float, flop: float = 0.0):
+    """(bound_ms, bound_by): the larger of the byte time and the operation time."""
+    byte_ms = nbytes / PEAK_BYTES * 1e3
+    op_ms = max(instr_ms, flop / PEAK_BF16 * 1e3)
+    return (op_ms, "operations") if op_ms >= byte_ms else (byte_ms, "bytes")
+
+
 def world_invariants(state, cfg) -> None:
     """Every world holds one of each object on 9 distinct cells with the agent."""
     B = state.objects.shape[0]
@@ -141,9 +317,25 @@ def main() -> int:
     path, seconds, log = _build.build()
     print(f"{tag} built {path.relative_to(HERE)} in {seconds:.1f} s")
     for line in log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
+        if any(k in line for k in ("registers", "spill", "Compiling entry", "Performance")):
             print("  ptxas:", line.strip())
     _build.load()
+    global SM_CLOCK_HZ
+    SM_CLOCK_HZ = 1e6 * float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
+    SASS.update(sass_paths(path))
+    integer = ("cw_bench", "cw_actions", "cw_stream", "cw_pool", "cw_slot_rollout")
+    print(f"{tag} max SM clock {SM_CLOCK_HZ / 1e6:.0f} MHz; SASS instructions of the integer "
+          f"kernels, static (all, outermost loop) and on a warp's path (before the loop, a "
+          f"trip, after): " + "; ".join(
+              f"{k}: ({v.static}, {v.static_body}) ({v.pro}, {v.body}, {v.epi})"
+              for k, v in SASS.items() if any(n in k for n in integer)))
+    torch.backends.cuda.matmul.allow_tf32 = False  # plain f32 products in full f32
+    if "--gemm-core" in sys.argv[1:]:  # phase 9a alone: the first check of a new core
+        gemm_core_phase(dev, tag)
+        gradient_phase(cw, dev, tag)
+        return 0
 
     cfg = cw.ray_config()
     B = B_MAIN
@@ -276,8 +468,10 @@ def main() -> int:
         # one run >= 0.2 s, capped so that a broken timer cannot run away
         T = min(4 * math.ceil(0.25 / (probe / 1e3 / 4096) / 4), 1 << 22)
         ms = time_ms(lambda: pf.rollout_packed_bench(cfg, p, 7, T))
+        share = instruction_bound_ms("cw_bench_kernel", -(-B_ // 32), T // 4) / ms
         print(f"{tag} bench kernel B={B_} T={T}: {ms:.2f} ms/run, "
-              f"{B_ * T / (ms / 1e3):.4e} env-steps/s (median of 5)")
+              f"{B_ * T / (ms / 1e3):.4e} env-steps/s (median of 5), {share:.1%} of its "
+              f"issue bound")
     sl = sm.from_env_state(cw.reset_from_seed(cfg, 6, B, device=dev))
     gen.manual_seed(0)
     ms = time_ms(lambda: pr.rollout_p_bench(cfg, sl, gen, 256))
@@ -307,9 +501,19 @@ def main() -> int:
     replaces = {"packed_bench": f"{JAX_KERNELS}:101",
                 "packed_actions": f"{JAX_KERNELS}:122",
                 "action_stream": f"{JAX_KERNELS}:247"}
+    warps = -(-B // 32)
+    # (instructions at the timed T; bytes: state in and out, actions, rewards, dones, stream)
+    state_bytes = 2 * sum(t.numel() * t.element_size() for t in p)  # every field in and out
+    bounds = {"packed_bench": bound(instruction_bound_ms("cw_bench_kernel", warps, 256 // 4),
+                                    state_bytes + 4 * B),
+              "packed_actions": bound(instruction_bound_ms("cw_actions_kernel", warps, 64),
+                                      state_bytes + 64 * B * (4 + 4 + 1)),
+              "action_stream": bound(instruction_bound_ms("cw_stream_kernel", warps, 256 // 4),
+                                     256 * B * 4)}
     kernels = [dict(name=name, route="cuda", source=SOURCE, replaces=replaces[name],
                     launches=launches[name], max_abs_err=r["err"], ms=r["ms"],
-                    plain_ms=r["plain_ms"])
+                    plain_ms=r["plain_ms"], bound_ms=bounds[name][0], bound_by=bounds[name][1],
+                    library_ms=None)
                for name, r in results.items()]
     kernels += fast_ppo_phases(cw, dev, tag)
     kernels += ladder_phases(cw, dev, tag)
@@ -343,6 +547,198 @@ def random_minibatch(gen, dev, n, F):
     return ((torch.rand((n, F), generator=gen, device=dev) < 0.3).to(torch.bfloat16),
             torch.randint(0, 6, (n,), generator=gen, device=dev, dtype=torch.int32),
             -r(n).abs() - 0.5, old_v, r(n), old_v + 0.5 * r(n))
+
+
+def gemm_core_phase(dev, tag, n=131072, H=512):
+    """Phase 9a: the gradient kernel's bf16 product core against its plain
+    version, on one tile, a ragged shape and the five products of a
+    minibatch (n rows, hidden H, features padded to 128). Each output must be
+    within 1e-5 of the plain result relative to sum |a_i b_i|."""
+    from gym_craftingworld_tpu_torch.ops import fused_update as fu
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    shapes = [("one tile", 128, 128, 64), ("ragged", 300, 200, 192),
+              ("z1 = x_pad w1_pad^T", n, H, 128), ("z2 = h1 w2^T", n, H, H),
+              ("dz1 = dz2 w2", n, H, H), ("gw2 = dz2^T h1", H, H, n),
+              ("gw1 = dz1^T x_pad", H, 128, n)]
+    fu.gemm_bf16_kernel.launches = 0
+    worst = 0.0
+    for label, M, N, K in shapes:
+        a = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+        b = torch.randn((N, K), generator=gen, device=dev).to(torch.bfloat16)
+        got = fu.gemm_bf16_kernel(a, b)
+        torch.cuda.synchronize()
+        want = fu.gemm_bf16_plain(a, b)
+        scale = a.float().abs() @ b.float().abs().T
+        err = float(((got - want).abs() / scale.clamp_min(1e-30)).max())
+        worst = max(worst, err)
+        print(f"{tag} GEMM core {label} M={M} N={N} K={K}: max |kernel - plain| / sum|a b| "
+              f"{err:.3e} (limit 1e-5), max |err| {float((got - want).abs().max()):.3e}")
+        check(tuple(got.shape) == (M, N) and got.dtype == torch.float32, f"{label} shape")
+        check(err < 1e-5, f"GEMM core within 1e-5 on {label} ({err:.3e})")
+    check(fu.gemm_bf16_kernel.launches == len(shapes), "the core launched once a shape")
+    return worst
+
+
+def grad_work(n, F, H, A=6):
+    """(FLOP, bytes) a minibatch gradient needs: the five products, counted at
+    F and not the padding, and the three 7-wide head products; each input
+    (features, 5 row vectors, weights) read once, each output written once."""
+    flop = 2 * n * (2 * F * H + 3 * H * H) + 3 * 2 * n * (A + 1) * H
+    weights = 2 * (H * F + H * H + (A + 1) * H) + 4 * (2 * H + A + 1)
+    nbytes = 2 * n * F + 5 * 4 * n + weights + 4 * (H * F + H * H + 9 * H + 8) + 3 * 4 * n
+    return flop, nbytes
+
+
+def five_matmuls(gen, dev, n, F, H):
+    """The gradient's five products as five bf16 ``torch.matmul`` calls
+    (cuBLAS): the yardstick of the kernel's products, never called by the port."""
+    r = lambda *shape: torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    x, h1, dz1, dz2, w1, w2 = r(n, F), r(n, H), r(n, H), r(n, H), r(H, F), r(H, H)
+
+    def run():
+        torch.matmul(x, w1.T)
+        torch.matmul(h1, w2.T)
+        torch.matmul(dz2, w2)
+        torch.matmul(dz2.T, h1)
+        torch.matmul(dz1.T, x)
+    return run
+
+
+def gradient_phase(cw, dev, tag):
+    """Phase 9: the gradient kernels against their plain version at N=131,072,
+    H=512, F=67; indexed against gathered; two launches bit-identical."""
+    from gym_craftingworld_tpu_torch.ops import fused_update as fu
+    from gym_craftingworld_tpu_torch.train import fast_ppo as fp
+
+    cfg, B = cw.ray_config(), B_MAIN
+    F = fp.feature_rows(cfg)
+    gen = torch.Generator(device=dev)
+    results = {}
+    fppo = fp.FastPPOConfig()
+    gen.manual_seed(3)
+    params = fp.init_params(gen, cfg, fppo)
+    N = fppo.rollout_steps * B // fppo.num_minibatches
+    batch = random_minibatch(gen, dev, N, F)
+    w = fu.weights(params)
+    rest = fu._rest(*batch[1:])
+    gk, ak = fu.fused_minibatch_grads(fppo, params, batch)
+    gk2, _ = fu.fused_minibatch_grads(fppo, params, batch)
+    gp, *rows = fu.ppo_grads_plain(fppo, w, batch[0], *rest)
+    _, ap = fu._finish(fppo, N, gp, *rows)
+    err_abs, err_rel, cos = grads_err(gk, gp)
+    loss_err = max(abs(float(ak[k]) - float(ap[k])) / (2e-4 + 2e-3 * abs(float(ap[k]))) for k in ak)
+    print(f"{tag} gradient kernel vs plain N={N} H={fppo.hidden} F={F}: max abs err {err_abs:.3e}, "
+          f"max rel err {err_rel:.3e} (limit 3e-2), min cosine {cos:.7f} (limit 0.999), "
+          f"loss err / tolerance {loss_err:.3e}; kernel {ak['loss']:.7f} plain {ap['loss']:.7f}")
+    check(err_rel < 3e-2 and cos > 0.999 and loss_err <= 1, "gradient kernel within tolerance")
+    check(all(torch.equal(gk[k], gk2[k]) for k in gk), "two launches give the same bits")
+    BLK = fp.shuffle_block(fppo.rollout_steps, B, fppo.num_minibatches)
+    NB = fppo.rollout_steps * B // BLK
+    featb = (torch.rand((NB, BLK, F), generator=gen, device=dev) < 0.3).to(torch.bfloat16)
+    ids = torch.randperm(NB, generator=gen, device=dev)[: NB // fppo.num_minibatches]
+    gi, ai = fu.fused_minibatch_grads_indexed(fppo, params, featb, ids, batch[1:])
+    gathered = (featb[ids].reshape(N, F),) + batch[1:]
+    gg, ag = fu.fused_minibatch_grads(fppo, params, gathered)
+    idx_rel = max(float(((gi[k] - gg[k]).abs() / gg[k].abs().clamp_min(1e-30)).max()) for k in gi)
+    check(all(torch.allclose(gi[k], gg[k], rtol=1e-6, atol=0) for k in gi)
+          and abs(float(ai["loss"]) - float(ag["loss"])) <= 1e-6 * abs(float(ag["loss"])),
+          f"indexed equals gathered at rtol 1e-6 ({idx_rel:.3e})")
+    gpi, *rows_i = fu.ppo_grads_plain(fppo, w, gathered[0], *fu._rest(*batch[1:]))
+    err_abs_i, err_rel_i, cos_i = grads_err(gi, gpi)
+    check(err_rel_i < 3e-2 and cos_i > 0.999, "indexed kernel within tolerance of plain")
+    print(f"{tag} indexed kernel == gathered kernel (max rel diff {idx_rel:.3e}); vs plain: "
+          f"max abs err {err_abs_i:.3e}, max rel err {err_rel_i:.3e}, min cosine {cos_i:.7f}")
+    flop, nbytes = grad_work(N, F, fppo.hidden)
+    library_ms = time_ms(five_matmuls(gen, dev, N, F, fppo.hidden))
+    results["ppo_grads"] = dict(
+        bound=bound(0.0, nbytes, flop), library_ms=library_ms,
+        err=err_abs, ms=time_ms(lambda: fu.fused_minibatch_grads(fppo, params, batch)),
+        plain_ms=time_ms(lambda: fu._finish(fppo, N, *fu.ppo_grads_plain(
+            fppo, fu.weights(params), batch[0], *fu._rest(*batch[1:])))),
+        shape=f"N={N} H={fppo.hidden}", replaces="gym_craftingworld_tpu/ops/fused_update.py:57",
+        source="gym_craftingworld_tpu_torch/csrc/fused_update.cu")
+    results["ppo_grads_indexed"] = dict(
+        bound=bound(0.0, nbytes + 4 * (NB // fppo.num_minibatches), flop), library_ms=library_ms,
+        err=err_abs_i,
+        ms=time_ms(lambda: fu.fused_minibatch_grads_indexed(fppo, params, featb, ids, batch[1:])),
+        plain_ms=time_ms(lambda: fu._finish(fppo, N, *fu.ppo_grads_plain(
+            fppo, fu.weights(params), featb[ids].reshape(N, F), *fu._rest(*batch[1:])))),
+        shape=f"N={N} H={fppo.hidden} BLK={BLK}",
+        replaces="gym_craftingworld_tpu/ops/fused_update.py:270",
+        source="gym_craftingworld_tpu_torch/csrc/fused_update.cu")
+
+    return results
+
+
+GRADIENT_PARTS = {"cw_pad_kernel": "pad pre-pass", "cw_wgmma_gemm": "products",
+                  "cw_heads_kernel": "heads", "cw_head_partial_kernel": "head partials",
+                  "cw_reduce_kernel": "reduces", "cw_transpose_kernel": "transposes"}
+
+
+def gradient_breakdown(cw, dev, tag, r, reps=5):
+    """Phase 10's view of the indexed gradient kernel at the default minibatch:
+    device time per sub-kernel (``torch.profiler``), TFLOP/s and share of the
+    bound from the CUDA-event time ``r["ms"]``, and the five-matmul yardstick."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gym_craftingworld_tpu_torch.ops import fused_update as fu
+    from gym_craftingworld_tpu_torch.train import fast_ppo as fp
+
+    cfg, fppo = cw.ray_config(), fp.FastPPOConfig()
+    F, B = fp.feature_rows(cfg), B_MAIN
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    params = fp.init_params(gen, cfg, fppo)
+    N = fppo.rollout_steps * B // fppo.num_minibatches
+    BLK = fp.shuffle_block(fppo.rollout_steps, B, fppo.num_minibatches)
+    NB = fppo.rollout_steps * B // BLK
+    batch = random_minibatch(gen, dev, N, F)
+    featb = (torch.rand((NB, BLK, F), generator=gen, device=dev) < 0.3).to(torch.bfloat16)
+    ids = torch.randperm(NB, generator=gen, device=dev)[: NB // fppo.num_minibatches]
+    run = lambda: fu.fused_minibatch_grads_indexed(fppo, params, featb, ids, batch[1:])
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+    parts = {v: 0.0 for v in GRADIENT_PARTS.values()}
+    products, others = {}, {}
+    for evt in prof.key_averages():
+        if "CUDA" not in str(getattr(evt, "device_type", "")):
+            continue  # host ops; their kernels are listed on their own
+        ms = float(getattr(evt, "device_time_total", 0.0) or getattr(evt, "cuda_time_total", 0.0)) / 1e3 / reps
+        part = next((v for k, v in GRADIENT_PARTS.items() if k in evt.key), None)
+        if part is None:
+            others[evt.key[:60]] = ms
+            continue
+        parts[part] += ms
+        if part == "products":
+            products[evt.key.split("(")[0]] = ms
+    if sum(parts.values()) > 0:
+        print(f"{tag} gradient kernel N={N} H={fppo.hidden} per launch, device time by "
+              f"sub-kernel (torch.profiler, {reps} launches): "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in parts.items())
+              + f"; sum {sum(parts.values()):.4f} ms; products by epilogue (0 relu, 1 mask, "
+              f"2 f32 partials): " + ", ".join(f"{k} {v:.4f} ms" for k, v in products.items())
+              + f"; the wrapper's torch kernels {sum(others.values()):.4f} ms ("
+              + ", ".join(f"{k} {v:.4f}" for k, v in sorted(others.items(), key=lambda kv: -kv[1])[:4])
+              + ")")
+    else:
+        print(f"{tag} gradient kernel per sub-kernel device time: not measured "
+              f"(the profiler showed no device time)")
+    flop, _ = grad_work(N, F, fppo.hidden)
+    prod_flop = 2 * N * (2 * F * fppo.hidden + 3 * fppo.hidden ** 2)
+    prod_ms = parts["products"]
+    print(f"{tag} gradient kernel N={N} H={fppo.hidden} F={F}: {r['ms']:.4f} ms (CUDA events), "
+          f"{flop / (r['ms'] / 1e3) / 1e12:.2f} TFLOP/s, {100 * r['bound'][0] / r['ms']:.2f}% of "
+          f"its {r['bound'][0]:.4f} ms bound ({r['bound'][1]}); products "
+          + (f"{prod_flop / (prod_ms / 1e3) / 1e12:.2f} TFLOP/s over {prod_ms:.4f} ms"
+             if prod_ms > 0 else "not measured")
+          + f"; five bf16 torch.matmul (cuBLAS, products only) {r['library_ms']:.4f} ms, "
+          f"{prod_flop / (r['library_ms'] / 1e3) / 1e12:.2f} TFLOP/s")
 
 
 def fast_ppo_phases(cw, dev, tag):
@@ -454,60 +850,16 @@ def fast_ppo_phases(cw, dev, tag):
         err=0, ms=time_ms(lambda: fr.pool_picks(cfg, sd, n_pool)),
         plain_ms=time_ms(lambda: fr.fresh_packed_plain(cfg, sd, n_pool)),
         shape=f"n={n_pool} 21x21", replaces="gym_craftingworld_tpu/ops/fused_reset.py:71",
-        source="gym_craftingworld_tpu_torch/csrc/fused_reset.cu")
+        source="gym_craftingworld_tpu_torch/csrc/fused_reset.cu", library_ms=None,
+        bound=bound(instruction_bound_ms("cw_pool_kernelILi4E", n_pool, len(cfg.selected_task_indices)),
+                    4 * 2 + 10 * 4 * n_pool))
     ms_entry = time_ms(lambda: fr.fresh_packed_fused(cfg, sd[0], n_pool, seed2=sd[1]))
     print(f"{tag} fresh_packed_fused (entry point, assembly included) n={n_pool}: "
           f"{ms_entry:.4f} ms; agent-cell chi2 {chi2:.1f} (dof 440)")
 
-    # ---- 9. gradient kernels vs plain -----------------------------------------
-    fppo = fp.FastPPOConfig()
-    gen.manual_seed(3)
-    params = fp.init_params(gen, cfg, fppo)
-    N = fppo.rollout_steps * B // fppo.num_minibatches
-    batch = random_minibatch(gen, dev, N, F)
-    w = fu.weights(params)
-    rest = fu._rest(*batch[1:])
-    gk, ak = fu.fused_minibatch_grads(fppo, params, batch)
-    gk2, _ = fu.fused_minibatch_grads(fppo, params, batch)
-    gp, *rows = fu.ppo_grads_plain(fppo, w, batch[0], *rest)
-    _, ap = fu._finish(fppo, N, gp, *rows)
-    err_abs, err_rel, cos = grads_err(gk, gp)
-    loss_err = max(abs(float(ak[k]) - float(ap[k])) / (2e-4 + 2e-3 * abs(float(ap[k]))) for k in ak)
-    print(f"{tag} gradient kernel vs plain N={N} H={fppo.hidden} F={F}: max abs err {err_abs:.3e}, "
-          f"max rel err {err_rel:.3e} (limit 3e-2), min cosine {cos:.7f} (limit 0.999), "
-          f"loss err / tolerance {loss_err:.3e}; kernel {ak['loss']:.7f} plain {ap['loss']:.7f}")
-    check(err_rel < 3e-2 and cos > 0.999 and loss_err <= 1, "gradient kernel within tolerance")
-    check(all(torch.equal(gk[k], gk2[k]) for k in gk), "two launches give the same bits")
-    BLK = fp.shuffle_block(fppo.rollout_steps, B, fppo.num_minibatches)
-    NB = fppo.rollout_steps * B // BLK
-    featb = (torch.rand((NB, BLK, F), generator=gen, device=dev) < 0.3).to(torch.bfloat16)
-    ids = torch.randperm(NB, generator=gen, device=dev)[: NB // fppo.num_minibatches]
-    gi, ai = fu.fused_minibatch_grads_indexed(fppo, params, featb, ids, batch[1:])
-    gathered = (featb[ids].reshape(N, F),) + batch[1:]
-    gg, ag = fu.fused_minibatch_grads(fppo, params, gathered)
-    idx_rel = max(float(((gi[k] - gg[k]).abs() / gg[k].abs().clamp_min(1e-30)).max()) for k in gi)
-    check(all(torch.allclose(gi[k], gg[k], rtol=1e-6, atol=0) for k in gi)
-          and abs(float(ai["loss"]) - float(ag["loss"])) <= 1e-6 * abs(float(ag["loss"])),
-          f"indexed equals gathered at rtol 1e-6 ({idx_rel:.3e})")
-    gpi, *rows_i = fu.ppo_grads_plain(fppo, w, gathered[0], *fu._rest(*batch[1:]))
-    err_abs_i, err_rel_i, cos_i = grads_err(gi, gpi)
-    check(err_rel_i < 3e-2 and cos_i > 0.999, "indexed kernel within tolerance of plain")
-    print(f"{tag} indexed kernel == gathered kernel (max rel diff {idx_rel:.3e}); vs plain: "
-          f"max abs err {err_abs_i:.3e}, max rel err {err_rel_i:.3e}, min cosine {cos_i:.7f}")
-    results["ppo_grads"] = dict(
-        err=err_abs, ms=time_ms(lambda: fu.fused_minibatch_grads(fppo, params, batch)),
-        plain_ms=time_ms(lambda: fu._finish(fppo, N, *fu.ppo_grads_plain(
-            fppo, fu.weights(params), batch[0], *fu._rest(*batch[1:])))),
-        shape=f"N={N} H={fppo.hidden}", replaces="gym_craftingworld_tpu/ops/fused_update.py:57",
-        source="gym_craftingworld_tpu_torch/csrc/fused_update.cu")
-    results["ppo_grads_indexed"] = dict(
-        err=err_abs_i,
-        ms=time_ms(lambda: fu.fused_minibatch_grads_indexed(fppo, params, featb, ids, batch[1:])),
-        plain_ms=time_ms(lambda: fu._finish(fppo, N, *fu.ppo_grads_plain(
-            fppo, fu.weights(params), featb[ids].reshape(N, F), *fu._rest(*batch[1:])))),
-        shape=f"N={N} H={fppo.hidden} BLK={BLK}",
-        replaces="gym_craftingworld_tpu/ops/fused_update.py:270",
-        source="gym_craftingworld_tpu_torch/csrc/fused_update.cu")
+    # ---- 9. the product core, then the gradient kernels vs plain ----------------
+    gemm_core_phase(dev, tag)
+    results.update(gradient_phase(cw, dev, tag))
 
     # ---- 10. fast-PPO timings ----------------------------------------------------
     for preset, fppo in (("default", fp.FastPPOConfig()),
@@ -544,11 +896,21 @@ def fast_ppo_phases(cw, dev, tag):
               f"fused_pool=False, fused_update=False (median of 5, CUDA events); stages: "
               f"pool {ms_pool:.3f} ms, collect {ms_collect:.2f} ms, GAE {ms_gae:.3f} ms, "
               f"update phase {ms_update:.2f} ms")
+        if preset == "default":
+            torch.cuda.reset_peak_memory_stats(dev)
+            step()
+            torch.cuda.synchronize()
+            print(f"{tag} fast PPO default: peak device memory of one update "
+                  f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB "
+                  f"(torch.cuda.max_memory_allocated)")
+    gradient_breakdown(cw, dev, tag, results["ppo_grads_indexed"])
     for name, r in results.items():
-        print(f"{tag} {name} {r['shape']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms")
+        print(f"{tag} {name} {r['shape']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"bound {r['bound'][0]:.4f} ms ({r['bound'][1]})")
     return [dict(name=name, route="cuda", source=r["source"], replaces=r["replaces"],
                  launches=main_launches[name], max_abs_err=r["err"], ms=r["ms"],
-                 plain_ms=r["plain_ms"])
+                 plain_ms=r["plain_ms"], bound_ms=r["bound"][0], bound_by=r["bound"][1],
+                 library_ms=r["library_ms"])
             for name, r in results.items()]
 
 
@@ -746,21 +1108,25 @@ def ladder_phases(cw, dev, tag):
         return run
 
     rates = {}
-    for name, fn, start in (
-            ("fused_rollout (kernel 7)", lambda s, i: fr.rollout_slots_seeded(cfg, s, i, T_CHUNK)[0], sl),
-            ("fused_rollout_t (kernel 9)", lambda s, i: frt.rollout_t_seeded(cfg, s, i, T_CHUNK)[0], ts)):
+    for name, kernel, fn, start in (
+            ("fused_rollout (kernel 7)", "cw_slot_rollout_kernelI10RowsLayoutLb1E",
+             lambda s, i: fr.rollout_slots_seeded(cfg, s, i, T_CHUNK)[0], sl),
+            ("fused_rollout_t (kernel 9)", "cw_slot_rollout_kernelI13ColumnsLayoutLb1E",
+             lambda s, i: frt.rollout_t_seeded(cfg, s, i, T_CHUNK)[0], ts)):
         probe = time_ms(chained(fn, start, 1), reps=3)
         n = max(1, math.ceil(250 / probe))
         ms = time_ms(chained(fn, start, n))
         rates[name] = B * T_CHUNK * n / (ms / 1e3)
+        share = n * instruction_bound_ms(kernel, -(-B // 32), T_CHUNK // 4) / ms
         print(f"{tag} {name} B={B}: {n} launches x T={T_CHUNK}, {ms:.2f} ms/run, "
-              f"{rates[name]:.4e} env-steps/s (median of 5)")
+              f"{rates[name]:.4e} env-steps/s (median of 5), {share:.1%} of its issue bound")
     p = pr.pack(cfg, ts)
     probe = time_ms(lambda: pf.rollout_packed_bench(cfg, p, 7, 4096), reps=3)
     T = min(4 * math.ceil(0.25 / (probe / 1e3 / 4096) / 4), 1 << 22)
     ms = time_ms(lambda: pf.rollout_packed_bench(cfg, p, 7, T))
+    share = instruction_bound_ms("cw_bench_kernel", -(-B // 32), T // 4) / ms
     print(f"{tag} packed bench kernel (kernel 1) B={B} T={T}: {ms:.2f} ms/run, "
-          f"{B * T / (ms / 1e3):.4e} env-steps/s (median of 5)")
+          f"{B * T / (ms / 1e3):.4e} env-steps/s (median of 5), {share:.1%} of its issue bound")
 
     T = 32
     gen.manual_seed(4)
@@ -770,13 +1136,25 @@ def ladder_phases(cw, dev, tag):
         ms = time_ms(fn)
         print(f"{tag} {name} B={B} T={T}: {ms / T:.4f} ms per step (plain torch, median of 5)")
 
+    # bounds at the timed B and T: instructions, or the state in and out, the
+    # rewards and dones, and the given actions
+    warps, T = -(-B // 32), 256
+    state_bytes = 2 * sum(t.numel() * t.element_size() for t in sl)
+    kern = "cw_slot_rollout_kernelI"
+    bounds = {"fused_rollout": bound(instruction_bound_ms(kern + "10RowsLayoutLb1E", warps, T // 4),
+                                     state_bytes + 5 * T * B),
+              "fused_rollout_actions": bound(instruction_bound_ms(kern + "10RowsLayoutLb0E", warps, T),
+                                             state_bytes + 9 * T * B),
+              "fused_rollout_t": bound(instruction_bound_ms(kern + "13ColumnsLayoutLb1E", warps, T // 4),
+                                       state_bytes + 5 * T * B)}
     source = "gym_craftingworld_tpu_torch/csrc/fused_rollout.cu"
     replaces = {"fused_rollout": "gym_craftingworld_tpu/ops/fused_rollout.py:227",
                 "fused_rollout_actions": "gym_craftingworld_tpu/ops/fused_rollout.py:242",
                 "fused_rollout_t": "gym_craftingworld_tpu/ops/fused_rollout_t.py:165"}
     return [dict(name=name, route="cuda", source=source, replaces=replaces[name],
                  launches=launches[name], max_abs_err=worst[name], ms=r["ms"],
-                 plain_ms=r["plain_ms"])
+                 plain_ms=r["plain_ms"], bound_ms=bounds[name][0], bound_by=bounds[name][1],
+                 library_ms=None)
             for name, r in results.items()]
 
 

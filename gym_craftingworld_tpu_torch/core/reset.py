@@ -202,8 +202,9 @@ def reset_from_pool(cfg: EnvConfig, batch_size: int, generator: torch.Generator,
 
 
 def reset_from_seed(cfg: EnvConfig, seed: int, batch_size: int,
-                    device="cpu") -> EnvState:
-    """Convenience: seed a generator on ``device`` and reset ``batch_size`` envs."""
+                    device="cuda") -> EnvState:
+    """Convenience: seed a generator on ``device`` (the card unless asked for
+    the CPU) and reset ``batch_size`` envs."""
     generator = torch.Generator(device=device)
     generator.manual_seed(seed)
     return reset(cfg, batch_size, generator, device)

@@ -69,8 +69,9 @@ class EnvState:
         return self.objects.shape[1], self.objects.shape[2]
 
 
-def zeros_state(cfg: EnvConfig, batch_size: int, device="cpu") -> EnvState:
-    """An all-empty state of the right shapes (useful as a shape template)."""
+def zeros_state(cfg: EnvConfig, batch_size: int, device="cuda") -> EnvState:
+    """An all-empty state of the right shapes (useful as a shape template), on
+    the card unless asked for the CPU."""
     B, H, W = batch_size, cfg.height, cfg.width
     z = lambda shape, dtype: torch.zeros(shape, dtype=dtype, device=device)
     return EnvState(

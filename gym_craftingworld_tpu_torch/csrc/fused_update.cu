@@ -9,7 +9,8 @@
 //
 // What bounds it: tensor-core products. At N = 131,072 rows, F = 67 and
 // H = 512 a minibatch is ~2.3e11 FLOP in five products (x w1^T, h1 w2^T,
-// dz2 w2, dz2^T h1, dz1^T x), all bf16 operands with f32 accumulation.
+// dz2 w2, dz2^T h1, dz1^T x), all bf16 operands with f32 accumulation: 0.23 ms
+// at the H100's 989 TFLOP/s. The bytes it must move (~22 MB) take ~7 us.
 //
 // Hopper differs from the TPU in two places, and the design answers both:
 //
@@ -23,158 +24,75 @@
 //   split into passes that go through device memory: the forward writes
 //   h1, h2 (bf16); a warp-per-row pass computes the heads, the loss, the
 //   head cotangents and dz2; the backward writes dz1; then the weight
-//   gradients read them back. At N = 131,072, H = 512 that is ~0.5 GB of
+//   gradients read them back. At N = 131,072, H = 512 that is ~1 GB of
 //   scratch traffic a minibatch which the TPU kernel never paid: the first
 //   thing for a later version to remove (fuse the forward into the head
 //   pass, keep h1/h2 tiles in shared memory).
 //
-// The products are one tiled kernel, cw_gemm: 64x64 output tiles, k-steps
-// of 32, four warps each holding 2x2 wmma 16x16x16 bf16 fragments with f32
-// accumulators; operand tiles are staged through shared memory with 16-byte
-// loads where rows are 16-byte aligned (the F = 67 feature rows are not, and
-// go element by element). The two 7-wide head products are SIMT: they are
-// ~1% of the FLOP. wgmma, TMA and pipelining are later work.
+// All five products are one routine, cw_wgmma_gemm (wgmma_gemm.cuh):
+// C = A B^T with both operands K-major, fed by cp.async into a ring of
+// 128-byte-swizzled stages. The operands that are not K-major as the
+// passes produce them get a K-major copy: the z1 and dz1 epilogues also
+// write h1^T and dz1^T, a transpose kernel writes dz2^T and w2^T, and a pad
+// pass gathers the minibatch's feature rows (by block id in the indexed
+// form) into x_pad [n, 128] and x_pad^T [128, ldt], zero beyond column F,
+// beside w1_pad [H, 128]. Transposed copies have ldt = n rounded up to 8
+// columns, the ones past n zero, so the weight gradients sum over ldt rows.
+// The two 7-wide head products are SIMT: they are ~1% of the FLOP.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-#include <type_traits>
+#include "wgmma_gemm.cuh"
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
-#define CW_GM 64
-#define CW_GN 64
-#define CW_GK 32
-#define CW_PAD 8
-#define CW_GTHREADS 128
-#define CW_TILE_ELEMS (CW_GM * (CW_GK + CW_PAD))  // >= CW_GK * (CW_GM + CW_PAD)
+#define CW_FPAD 128   // feature columns padded for the products
 #define CW_NA 6     // actions; head row CW_NA is the value
 #define CW_NH 7     // heads
 #define CW_HSTRIDE 8  // f32 words per row of dheads
+#define CW_PAD_ROWS 64  // rows a block of cw_pad_kernel
 
-enum { EPI_RELU = 0, EPI_MASK = 1, EPI_PART = 2 };
-
-// Operand element (o, i) = p[row(o) * stride + i], with i the contiguous
-// index; row(o) = ids[o / blk] * blk + o % blk when ids is set, else o.
-struct Operand {
-  const bf16* p;
-  long long stride;
-  const int32_t* ids;
-  int blk;
-  int outer_lim, inner_lim;
-};
-
-struct Epilogue {
-  bf16* out;          // EPI_RELU, EPI_MASK: bf16 [M, ldo]
-  const float* bias;  // EPI_RELU
-  const bf16* mask;   // EPI_MASK: keep where mask > 0
-  float* part;        // EPI_PART: f32 [splits, M, N]
-  int ldo;
-};
-
-__device__ __forceinline__ long long row_of(const Operand& op, int o) {
-  return op.ids ? (long long)op.ids[o / op.blk] * op.blk + o % op.blk : (long long)o;
-}
-
-// Shared tile dst[O][I + PAD] <- operand (o0 + o, i0 + i), zero outside.
-template <int O, int I>
-__device__ __forceinline__ void load_tile(bf16* dst, const Operand& op, int o0, int i0) {
-  constexpr int LD = I + CW_PAD;
-  const bool vec = (op.stride % 8 == 0) && ((reinterpret_cast<uintptr_t>(op.p) & 15) == 0) &&
-                   (i0 + I <= op.inner_lim);
-  if (vec) {
-    constexpr int CH = I / 8;
-    for (int c = threadIdx.x; c < O * CH; c += CW_GTHREADS) {
-      const int o = c / CH, i = (c % CH) * 8;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (o0 + o < op.outer_lim)
-        v = *reinterpret_cast<const uint4*>(op.p + row_of(op, o0 + o) * op.stride + i0 + i);
-      *reinterpret_cast<uint4*>(dst + o * LD + i) = v;
+// dst[r, c] = src[row(r), c] for c < f, 0 for f <= c < CW_FPAD, r < rows, with
+// row(r) = ids[r / blk] * blk + r % blk when ids is set, else r; and, when
+// dst_t is set, dst_t[c, r] the same for r < ldt (0 for r >= rows).
+__global__ void __launch_bounds__(256)
+    cw_pad_kernel(const bf16* __restrict__ src, const int32_t* __restrict__ ids, int blk,
+                  int rows, int f, bf16* __restrict__ dst, bf16* __restrict__ dst_t, int ldt) {
+  __shared__ bf16 tile[CW_PAD_ROWS][CW_FPAD + 2];
+  const int r0 = blockIdx.x * CW_PAD_ROWS;
+  for (int i = threadIdx.x; i < CW_PAD_ROWS * CW_FPAD; i += 256) {
+    const int r = i / CW_FPAD, c = i % CW_FPAD, row = r0 + r;
+    bf16 v = __float2bfloat16(0.f);
+    if (row < rows && c < f) {
+      const long long at = ids ? (long long)ids[row / blk] * blk + row % blk : (long long)row;
+      v = src[at * f + c];
     }
-  } else {
-    for (int c = threadIdx.x; c < O * I; c += CW_GTHREADS) {
-      const int o = c / I, i = c % I;
-      bf16 v = __float2bfloat16(0.f);
-      if (o0 + o < op.outer_lim && i0 + i < op.inner_lim)
-        v = op.p[row_of(op, o0 + o) * op.stride + i0 + i];
-      dst[o * LD + i] = v;
-    }
+    tile[r][c] = v;
+    if (row < rows) dst[(size_t)row * CW_FPAD + c] = v;
   }
-}
-
-// C[M, N] = A[M, K] B[K, N] over the k-range of split blockIdx.z.
-// A_K: A's contiguous index is k (else m). B_N: B's contiguous index is n
-// (else k).
-template <bool A_K, bool B_N, int EPI>
-__global__ void __launch_bounds__(CW_GTHREADS)
-    cw_gemm(Operand a, Operand b, int M, int N, int K, int kchunk, Epilogue e) {
-  __shared__ __align__(32) bf16 As[CW_TILE_ELEMS];
-  __shared__ __align__(32) bf16 Bs[CW_TILE_ELEMS];
-  __shared__ __align__(32) float Cs[CW_GM][CW_GN + 4];
-  using ALayout = typename std::conditional<A_K, wmma::row_major, wmma::col_major>::type;
-  using BLayout = typename std::conditional<B_N, wmma::row_major, wmma::col_major>::type;
-
-  const int m0 = blockIdx.x * CW_GM, n0 = blockIdx.y * CW_GN;
-  const int kb = blockIdx.z * kchunk;
-  const int ke = min(K, kb + kchunk);
-  const int warp = threadIdx.x >> 5;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  for (int k0 = kb; k0 < ke; k0 += CW_GK) {
-    if (A_K) load_tile<CW_GM, CW_GK>(As, a, m0, k0);
-    else load_tile<CW_GK, CW_GM>(As, a, k0, m0);
-    if (B_N) load_tile<CW_GK, CW_GN>(Bs, b, k0, n0);
-    else load_tile<CW_GN, CW_GK>(Bs, b, n0, k0);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < CW_GK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, ALayout> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, BLayout> fb[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        if (A_K) wmma::load_matrix_sync(fa[i], As + (wm + 16 * i) * (CW_GK + CW_PAD) + kk, CW_GK + CW_PAD);
-        else wmma::load_matrix_sync(fa[i], As + kk * (CW_GM + CW_PAD) + wm + 16 * i, CW_GM + CW_PAD);
-      }
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        if (B_N) wmma::load_matrix_sync(fb[j], Bs + kk * (CW_GN + CW_PAD) + wn + 16 * j, CW_GN + CW_PAD);
-        else wmma::load_matrix_sync(fb[j], Bs + (wn + 16 * j) * (CW_GK + CW_PAD) + kk, CW_GK + CW_PAD);
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(&Cs[wm + 16 * i][wn + 16 * j], acc[i][j], CW_GN + 4, wmma::mem_row_major);
+  if (dst_t == nullptr) return;
   __syncthreads();
+  for (int i = threadIdx.x; i < CW_PAD_ROWS * CW_FPAD; i += 256) {
+    const int c = i / CW_PAD_ROWS, r = i % CW_PAD_ROWS;
+    if (r0 + r < ldt) dst_t[(size_t)c * ldt + r0 + r] = tile[r][c];
+  }
+}
 
-  for (int c = threadIdx.x; c < CW_GM * CW_GN; c += CW_GTHREADS) {
-    const int r = c / CW_GN, cc = c % CW_GN;
-    const int m = m0 + r, n = n0 + cc;
-    if (m >= M || n >= N) continue;
-    const float v = Cs[r][cc];
-    const size_t at = (size_t)m * e.ldo + n;
-    if (EPI == EPI_RELU) {
-      e.out[at] = __float2bfloat16(fmaxf(v + e.bias[n], 0.f));
-    } else if (EPI == EPI_MASK) {
-      e.out[at] = __bfloat162float(e.mask[at]) > 0.f ? __float2bfloat16(v) : __float2bfloat16(0.f);
-    } else {
-      e.part[((size_t)blockIdx.z * M + m) * N + n] = v;
-    }
+// dst[c, r] = src[r, c] for r < rows, 0 for rows <= r < ldd; src is [rows, cols].
+__global__ void __launch_bounds__(256)
+    cw_transpose_kernel(const bf16* __restrict__ src, int rows, int cols,
+                        bf16* __restrict__ dst, int ldd) {
+  __shared__ bf16 t[32][34];
+  const int r0 = blockIdx.x * 32, c0 = blockIdx.y * 32;
+  for (int i = threadIdx.y; i < 32; i += 8) {
+    const int r = r0 + i, c = c0 + threadIdx.x;
+    t[i][threadIdx.x] = (r < rows && c < cols) ? src[(size_t)r * cols + c] : __float2bfloat16(0.f);
+  }
+  __syncthreads();
+  for (int i = threadIdx.y; i < 32; i += 8) {
+    const int c = c0 + i, r = r0 + threadIdx.x;
+    if (c < cols && r < ldd) dst[(size_t)c * ldd + r] = t[threadIdx.x][i];
   }
 }
 
@@ -310,87 +228,131 @@ __global__ void __launch_bounds__(256)
   if (blockIdx.y == 0 && threadIdx.x < CW_HSTRIDE) out[7 * h + threadIdx.x] = bias_lane ? gbl : 0.f;
 }
 
-// out[i] = sum over s in order of part[s][i]
+// out[r, c] = sum over s in order of part[s, r, c], for c < ow; part is
+// f32 [splits, rows, pw].
 __global__ void __launch_bounds__(256)
     cw_reduce_kernel(const float* __restrict__ part, float* __restrict__ out, int splits,
-                     long long len) {
+                     int rows, int pw, int ow) {
   const long long i = (long long)blockIdx.x * 256 + threadIdx.x;
-  if (i >= len) return;
+  if (i >= (long long)rows * ow) return;
+  const float* p = part + (i / ow) * pw + i % ow;
+  const size_t len = (size_t)rows * pw;
   float s = 0.f;
-  for (int k = 0; k < splits; ++k) s += part[(size_t)k * len + i];
+  for (int k = 0; k < splits; ++k) s += p[k * len];
   out[i] = s;
 }
 
-static int kchunk_for(int K, int splits) {
-  const int per = (K + splits - 1) / splits;
-  return (per + CW_GK - 1) / CW_GK * CW_GK;
+static void launch_reduce(const float* part, float* out, int splits, int rows, int pw, int ow,
+                          cudaStream_t s) {
+  const long long len = (long long)rows * ow;
+  cw_reduce_kernel<<<(unsigned)((len + 255) / 256), 256, 0, s>>>(part, out, splits, rows, pw, ow);
 }
 
-static Operand operand(const void* p, long long stride, int outer_lim, int inner_lim,
-                       const void* ids = nullptr, int blk = 1) {
-  return Operand{(const bf16*)p, stride, (const int32_t*)ids, blk, outer_lim, inner_lim};
+static void launch_transpose(const bf16* src, int rows, int cols, bf16* dst, int ldd,
+                             cudaStream_t s) {
+  cw_transpose_kernel<<<dim3((ldd + 31) / 32, (cols + 31) / 32), dim3(32, 8), 0, s>>>(
+      src, rows, cols, dst, ldd);
 }
 
-static void launch_reduce(const float* part, float* out, int splits, long long len, cudaStream_t s) {
-  cw_reduce_kernel<<<(unsigned)((len + 255) / 256), 256, 0, s>>>(part, out, splits, len);
+// True when s splits of kc rows each cover k rows exactly: the last split
+// holds at least one row.
+static bool covers(int k, int s, int kc) {
+  return s > 0 && kc > 0 && (long long)(s - 1) * kc < k && (long long)s * kc >= k;
 }
+
+#define CW_TRY(x)                              \
+  do {                                         \
+    const cudaError_t err_ = (x);              \
+    if (err_ != cudaSuccess) return (int)err_; \
+  } while (0)
 
 // in:   x bf16 [rows, f], ids int32 [n / blk] or null, action int32 [n],
 //       old_lp, old_v, adv_n, ret f32 [n], w1 bf16 [h, f], b1 f32 [h],
 //       w2 bf16 [h, h], b2 f32 [h], wlv bf16 [7, h], blv f32 [7]
 // work: h1, h2, dz1, dz2 bf16 [n, h], dheads f32 [n, 8],
-//       part_w1 f32 [s_w1, h, f], part_w2 f32 [s_w2, h, h],
-//       part_head f32 [s_head, 9h + 8]
+//       part_w1 f32 [s_w1, h, 128], part_w2 f32 [s_w2, h, h],
+//       part_head f32 [s_head, 9h + 8], h1_t, dz1_t, dz2_t bf16 [h, ldt],
+//       x_pad bf16 [n, 128], x_pad_t bf16 [128, ldt], w1_pad bf16 [h, 128],
+//       w2_t bf16 [h, h]
+// plan: ldt (n rounded up to a multiple of 8), s_w* splits of kc_w* rows
+//       over ldt, s_head: the caller's plan (ops/fused_update.py ppo_plan),
+//       which sized the work buffers; it is checked here, not remade
 // out:  gw1 f32 [h, f], gw2 f32 [h, h], ghead f32 [9h + 8] (gwlv [7, h],
 //       gblv [8], gb1 [h], gb2 [h]), pg_row, v_row, ent_row f32 [n]
 extern "C" int cw_ppo_grads(const void* const* in, void* const* work, void* const* out,
-                            int n, int f, int h, int blk, int s_w1, int s_w2, int s_head,
-                            float clip_eps, float vf_coef, float ent_coef, void* stream) {
+                            int n, int f, int h, int blk, int ldt, int s_w1, int kc_w1,
+                            int s_w2, int kc_w2, int s_head, float clip_eps, float vf_coef,
+                            float ent_coef, void* stream) {
   cudaGetLastError();
-  if (n <= 0 || h <= 0 || f <= 0) return (int)cudaErrorInvalidValue;
+  if (n <= 0 || h <= 0 || f <= 0 || f > CW_FPAD || h % 8 || ldt < n || ldt % 8 ||
+      ldt - n >= 8 || !covers(ldt, s_w1, kc_w1) || !covers(ldt, s_w2, kc_w2) || s_head <= 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const void *x = in[0], *ids = in[1];
+  const int kc_h = (h + CW_BK - 1) / CW_BK * CW_BK;  // one split
+  const bf16 *x = (const bf16*)in[0], *w1 = (const bf16*)in[7], *w2 = (const bf16*)in[9];
   bf16 *h1 = (bf16*)work[0], *h2 = (bf16*)work[1], *dz1 = (bf16*)work[2], *dz2 = (bf16*)work[3];
   float* dheads = (float*)work[4];
-  const dim3 blk_g(CW_GTHREADS);
-  const unsigned mt = (n + CW_GM - 1) / CW_GM, ht = (h + CW_GN - 1) / CW_GN;
-  const unsigned ft = (f + CW_GN - 1) / CW_GN;
+  bf16 *h1_t = (bf16*)work[8], *dz1_t = (bf16*)work[9], *dz2_t = (bf16*)work[10];
+  bf16 *x_pad = (bf16*)work[11], *x_pad_t = (bf16*)work[12], *w1_pad = (bf16*)work[13];
+  bf16* w2_t = (bf16*)work[14];
 
-  // forward: h1 = bf16(relu(x w1^T + b1)), h2 = bf16(relu(h1 w2^T + b2))
+  // K-major operands: the minibatch's padded features and their transpose,
+  // w1 padded, w2 transposed
+  cw_pad_kernel<<<(ldt + CW_PAD_ROWS - 1) / CW_PAD_ROWS, 256, 0, st>>>(
+      x, (const int32_t*)in[1], blk, n, f, x_pad, x_pad_t, ldt);
+  cw_pad_kernel<<<(h + CW_PAD_ROWS - 1) / CW_PAD_ROWS, 256, 0, st>>>(
+      w1, nullptr, 1, h, f, w1_pad, nullptr, 0);
+  launch_transpose(w2, h, h, w2_t, h, st);
+
+  // forward: h1 = bf16(relu(x w1^T + b1)) and h1^T, h2 = bf16(relu(h1 w2^T + b2))
   Epilogue e{};
-  e.out = h1; e.bias = (const float*)in[8]; e.ldo = h;
-  cw_gemm<true, false, EPI_RELU><<<dim3(mt, ht, 1), blk_g, 0, st>>>(
-      operand(x, f, n, f, ids, blk), operand(in[7], f, h, f), n, h, f, kchunk_for(f, 1), e);
-  e.out = h2; e.bias = (const float*)in[10];
-  cw_gemm<true, false, EPI_RELU><<<dim3(mt, ht, 1), blk_g, 0, st>>>(
-      operand(h1, h, n, h), operand(in[9], h, h, h), n, h, h, kchunk_for(h, 1), e);
+  e.out = h1; e.out_t = h1_t; e.bias = (const float*)in[8]; e.ldo = h; e.ldt = ldt;
+  CW_TRY(cw_launch_gemm<EPI_RELU>(x_pad, CW_FPAD, w1_pad, CW_FPAD, n, h, CW_FPAD, CW_FPAD, e, st));
+  e = Epilogue{};
+  e.out = h2; e.bias = (const float*)in[10]; e.ldo = h;
+  CW_TRY(cw_launch_gemm<EPI_RELU>(h1, h, w2, h, n, h, h, kc_h, e, st));
 
-  // heads, loss terms, head cotangents, dz2
+  // heads, loss terms, head cotangents, dz2; then dz2^T
   cw_heads_kernel<<<(n + 7) / 8, 256, 0, st>>>(
       h2, (const bf16*)in[11], (const float*)in[12], (const int32_t*)in[2],
       (const float*)in[3], (const float*)in[4], (const float*)in[5], (const float*)in[6],
       dheads, dz2, (float*)out[3], (float*)out[4], (float*)out[5], n, h, clip_eps,
       vf_coef, ent_coef, (float)(1.0 / n));
+  launch_transpose(dz2, n, h, dz2_t, ldt, st);
 
-  // dz1 = mask(h1) * bf16(dz2 w2)
+  // dz1 = mask(h1) * bf16(dz2 w2) and dz1^T
   e = Epilogue{};
-  e.out = dz1; e.mask = h1; e.ldo = h;
-  cw_gemm<true, true, EPI_MASK><<<dim3(mt, ht, 1), blk_g, 0, st>>>(
-      operand(dz2, h, n, h), operand(in[9], h, h, h), n, h, h, kchunk_for(h, 1), e);
+  e.out = dz1; e.out_t = dz1_t; e.mask = h1; e.ldo = h; e.ldt = ldt;
+  CW_TRY(cw_launch_gemm<EPI_MASK>(dz2, h, w2_t, h, n, h, h, kc_h, e, st));
 
-  // weight gradients, split over rows: dz2^T h1 and dz1^T x
+  // weight gradients, split over rows: dz2^T h1 and dz1^T x_pad
   e = Epilogue{};
   e.part = (float*)work[6];
-  cw_gemm<false, true, EPI_PART><<<dim3(ht, ht, s_w2), blk_g, 0, st>>>(
-      operand(dz2, h, n, h), operand(h1, h, n, h), h, h, n, kchunk_for(n, s_w2), e);
+  CW_TRY(cw_launch_gemm<EPI_PART>(dz2_t, ldt, h1_t, ldt, h, h, ldt, kc_w2, e, st));
   e.part = (float*)work[5];
-  cw_gemm<false, true, EPI_PART><<<dim3(ht, ft, s_w1), blk_g, 0, st>>>(
-      operand(dz1, h, n, h), operand(x, f, n, f, ids, blk), h, f, n, kchunk_for(n, s_w1), e);
+  CW_TRY(cw_launch_gemm<EPI_PART>(dz1_t, ldt, x_pad_t, ldt, h, CW_FPAD, ldt, kc_w1, e, st));
   cw_head_partial_kernel<<<dim3(s_head, (h + 255) / 256), 256, 0, st>>>(
       h2, dz1, dz2, dheads, (float*)work[7], n, h, (n + s_head - 1) / s_head);
 
-  launch_reduce((const float*)work[6], (float*)out[1], s_w2, (long long)h * h, st);
-  launch_reduce((const float*)work[5], (float*)out[0], s_w1, (long long)h * f, st);
-  launch_reduce((const float*)work[7], (float*)out[2], s_head, 9LL * h + CW_HSTRIDE, st);
+  launch_reduce((const float*)work[6], (float*)out[1], s_w2, 1, h * h, h * h, st);
+  launch_reduce((const float*)work[5], (float*)out[0], s_w1, h, CW_FPAD, f, st);
+  launch_reduce((const float*)work[7], (float*)out[2], s_head, 1, 9 * h + CW_HSTRIDE,
+                9 * h + CW_HSTRIDE, st);
+  return (int)cudaGetLastError();
+}
+
+// The product core alone: out f32 [M, N] = a [M, K] b [N, K]^T (bf16, K-major),
+// split over K into `splits` chunks of kchunk; part f32 [splits, M, N], or out
+// itself when there is one split.
+extern "C" int cw_gemm_bf16(const void* a, const void* b, void* part, void* out, int M, int N,
+                            int K, int splits, int kchunk, void* stream) {
+  cudaGetLastError();
+  if (!covers(K, splits, kchunk) || (splits == 1) != (part == out))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  Epilogue e{};
+  e.part = (float*)part;
+  CW_TRY(cw_launch_gemm<EPI_PART>((const bf16*)a, K, (const bf16*)b, K, M, N, K, kchunk, e, st));
+  if (part != out) launch_reduce((const float*)part, (float*)out, splits, 1, M * N, M * N, st);
   return (int)cudaGetLastError();
 }

@@ -28,7 +28,9 @@ PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
-NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# -lineinfo maps each SASS instruction to its source line (for nvdisasm -g);
+# it leaves the generated code as it is
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-lineinfo", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _U32, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
 # C signatures of the entry points in csrc/*.cu
@@ -51,9 +53,11 @@ _SIGNATURES = {
     # seeds, picks, n, hw, sel_mask, n_sel, n_tasks, stacking, stream
     "cw_pool": (_P, _P, _I, _I, _U32, _I, _I, _I, _P),
     # fused_update.cu
-    # in[13], work[8], out[6], n, f, h, blk, s_w1, s_w2, s_head,
-    # clip_eps, vf_coef, ent_coef, stream
-    "cw_ppo_grads": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P),
+    # in[13], work[15], out[6], n, f, h, blk, ldt, s_w1, kc_w1, s_w2, kc_w2,
+    # s_head, clip_eps, vf_coef, ent_coef, stream
+    "cw_ppo_grads": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P),
+    # a, b, part, out, M, N, K, splits, kchunk, stream
+    "cw_gemm_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 

@@ -175,12 +175,12 @@ def fresh_packed_fused(cfg: EnvConfig, seed, n: int, *, seed2=0,
     """``n`` fresh worlds as a PackedState, from two seed words.
 
     ``seed``/``seed2`` are ints or 0-dim integer tensors; ``device``
-    defaults to the seed tensor's device, else the CPU. A CUDA device
+    defaults to the seed tensor's device, else the card. A CUDA device
     launches the pool kernel; the CPU runs ``fresh_packed_plain``. Any ``n``
     is taken (the kernel masks the ragged edge).
     """
     if device is None:
-        device = seed.device if torch.is_tensor(seed) else "cpu"
+        device = seed.device if torch.is_tensor(seed) else "cuda"
     device = torch.device(device)
     as32 = lambda s: torch.as_tensor(s, device=device).to(torch.int64) & MASK32
     seeds = torch.stack([as32(seed), as32(seed2)]).to(torch.int32)  # same bits

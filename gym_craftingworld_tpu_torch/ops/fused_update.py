@@ -21,6 +21,12 @@ fill and the ``[A+1, TILE]`` padding of Mosaic are gone: the loss runs per
 row on 6 logits and the value. The TPU's row tile and its zero padding are
 gone too: the kernel takes any N and masks the ragged edge itself.
 
+The kernel's five products run on one bf16 product core with both operands
+K-major (``csrc/wgmma_gemm.cuh``); ``gemm_bf16_kernel`` launches that core
+alone, beside its plain version ``gemm_bf16_plain``, for tests on the card.
+``pad_features_plain`` is the plain version of the kernel's pad pass, and
+``ppo_plan`` / ``workspace_shapes`` the split plan and scratch it is given.
+
 ``fused_minibatch_grads`` and ``fused_minibatch_grads_indexed`` launch the
 kernel for CUDA tensors and run ``ppo_grads_plain`` for CPU tensors. Each
 counts its kernel launches in ``launches``; ``ppo_grads_plain.calls`` counts
@@ -33,7 +39,6 @@ parameters' shapes, ``aux`` holds the 0-dim ``loss``, ``pg_loss``,
 from __future__ import annotations
 
 import ctypes
-import math
 from typing import NamedTuple
 
 import torch
@@ -44,9 +49,12 @@ bf16 = torch.bfloat16
 f32 = torch.float32
 
 _HEAD_STRIDE = 8  # f32 words a row of the kernel's head cotangents
-_TARGET_BLOCKS = 2048  # split-K blocks a weight gradient aims for
 _HEAD_SPLITS = 512  # row splits x column blocks of the head partials
-_GEMM_TILE, _GEMM_K = 64, 32  # csrc/fused_update.cu CW_GM/CW_GN, CW_GK
+_GEMM_TILE, _GEMM_K = 128, 64  # csrc/wgmma_gemm.cuh CW_BM = CW_BN, CW_BK
+_FPAD = 128  # csrc/fused_update.cu CW_FPAD: feature columns padded for the products
+# split-K blocks a weight gradient aims for: two resident blocks on each of
+# the H100's 132 SMs
+_TARGET_BLOCKS = 2 * 132
 
 
 class Weights(NamedTuple):
@@ -133,14 +141,72 @@ def ppo_grads_plain(fppo, w: Weights, x, action, old_lp, old_v, adv_n, ret):
 ppo_grads_plain.calls = 0
 
 
+def pad_features_plain(x, ids=None, blk: int = 1, width: int = _FPAD):
+    """Plain version of the kernel's pad pass: (x_pad bf16[n, width], its transpose).
+
+    Minibatch row ``r`` is ``x[r]``, or with ``ids`` ``x[ids[r // blk] * blk + r % blk]``;
+    columns past F are zero.
+    """
+    if ids is not None:
+        x = x.view(-1, blk, x.shape[-1])[ids.to(torch.int64)].reshape(-1, x.shape[-1])
+    x_pad = torch.nn.functional.pad(x.to(bf16), (0, width - x.shape[-1]))
+    return x_pad, x_pad.T.contiguous()
+
+
+def gemm_bf16_plain(a, b):
+    """Plain version of the product core: f32 ``a @ b.T`` of bf16 [M, K] and [N, K]."""
+    return a.float() @ b.float().T
+
+
 # --------------------------------------------------------------------------
 # The kernel.
 # --------------------------------------------------------------------------
 
 
-def _splits(rows: int, tiles: int) -> int:
-    """Row splits of a weight gradient of ``tiles`` output tiles."""
-    return max(1, min(math.ceil(rows / _GEMM_K), _TARGET_BLOCKS // tiles))
+def split_plan(k: int, tiles: int) -> tuple[int, int]:
+    """(splits, kchunk) of a split-K product over ``k`` rows with ``tiles`` output tiles.
+
+    Aims for ``_TARGET_BLOCKS`` blocks; ``kchunk`` is a multiple of the k-step
+    and ``splits = ceil(k / kchunk)``; the C entries take both and check that
+    they cover ``k``.
+    """
+    want = max(1, min(-(-k // _GEMM_K), _TARGET_BLOCKS // tiles))
+    kchunk = -(-(-(-k // want)) // _GEMM_K) * _GEMM_K
+    return -(-k // kchunk), kchunk
+
+
+class Plan(NamedTuple):
+    """How ``cw_ppo_grads`` cuts a minibatch of n rows at hidden H."""
+
+    ldt: int  # columns of the transposed copies: n rounded up to 8
+    s_w1: int  # splits of gw1 = dz1^T x_pad, chunks of kc_w1 rows
+    kc_w1: int
+    s_w2: int  # splits of gw2 = dz2^T h1, chunks of kc_w2 rows
+    kc_w2: int
+    s_head: int  # row splits of the head partials
+
+
+def ppo_plan(n: int, H: int) -> Plan:
+    ldt = -(-n // 8) * 8
+    ht = -(-H // _GEMM_TILE)
+    s_w1, kc_w1 = split_plan(ldt, ht * -(-_FPAD // _GEMM_TILE))
+    s_w2, kc_w2 = split_plan(ldt, ht * ht)
+    s_head = max(1, min(n, _HEAD_SPLITS // -(-H // 256)))
+    return Plan(ldt, s_w1, kc_w1, s_w2, kc_w2, s_head)
+
+
+def workspace_shapes(n: int, H: int) -> list[tuple[str, tuple[int, ...], torch.dtype]]:
+    """The kernel's scratch, in the order of ``cw_ppo_grads``'s ``work`` array."""
+    p = ppo_plan(n, H)
+    return [
+        ("h1", (n, H), bf16), ("h2", (n, H), bf16), ("dz1", (n, H), bf16),
+        ("dz2", (n, H), bf16), ("dheads", (n, _HEAD_STRIDE), f32),
+        ("part_w1", (p.s_w1, H, _FPAD), f32), ("part_w2", (p.s_w2, H, H), f32),
+        ("part_head", (p.s_head, 9 * H + _HEAD_STRIDE), f32),
+        ("h1_t", (H, p.ldt), bf16), ("dz1_t", (H, p.ldt), bf16), ("dz2_t", (H, p.ldt), bf16),
+        ("x_pad", (n, _FPAD), bf16), ("x_pad_t", (_FPAD, p.ldt), bf16),
+        ("w1_pad", (H, _FPAD), bf16), ("w2_t", (H, H), bf16),
+    ]
 
 
 def _pointers(tensors):
@@ -149,11 +215,16 @@ def _pointers(tensors):
         *(None if t is None else t.data_ptr() for t in tensors))
 
 
-def _check(name, t, dtype, shape, device):
+def _check(name, t, dtype, shape, device, aligned=False):
+    """Raise unless ``t`` is a contiguous ``dtype[shape]`` on ``device``; with
+    ``aligned``, also unless it starts on a 16-byte boundary, as an operand of
+    the product core must (its copies move 16 bytes at a time)."""
     if t.dtype != dtype or tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: want {dtype}{list(shape)}, got {t.dtype}{list(t.shape)}")
     if not t.is_contiguous() or t.device != device:
         raise ValueError(f"{name}: must be contiguous on {device}")
+    if aligned and t.data_ptr() % 16:
+        raise ValueError(f"{name}: must start on a 16-byte boundary (at {t.data_ptr():#x})")
 
 
 def ppo_grads_kernel(fppo, w: Weights, x, ids, blk: int, action, old_lp, old_v,
@@ -183,21 +254,19 @@ def ppo_grads_kernel(fppo, w: Weights, x, ids, blk: int, action, old_lp, old_v,
     wtypes = (bf16, f32, bf16, f32, bf16, f32)
     for name, t, dtype, shape in zip(Weights._fields, w, wtypes,
                                      ((H, F), (H,), (H, H), (H,), (A + 1, H), (A + 1,))):
-        _check(name, t, dtype, shape, dev)
+        _check(name, t, dtype, shape, dev, aligned=name == "w2")  # w2: z2's operand
 
-    ht, ft = -(-H // _GEMM_TILE), -(-F // _GEMM_TILE)
-    s_w1, s_w2 = _splits(n, ht * ft), _splits(n, ht * ht)
-    s_head = max(1, min(n, _HEAD_SPLITS // -(-H // 256)))
+    if F > _FPAD or H % 8:
+        raise ValueError(f"the kernel takes F <= {_FPAD} and H a multiple of 8, not F={F}, H={H}")
+    p = ppo_plan(n, H)
     empty = lambda *shape, dtype=f32: torch.empty(shape, dtype=dtype, device=dev)
-    work = [empty(n, H, dtype=bf16) for _ in range(4)] + [
-        empty(n, _HEAD_STRIDE), empty(s_w1, H, F), empty(s_w2, H, H),
-        empty(s_head, 9 * H + _HEAD_STRIDE)]
+    work = [empty(*shape, dtype=dtype) for _, shape, dtype in workspace_shapes(n, H)]
     gw1, gw2, ghead = empty(H, F), empty(H, H), empty(9 * H + _HEAD_STRIDE)
     rows = [empty(n) for _ in range(3)]
     ins = [x, ids, action, old_lp, old_v, adv_n, ret, *w]  # a null ids: no block map
     code = _build.load().cw_ppo_grads(
         _pointers(ins), _pointers(work), _pointers([gw1, gw2, ghead, *rows]),
-        n, F, H, blk, s_w1, s_w2, s_head,
+        n, F, H, blk, p.ldt, p.s_w1, p.kc_w1, p.s_w2, p.kc_w2, p.s_head,
         fppo.clip_eps, fppo.vf_coef, fppo.ent_coef,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check("cw_ppo_grads", code)
@@ -209,6 +278,33 @@ def ppo_grads_kernel(fppo, w: Weights, x, ids, blk: int, action, old_lp, old_v,
         "wl": gwlv[:A], "bl": gblv[:A], "wv": gwlv[A:], "bv": gblv[A:],
     }
     return (grads, *rows)
+
+
+def gemm_bf16_kernel(a, b):
+    """Launch the product core alone: f32 ``a @ b.T`` of bf16 [M, K] and [N, K].
+
+    A test entry point (nothing on the main path calls it). K is split as the
+    weight gradients split theirs, and the splits summed in order.
+    """
+    if not _on_cuda(a):
+        return gemm_bf16_plain(a, b)
+    (M, K), N = a.shape, b.shape[0]
+    _check("a", a, bf16, (M, K), a.device, aligned=True)
+    _check("b", b, bf16, (N, K), a.device, aligned=True)
+    if K % 8:
+        raise ValueError(f"K must be a multiple of 8, not {K}")
+    splits, kchunk = split_plan(K, -(-M // _GEMM_TILE) * -(-N // _GEMM_TILE))
+    out = torch.empty((M, N), dtype=f32, device=a.device)
+    part = out if splits == 1 else torch.empty((splits, M, N), dtype=f32, device=a.device)
+    code = _build.load().cw_gemm_bf16(a.data_ptr(), b.data_ptr(), part.data_ptr(),
+                                      out.data_ptr(), M, N, K, splits, kchunk,
+                                      torch.cuda.current_stream(a.device).cuda_stream)
+    _build.check("cw_gemm_bf16", code)
+    gemm_bf16_kernel.launches += 1
+    return out
+
+
+gemm_bf16_kernel.launches = 0
 
 
 # --------------------------------------------------------------------------

@@ -184,16 +184,16 @@ def rollout_packed_actions(cfg: EnvConfig, p: PackedState, actions: torch.Tensor
     return out, reward, done
 
 
-def fused_action_stream(B: int, seed: int, num_steps: int, device="cpu"):
-    """The bench kernel's action stream, as int32[T, B] on ``device``."""
+def fused_action_stream(B: int, seed: int, num_steps: int, device="cuda"):
+    """The bench kernel's action stream, as int32[T, B] on ``device`` (the card
+    unless asked for the CPU)."""
     device = torch.device(device)
     if device.type == "cpu":
         return action_stream_plain(B, seed, num_steps, device)
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
-    lib = _build.load()
     out = torch.empty((num_steps, B), dtype=torch.int32, device=device)
-    code = lib.cw_action_stream(out.data_ptr(), B, num_steps, seed & MASK32,
+    code = _build.load().cw_action_stream(out.data_ptr(), B, num_steps, seed & MASK32,
                                 _stream(device))
     _build.check("cw_action_stream", code)
     fused_action_stream.launches += 1

@@ -118,7 +118,7 @@ def test_pool_invariants():
     """tests/test_fused_reset.py's invariants, on the plain version's pool."""
     cfg = tcfg(jcw.ray_config())
     n = 1000  # not a multiple of anything: the port takes any n
-    p = fr.fresh_packed_fused(cfg, 3, n)
+    p = fr.fresh_packed_fused(cfg, 3, n, device="cpu")
     slot_key, agent_key = p.slot_key.numpy(), p.init_agent_key.numpy()
     HW = cfg.n_cells
     assert slot_key.shape == (C.N_OBJECTS, n)
@@ -141,10 +141,10 @@ def test_pool_invariants():
 def test_pool_respects_task_config():
     """stacking=False draws exactly one task; selected_task_indices bound the mask."""
     single = tcfg(TASK_CONFIGS["flat_single"])
-    des = fr.fresh_packed_fused(single, 5, 1024).desired.numpy().astype(np.int64)
+    des = fr.fresh_packed_fused(single, 5, 1024, device="cpu").desired.numpy().astype(np.int64)
     assert all(bin(int(d)).count("1") == 1 for d in des)
     sel = tcfg(TASK_CONFIGS["flat_sel14"])
-    des2 = fr.fresh_packed_fused(sel, 5, 1024).desired.numpy().astype(np.int64)
+    des2 = fr.fresh_packed_fused(sel, 5, 1024, device="cpu").desired.numpy().astype(np.int64)
     assert (des2 & ~((1 << 1) | (1 << 4)) == 0).all() and (des2 != 0).all()
     assert {bin(int(d)).count("1") for d in des2} == {1, 2}
 
@@ -153,7 +153,7 @@ def test_pool_distribution():
     """The chi-square checks of tests_tpu/test_fused_reset_tpu.py at n = 8192."""
     cfg = tcfg(jcw.ray_config())
     n, HW = 8192, cfg.n_cells
-    p = fr.fresh_packed_fused(cfg, 1234, n, seed2=77)
+    p = fr.fresh_packed_fused(cfg, 1234, n, seed2=77, device="cpu")
     slot_key = p.slot_key.numpy().astype(np.int64)
     agent_key = p.init_agent_key.numpy().astype(np.int64)
     expected = n / HW
@@ -168,10 +168,10 @@ def test_pool_distribution():
     assert chi2_k < 8 + 6 * np.sqrt(16), (hist, chi2_k)
     freq = ((des[:, None] >> np.arange(9)[None, :]) & 1).mean(0)
     assert np.abs(freq - freq.mean()).max() < 0.02, freq
-    again = fr.fresh_packed_fused(cfg, 1234, n, seed2=77)
+    again = fr.fresh_packed_fused(cfg, 1234, n, seed2=77, device="cpu")
     assert all(torch.equal(a, b) for a, b in zip(again, p))
-    assert not torch.equal(fr.fresh_packed_fused(cfg, 99, n, seed2=77).slot_key, p.slot_key)
-    assert not torch.equal(fr.fresh_packed_fused(cfg, 1234, n, seed2=78).slot_key, p.slot_key)
+    assert not torch.equal(fr.fresh_packed_fused(cfg, 99, n, seed2=77, device="cpu").slot_key, p.slot_key)
+    assert not torch.equal(fr.fresh_packed_fused(cfg, 1234, n, seed2=78, device="cpu").slot_key, p.slot_key)
 
 
 def test_pool_wrapper_counts_plain_calls_and_checks_its_kernel_inputs():
@@ -195,5 +195,7 @@ def test_cuda_constants_match_python():
     assert pool["POOL_KEY"] == fr.POOL_KEY and pool["N_PICKS"] == C.N_OBJECTS + 1
     assert pool["POOL_KEY"] != _cuda_defines("philox.cuh")["ACTION_KEY"]
     upd = _cuda_defines("fused_update.cu")
-    assert (upd["GM"], upd["GN"], upd["GK"]) == (fu._GEMM_TILE, fu._GEMM_TILE, fu._GEMM_K)
+    gemm = _cuda_defines("wgmma_gemm.cuh")
+    assert (gemm["BM"], gemm["BN"], gemm["BK"]) == (fu._GEMM_TILE, fu._GEMM_TILE, fu._GEMM_K)
+    assert upd["FPAD"] == fu._FPAD
     assert upd["HSTRIDE"] == fu._HEAD_STRIDE and upd["NA"] == C.N_ACTIONS

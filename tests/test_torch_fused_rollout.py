@@ -124,7 +124,7 @@ def test_seeded_rollouts_share_the_packed_stream():
     rewards sum to its checksum; the grid rollout fed the stream agrees too."""
     cfg = tcw.ray_config()
     B, T, seed = 128, 96, 7
-    grid = tcw.reset_from_seed(cfg, 3, B)
+    grid = tcw.reset_from_seed(cfg, 3, B, device="cpu")
     sl = tsm.from_env_state(grid)
     stream = pf.action_stream_plain(B, seed, T)
     want = tcw.ops.fused_rollout_actions(cfg, sl, stream)
@@ -146,7 +146,7 @@ def test_entry_points_take_any_batch_and_dtypes():
     """No block rule: a ragged batch works, and the entry points cast their
     inputs as the JAX ``_pack_inputs`` does."""
     cfg = tcw.flat_config(reward_equal=False)
-    sl = tsm.from_env_state(tcw.reset_from_seed(cfg, 2, 13))
+    sl = tsm.from_env_state(tcw.reset_from_seed(cfg, 2, 13, device="cpu"))
     actions = torch.as_tensor(crafting_actions(3, 30, 13))
     want = tcw.ops.fused_rollout_actions(cfg, sl, actions)
     wide = sl._replace(slot_type=sl.slot_type.long(), desired=sl.desired.int(),
@@ -160,7 +160,7 @@ def test_cpu_tensors_take_plain_versions():
     """A CPU tensor never reaches a kernel: the launch counters stay put and
     each plain version runs once per call."""
     cfg = tcw.flat_config()
-    sl = tsm.from_env_state(tcw.reset_from_seed(cfg, 4, 8))
+    sl = tsm.from_env_state(tcw.reset_from_seed(cfg, 4, 8, device="cpu"))
     wrappers = (fr.rollout_slots_seeded, fr.rollout_slots_actions, frt.rollout_t_seeded)
     plains = (fr.rollout_slots_seeded_plain, fr.rollout_slots_actions_plain,
               frt.rollout_t_seeded_plain)

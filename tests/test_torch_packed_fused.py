@@ -61,7 +61,7 @@ def test_bench_equals_jax_rollout_p_over_stream():
     B, T, seed = 256, 96, 7
     jsl, tsl = jax_and_port_slots(cfg, 2, B)
     tst, checksum = pf.fused_rollout_packed_bench(tcfg(cfg), tsl, seed, T)
-    stream = pf.fused_action_stream(B, seed, T)
+    stream = pf.fused_action_stream(B, seed, T, device="cpu")
     jst, jout = jpr.rollout_p(cfg, jsl, jnp.asarray(stream.numpy()), T)
     assert checksum.dtype == torch.int64
     assert int(checksum) == int(np.asarray(jout.reward, np.int64).sum())
@@ -74,23 +74,23 @@ def test_action_stream_definition():
     """stream[t, b] is word t % 4 of Philox((t // 4, b, 0, 0), (seed, KEY)) % 6,
     so it depends on (seed, b, t) alone."""
     seed = 0xDEADBEEF1  # wider than 32 bits: only the low word is the key
-    s = pf.fused_action_stream(64, seed, 37)
+    s = pf.fused_action_stream(64, seed, 37, device="cpu")
     assert s.dtype == torch.int32 and tuple(s.shape) == (37, 64)
     for t, b in [(0, 0), (3, 5), (4, 63), (36, 17)]:
         words = philox.philox4x32([torch.tensor(t // 4), torch.tensor(b), 0, 0],
                                   (seed & philox.MASK32, pf.ACTION_KEY))
         assert int(s[t, b]) == int(words[t % 4]) % 6
-    assert torch.equal(pf.fused_action_stream(4, seed, 5), s[:5, :4])
+    assert torch.equal(pf.fused_action_stream(4, seed, 5, device="cpu"), s[:5, :4])
 
 
 def test_action_stream_uniform_and_seeded():
-    a = pf.fused_action_stream(2048, 12345, 1024)
-    assert torch.equal(a, pf.fused_action_stream(2048, 12345, 1024))
+    a = pf.fused_action_stream(2048, 12345, 1024, device="cpu")
+    assert torch.equal(a, pf.fused_action_stream(2048, 12345, 1024, device="cpu"))
     assert int(a.min()) >= 0 and int(a.max()) <= 5
     freq = np.bincount(a.numpy().ravel(), minlength=6) / a.numel()
     np.testing.assert_allclose(freq, 1 / 6, atol=2e-3)
-    a1 = pf.fused_action_stream(2048, 1, 256)
-    a2 = pf.fused_action_stream(2048, 2, 256)
+    a1 = pf.fused_action_stream(2048, 1, 256, device="cpu")
+    a2 = pf.fused_action_stream(2048, 2, 256, device="cpu")
     agree = float((a1 == a2).float().mean())
     assert 0.15 < agree < 0.18, agree  # independent streams agree 1/6 of the time
 
@@ -104,7 +104,7 @@ def test_whole_slice_equals_jax():
     tst0 = port_reset_like_jax(cfg, 9, B)
     tsl, checksum = pf.fused_rollout_packed_bench(
         tcfg(cfg), tsm.from_env_state(tst0), seed, T)
-    stream = pf.fused_action_stream(B, seed, T).numpy()
+    stream = pf.fused_action_stream(B, seed, T, device="cpu").numpy()
     jsl, jout = jpr.rollout_p(cfg, jsm.from_env_state(jst0), jnp.asarray(stream), T)
     assert int(checksum) == int(np.asarray(jout.reward, np.int64).sum())
     for got, want in zip(tsm.to_grid(tsl, tcfg(cfg)), jsm.to_grid(jsl, cfg)):
@@ -120,7 +120,7 @@ def test_cpu_tensors_take_plain_versions():
     before = (pf.rollout_packed_bench.launches, pf.rollout_packed_actions.launches,
               pf.fused_action_stream.launches)
     st, checksum = pf.fused_rollout_packed_bench(cfg, tsl, 5, 20)
-    actions = pf.fused_action_stream(32, 5, 20)
+    actions = pf.fused_action_stream(32, 5, 20, device="cpu")
     st2, rew, _ = pf.fused_rollout_packed(cfg, tsl, actions, 20)
     assert int(rew.sum()) == int(checksum)
     for f in tsm.SlotState._fields:

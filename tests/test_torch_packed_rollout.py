@@ -122,7 +122,7 @@ def test_rollout_p_equals_jax(name):
 
 def test_rollout_p_bench_matches_random():
     cfg = tcw.ray_config()
-    sl = tsm.from_env_state(tcw.reset_from_seed(cfg, 3, 16))
+    sl = tsm.from_env_state(tcw.reset_from_seed(cfg, 3, 16, device="cpu"))
     gen = lambda: torch.Generator().manual_seed(11)
     sa, out = tpr.rollout_p_random(cfg, sl, gen(), 200)
     sb, acc = tpr.rollout_p_bench(cfg, sl, gen(), 200)

@@ -88,10 +88,10 @@ def _chi2(counts, expected):
 def test_generator_reset_invariants_and_distribution():
     cfg = tcw.flat_config()  # 8x8
     B, n = 4096, cfg.n_cells
-    st = tcw.reset_from_seed(cfg, 0, B)
-    again = tcw.reset_from_seed(cfg, 0, B)
+    st = tcw.reset_from_seed(cfg, 0, B, device="cpu")
+    again = tcw.reset_from_seed(cfg, 0, B, device="cpu")
     np.testing.assert_array_equal(st.objects.numpy(), again.objects.numpy())
-    assert not torch.equal(st.objects, tcw.reset_from_seed(cfg, 1, B).objects)
+    assert not torch.equal(st.objects, tcw.reset_from_seed(cfg, 1, B, device="cpu").objects)
 
     objects = st.objects.numpy().reshape(B, n)
     agent = st.agent.numpy()
@@ -126,12 +126,12 @@ def test_generator_reset_invariants_and_distribution():
 def test_generator_reset_respects_selection():
     cfg = tcw.EnvConfig(height=5, width=5, max_steps=10,
                         selected_task_indices=(1, 4, 7), number_of_tasks=3)
-    desired = tcw.reset_from_seed(cfg, 3, 512).desired.numpy()
+    desired = tcw.reset_from_seed(cfg, 3, 512, device="cpu").desired.numpy()
     allowed = np.zeros(C.N_TASKS, np.int8)
     allowed[[1, 4, 7]] = 1
     assert (desired <= allowed[None]).all()
     assert (desired.sum(axis=1) >= 1).all()
-    single = tcw.reset_from_seed(cfg.replace(stacking=False), 3, 512).desired
+    single = tcw.reset_from_seed(cfg.replace(stacking=False), 3, 512, device="cpu").desired
     assert (single.sum(dim=1) == 1).all()
 
 
@@ -142,7 +142,7 @@ def test_state_helpers_equal_jax():
 
     cfg = jcw.flat_config()
     jz = jstate.zeros_state(cfg, 3)
-    tz = interop.env_state_to_numpy(tstate.zeros_state(tcw.flat_config(), 3))
+    tz = interop.env_state_to_numpy(tstate.zeros_state(tcw.flat_config(), 3, device="cpu"))
     for f in dataclasses.fields(jz):
         want = np.asarray(getattr(jz, f.name))
         assert tz[f.name].shape == want.shape and tz[f.name].dtype == want.dtype, f.name

@@ -114,7 +114,7 @@ def test_slot_engines_equal_grid_step(cfg, seed, steps):
     """Both slot layouts against the port's grid step, every step
     (tests/test_slots_equivalence.py, on the port)."""
     B = 16
-    grid = tcw.reset_from_seed(cfg, seed, B)
+    grid = tcw.reset_from_seed(cfg, seed, B, device="cpu")
     sl = tsm.from_env_state(grid)
     ts = ttr.transpose_in(sl)
     rng = np.random.RandomState(seed + 500)
@@ -138,7 +138,7 @@ def test_random_rollouts_agree():
     draw the same int32 actions from one generator state and agree."""
     cfg = tcw.flat_config()
     B, T = 32, 128
-    grid = tcw.reset_from_seed(cfg, 9, B)
+    grid = tcw.reset_from_seed(cfg, 9, B, device="cpu")
     sl = tsm.from_env_state(grid)
     gen = lambda: torch.Generator().manual_seed(4)
     g_st, g_out = tcw.rollout_random(cfg, grid, gen(), T)

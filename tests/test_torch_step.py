@@ -108,7 +108,7 @@ def test_step_fuzz_equals_jax(seed, reward_equal):
 
 def test_step_leaves_its_input_alone():
     cfg = tcw.flat_config()
-    st = tcw.reset_from_seed(cfg, 1, 32)
+    st = tcw.reset_from_seed(cfg, 1, 32, device="cpu")
     before = interop.env_state_to_numpy(st)
     tcw.step(cfg, st, torch.full((32,), C.ACTION_PICKUP))
     tcw.step(cfg, st, torch.zeros(32, dtype=torch.int64))
@@ -149,7 +149,7 @@ def test_rollout_equals_jax(cfg):
 
 def test_rollout_random_draws_int32_actions_from_the_generator():
     cfg = tcw.flat_config()
-    st = tcw.reset_from_seed(cfg, 2, 16)
+    st = tcw.reset_from_seed(cfg, 2, 16, device="cpu")
     g = torch.Generator().manual_seed(8)
     actions = torch.randint(0, 6, (40, 16), generator=torch.Generator().manual_seed(8),
                             dtype=torch.int32)
@@ -165,7 +165,7 @@ def test_auto_reset():
     0 with no task achieved, and every state stays valid."""
     cfg = tcw.EnvConfig(height=8, width=8, max_steps=20, reward_equal=False)
     B, T = 4096, 20
-    st0 = tcw.reset_from_seed(cfg, 6, B)
+    st0 = tcw.reset_from_seed(cfg, 6, B, device="cpu")
     actions = torch.as_tensor(crafting_actions(7, T, B))
     g = torch.Generator().manual_seed(9)
     replay = torch.Generator().manual_seed(9)
@@ -242,7 +242,7 @@ def test_check_state_equals_jax():
     with pytest.raises(AssertionError) as terr:
         tval.assert_valid_state(tcfg(cfg), interop.env_state_from_numpy(state))
     assert str(terr.value) == str(jerr.value)
-    tval.assert_valid_state(tcfg(cfg), tcw.reset_from_seed(tcfg(cfg), 0, 8))
+    tval.assert_valid_state(tcfg(cfg), tcw.reset_from_seed(tcfg(cfg), 0, 8, device="cpu"))
 
 
 def jax_pool_draws(cfg, pool_seed, P, seed, B):
