@@ -10,16 +10,26 @@ nothing of JAX. Phases, each of which must pass:
 1. device and build: print the card's name and power limit, build
    ``gym_craftingworld_tpu_torch/csrc`` with nvcc for sm_90a, print ptxas's
    registers and spills, the max SM clock and each integer kernel's SASS
-   instructions (``nvdisasm -g``), static and on a warp's path, from which
-   its instruction-rate bound is taken;
+   instructions (``nvdisasm -g``), static and on a warp's path, the path by
+   pipe class (integer, FMA, memory, other), from which its issue bounds are
+   taken; then check the pipe classes on the card (``pipe_probe``);
 2. main path, with the kernels' launch counters set to 0 just before: reset
    16,384 worlds on the 21x21 grid, convert them to slots, run the fused bench
    rollout, then fetch its action stream and replay it step by step; the
    replay must give the bench's final state and checksum;
-3. actions kernel against its plain version (bit-exact);
+3. actions kernel against its plain version (bit-exact) on 21x21 at
+   B=16,384, on 8x8 with pickups and drops, on a ragged batch (B=16,421), at
+   T=1, and on 181x181 with keys near int16's top (``near_top``);
 4. action-stream kernel against the plain Philox (bit-exact, uniform, seeded);
-5. bench kernel against its plain version (bit-exact);
-6. timings with CUDA events, median of 5 runs after a warm-up;
+5. bench kernel against its plain version (bit-exact) on 21x21 at T=512 and
+   T=299, a ragged batch, 8x8 and 181x181; the device time of the actions
+   kernel at T=1 and T=64 and of the bench kernel at T=256
+   (``torch.profiler``) beside their CUDA-event times; a profiler session
+   that reads below the kernel's bound, or lost events, is discarded and
+   named, and the phase fails if no session of five is sound;
+6. timings with CUDA events, median of 5 runs after a warm-up; the bench
+   kernel's long-T rate at B=16,384 and 131,072 with its share of both
+   issue bounds;
 7. the fast-PPO trainer at full width, with every counter set to 0 just
    before: 16,384 envs on 21x21, the default ``FastPPOConfig`` (hidden 512,
    T=64, 2 epochs x 8 minibatches), ``train_many_fast`` for 3 updates, then
@@ -56,10 +66,12 @@ It prints one JSON line of per-kernel results, then, as its last line,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
 Each kernel's ``bound_ms`` is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its operations over the peak:
-989 TFLOP/s bf16 for the gradient, and for the integer kernels one
-warp-instruction a clock on each of 132 x 4 schedulers at the max SM clock,
-over the SASS instructions a warp issues on the run's path (``parse_nvdisasm``:
-a branch on the data takes its shorter side).
+989 TFLOP/s bf16 for the gradient, and for the integer kernels the two-rate
+issue bound of the SASS instructions a warp issues on the run's path
+(``parse_nvdisasm``: a branch on the data takes its shorter side) on each of
+132 x 4 schedulers at the max SM clock: one warp-instruction a clock, and one
+on the integer pipe every second clock (``pipe_bound_ms``). The single-rate
+bound (``instruction_bound_ms``) is printed beside it.
 """
 
 from __future__ import annotations
@@ -82,6 +94,7 @@ HERE = Path(__file__).resolve().parent
 SOURCE = "gym_craftingworld_tpu_torch/csrc/packed_fused.cu"
 JAX_KERNELS = "gym_craftingworld_tpu/ops/packed_fused.py"
 B_MAIN = 16384
+B_SMALL = 4096  # the 8x8 and 181x181 checks of phases 3 and 5
 PPO_UPDATES = 3
 # steps per launch when timing the seeded slot kernels: the [T, B] reward and
 # done slabs (5 bytes an env-step, 671 MB at B_MAIN) bound one launch's T
@@ -120,6 +133,55 @@ def time_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def device_events(fn, reps: int, complete, tries: int = 3):
+    """``torch.profiler``'s device events ``[(name, count, us)]`` of ``reps``
+    calls of ``fn()``, from the first of ``tries`` sessions whose events pass
+    ``complete``; None if none does. A session in a process that has run
+    others before it can come back with events missing, so each caller says
+    what a whole session holds."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [(e.key, e.count, float(getattr(e, "device_time_total", 0.0)
+                                         or getattr(e, "cuda_time_total", 0.0)))
+                  for e in prof.key_averages() if "CUDA" in str(getattr(e, "device_type", ""))]
+        if complete(events):
+            return events
+    return None
+
+
+def device_ms(fn, kernel: str, floor_ms: float, reps: int = 20, tries: int = 5):
+    """Mean device time a call of ``fn()`` spends in the one kernel whose name
+    holds ``kernel`` (``torch.profiler``), from the first of ``tries`` sessions
+    that recorded it ``reps`` times at no less than ``floor_ms`` a call (the
+    kernel's bound: a reading below it cannot be the kernel's). Returns (ms,
+    discarded), ``discarded`` naming each session passed over and why; fails
+    if no session gives a sound reading."""
+    discarded = []
+
+    def sound(events):
+        hits = [(c, us) for k, c, us in events if kernel in k]
+        if [c for c, _ in hits] != [reps]:
+            discarded.append(f"{[c for c, _ in hits]} events where {reps} ran")
+            return False
+        ms = hits[0][1] / 1e3 / reps
+        if ms < floor_ms:
+            discarded.append(f"{ms:.5f} ms, below its bound {floor_ms:.5f} ms")
+            return False
+        return True
+
+    events = device_events(fn, reps, sound, tries)
+    check(events is not None, f"a sound device time of {kernel} in {tries} sessions "
+          f"(discarded: {'; '.join(discarded)})")
+    return sum(us for k, _, us in events if kernel in k) / 1e3 / reps, discarded
+
+
 # ---------------------------------------------------------------------------
 # bounds: the least time the card could take for a kernel's work
 # ---------------------------------------------------------------------------
@@ -137,17 +199,53 @@ SM_CLOCK_HZ = 0.0
 ENTERED = re.compile(r"t0 \+ j < T|g < pg|lane [<>]=? 4|lane == p")
 
 
+# Pipe classes of the SASS a warp issues, after NVIDIA's Hopper white paper
+# (each SM sub-partition has 16 INT32 lanes beside 32 FP32 lanes), the CUDA C
+# programming guide's throughput table for compute capability 9.0 (64 results
+# a clock an SM for 32-bit integer add, compare, logic, shift and min/max) and
+# Nsight Compute's pipe names ("alu": integer and logic but IMAD/IMUL; "fma":
+# FP32 arithmetic, IMAD, IMUL). A warp-instruction on the integer pipe holds
+# it for two clocks; IMAD and IMUL go to the FMA pipe, where the compiler also
+# puts moves and adds it writes as IMAD.MOV / IMAD.IADD / IMAD.SHL, and
+# Hopper's add of an immediate, VIADD. Uniform (U-prefixed) instructions,
+# branches and special-register reads are "other". Phase 1's probe
+# (``pipe_probe``) holds the table to the card.
+PIPES = ("int", "fma", "mem", "other")
+INT_PIPE = frozenset(
+    "IADD3 IADD LOP3 LOP ISETP ICMP SEL SHF SHL SHR PRMT IMNMX VIMNMX VIADDMNMX IABS LEA "
+    "BMSK SGXT PLOP3 P2R R2P MOV FLO POPC BREV FSEL FSETP FMNMX".split())
+FMA_PIPE = frozenset("IMAD IMUL IDP FFMA FMUL FADD VIADD".split())
+MEM_PIPE = frozenset(
+    "LDG STG LDS STS LD ST LDC SHFL ATOM ATOMS ATOMG RED LDGSTS LDSM".split())
+
+
+def pipe_of(op: str) -> str:
+    """The pipe class of one SASS instruction (its predicate stripped)."""
+    base = op.split()[0].split(".")[0]
+    for name, ops in (("int", INT_PIPE), ("fma", FMA_PIPE), ("mem", MEM_PIPE)):
+        if base in ops:
+            return name
+    return "other"
+
+
 @dataclasses.dataclass
 class SassPaths:
     """One kernel's SASS instructions (NOPs left out), counted statically and
     on the path a warp issues: before its outermost loop, in one trip of the
-    loop, and after it."""
+    loop, and after it; ``pipes`` splits the path by ``PIPES`` class,
+    ``{class: (pro, body, epi)}``."""
 
     static: int
     static_body: int
     pro: int
     body: int
     epi: int
+    pipes: dict = dataclasses.field(default_factory=dict)
+
+    def on_pipe(self, pipe: str, trips: int) -> int:
+        """Instructions of class ``pipe`` on the path with ``trips`` trips."""
+        pro, body, epi = self.pipes[pipe]
+        return pro + body * trips + epi
 
 
 def sass_paths(library: Path) -> dict:
@@ -222,11 +320,13 @@ def parse_nvdisasm(text: str, line_text) -> dict:
 
 def _paths(ins, labels, line_text) -> SassPaths:
     end = len(ins)  # past an EXIT
-    succ, entered, loops = [], [], []
+    succ, entered, loops, unit = [], [], [], []
     for i, (op, where) in enumerate(ins):
         m = re.match(r"@(!?U?P\w+)\s+(.*)", op)
         cond, op = (m.group(1) not in ("PT", "UPT"), m.group(2)) if m else (False, op)
         mnem = op.split()[0]
+        # (all, int, fma, mem, other): one instruction of its class
+        unit.append((1,) + tuple(int(pipe_of(op) == p) for p in PIPES))
         entered.append(bool(where and ENTERED.search(line_text(where))))
         if mnem.startswith(("EXIT", "RET")):
             succ.append([end, i + 1] if cond else [end])
@@ -241,34 +341,171 @@ def _paths(ins, labels, line_text) -> SassPaths:
         else:
             succ.append([i + 1])
 
+    add = lambda a, b: tuple(x + y for x, y in zip(a, b))
+    zero = (0,) * (1 + len(PIPES))
+
     def walk(start, stop):
-        cost = [math.inf] * (end + 1)
-        cost[end] = 0 if stop is None else math.inf
+        """Counts (all, then by pipe) of the path from ``start`` to the exit,
+        or to instruction ``stop`` included; the branch sides are chosen by
+        the count of all instructions."""
+        cost = [None] * (end + 1)
+        cost[end] = zero if stop is None else None
         for i in range(end - 1, start - 1, -1):
             if stop is not None and i >= stop:
-                cost[i] = 1 if i == stop else math.inf
+                cost[i] = unit[i] if i == stop else None
                 continue
-            opts = [cost[s] for s in succ[i] if s > i and cost[s] < math.inf]
+            opts = [cost[s] for s in succ[i] if s > i and cost[s] is not None]
             if opts:
-                cost[i] = 1 + (max if entered[i] else min)(opts)
-        check(cost[start] < math.inf, f"a path from instruction {start}")
+                cost[i] = add(unit[i], (max if entered[i] else min)(opts, key=lambda c: c[0]))
+        check(cost[start] is not None, f"a path from instruction {start}")
         return cost[start]
 
     if not loops:
-        return SassPaths(end, 0, walk(0, None), 0, 0)
-    _, head, latch = max(loops)
-    pro = walk(0, head) - 1 if head else 0
-    return SassPaths(end, latch - head + 1, pro, walk(head, latch), walk(latch + 1, None))
+        pro, body, epi, static_body = walk(0, None), zero, zero, 0
+    else:
+        _, head, latch = max(loops)
+        pro = tuple(x - u for x, u in zip(walk(0, head), unit[head])) if head else zero
+        body, epi, static_body = walk(head, latch), walk(latch + 1, None), latch - head + 1
+    return SassPaths(end, static_body, pro[0], body[0], epi[0],
+                     {p: (pro[k], body[k], epi[k]) for k, p in enumerate(PIPES, 1)})
+
+
+def sass_of(kernel: str) -> SassPaths:
+    hits = [v for k, v in SASS.items() if kernel in k]
+    check(len(hits) == 1, f"one SASS function matches {kernel} ({len(hits)})")
+    return hits[0]
 
 
 def instruction_bound_ms(kernel: str, warps: int, trips: int) -> float:
     """Least time at one warp-instruction a clock on every scheduler: ``warps``
     warps, each issuing the kernel's path (``parse_nvdisasm``) with ``trips``
     trips of its outermost loop."""
-    hits = [v for k, v in SASS.items() if kernel in k]
-    check(len(hits) == 1, f"one SASS function matches {kernel} ({len(hits)})")
-    p = hits[0]
+    p = sass_of(kernel)
     return warps * (p.pro + p.body * trips + p.epi) / (SMS * SCHEDULERS * SM_CLOCK_HZ) * 1e3
+
+
+def pipe_bound_ms(kernel: str, warps: int, trips: int) -> float:
+    """The two-rate issue bound: each scheduler issues at most one
+    warp-instruction a clock, and one on the integer pipe every second clock
+    (16 INT32 lanes a sub-partition), so a warp's path takes at least
+    max(all, 2 x integer-pipe) clocks of its scheduler."""
+    p = sass_of(kernel)
+    clocks = max(p.on_pipe("int", trips) * 2, p.pro + p.body * trips + p.epi)
+    return warps * clocks / (SMS * SCHEDULERS * SM_CLOCK_HZ) * 1e3
+
+
+def shares(kernel: str, warps: int, trips: int, ms: float) -> str:
+    """The kernel's share of its single-rate and two-rate issue bounds; a
+    share over 100% would mean the pipe classes are wrong, and is not shown."""
+    one, two = (f(kernel, warps, trips) / ms for f in (instruction_bound_ms, pipe_bound_ms))
+    if two > 1.0:
+        return (f"{one:.1%} of its single-rate issue bound; two-rate share over 100% "
+                f"({two:.1%}): the pipe class table is wrong, share not published")
+    return f"{one:.1%} of its single-rate and {two:.1%} of its two-rate issue bound"
+
+
+def pipe_line(kernel: str) -> str:
+    """A warp's path by pipe class: before the loop, a trip, after it."""
+    p = sass_of(kernel)
+    return ", ".join(f"{k} {p.pipes[k]}" for k in PIPES)
+
+
+# Phase 1's check of the pipe classes: loops of eight independent chains of
+# one or two instruction kinds, eight warps a scheduler, timed with clock64.
+PROBE_SOURCE = r"""
+#include <cuda_runtime.h>
+#define J(d) x[(i + d) % 8]
+template <int OP>
+__global__ void __launch_bounds__(1024) cw_pipe_probe(long long* cycles, int* sink, int iters, int k) {
+  int x[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) x[i] = threadIdx.x * (i + 3) + k;
+  __syncthreads();
+  const long long t0 = clock64();
+#pragma unroll 1
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        if (OP == 0) x[i] = (x[i] + 7) ^ J(1);
+        if (OP == 1) x[i] = (x[i] == J(1)) ? J(2) : x[i] + 1;
+        if (OP == 2) x[i] = min(x[i], J(1)) * J(2);
+        if (OP == 3) x[i] = __byte_perm(x[i], J(1), 0x3210 + k);
+        if (OP == 4) x[i] *= J(1);
+      }
+    }
+  }
+  __syncthreads();
+  const long long t1 = clock64();
+  int s = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) s ^= x[i];
+  if (s == 0x12345678) sink[threadIdx.x] = s;
+  if (threadIdx.x == 0) cycles[blockIdx.x] = t1 - t0;
+}
+extern "C" int cw_pipe_probe_run(int op, void* cycles, void* sink, int blocks, int iters, int k) {
+  void (*fns[])(long long*, int*, int, int) = {cw_pipe_probe<0>, cw_pipe_probe<1>, cw_pipe_probe<2>,
+                                               cw_pipe_probe<3>, cw_pipe_probe<4>};
+  fns[op]<<<blocks, 1024>>>((long long*)cycles, (int*)sink, iters, k);
+  return (int)cudaDeviceSynchronize();
+}
+"""
+PROBES = ("(x + 7) ^ y", "x == y ? z : x + 1", "min(x, y) * z", "byte_perm(x, y)", "x * y")
+
+
+def pipe_probe(tag: str) -> None:
+    """Check the pipe classes on the card: each probe loop's measured
+    warp-instructions a clock a scheduler must not exceed what its two-rate
+    bound allows (its instructions over the larger of them and twice its
+    integer-pipe ones), within 2% for the clock64 windows; a probe above that
+    means the class table is wrong, and fails. The probe of x == y ? z : x + 1
+    (ISETP and SEL on the integer pipe, VIADD beside them) runs at its bound."""
+    import ctypes
+
+    from gym_craftingworld_tpu_torch.ops import _build
+
+    d = _build.BUILD_DIR / f"probe.{os.getpid()}"
+    d.mkdir(parents=True)
+    try:
+        (d / "probe.cu").write_text(PROBE_SOURCE)
+        base = [_build._nvcc(), *_build.ARCH, "-O3", "-lineinfo"]
+        procs = [subprocess.Popen(base + extra + [str(d / "probe.cu")], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for extra in (["-cubin", "-o", str(d / "probe.cubin")],
+                               ["-shared", "-Xcompiler", "-fPIC", "-o", str(d / "probe.so")])]
+        for proc in procs:
+            out, _ = proc.communicate(timeout=300)
+            check(proc.returncode == 0, f"the pipe probe builds: {out}")
+        nvdisasm = str(Path(_build._nvcc()).parent / "nvdisasm")
+        paths = parse_nvdisasm(subprocess.run([nvdisasm, "-g", "-c", str(d / "probe.cubin")],
+                                              capture_output=True, text=True, check=True,
+                                              timeout=300).stdout, lambda where: "")
+        lib = ctypes.CDLL(str(d / "probe.so"))
+        lib.cw_pipe_probe_run.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                                          ctypes.c_int, ctypes.c_int, ctypes.c_int]
+        blocks = torch.cuda.get_device_properties(0).multi_processor_count
+        cycles = torch.zeros(blocks, dtype=torch.int64, device=DEVICE)
+        sink = torch.zeros(1024, dtype=torch.int32, device=DEVICE)
+        iters, lines = 20000, []
+        for op, name in enumerate(PROBES):
+            (p,) = [v for k, v in paths.items() if f"cw_pipe_probeILi{op}E" in k]
+            for n in (200, iters):  # a warm-up, then the timed run
+                check(lib.cw_pipe_probe_run(op, cycles.data_ptr(), sink.data_ptr(), blocks, n, 0) == 0,
+                      "the pipe probe runs")
+            clocks = float(cycles.double().median())
+            warps = 1024 // 32 // SCHEDULERS
+            rate = warps * iters * p.body / clocks
+            allowed = p.body / max(p.body, 2 * p.pipes["int"][1])
+            check(rate <= 1.02 * allowed, f"pipe probe {name}: {rate:.3f} a clock where its "
+                  f"two-rate bound allows {allowed:.3f}; the class table is wrong")
+            lines.append(f"{name}: a trip {p.body} ({', '.join(f'{k} {p.pipes[k][1]}' for k in PIPES)}), "
+                         f"{rate:.3f} a clock, the two-rate bound allows {allowed:.3f}")
+        print(f"{tag} pipe probe, warp-instructions a clock a scheduler at {warps} warps a "
+              f"scheduler (clock64): " + "; ".join(lines))
+    finally:
+        import shutil
+        shutil.rmtree(d, ignore_errors=True)
 
 
 def bound(instr_ms: float, nbytes: float, flop: float = 0.0):
@@ -287,6 +524,18 @@ def world_invariants(state, cfg) -> None:
     check(bool((counts[:, 1:9] == 1).all()), "one of each of the 8 objects per world")
     agent = state.agent[:, 0].to(torch.int64) * cfg.width + state.agent[:, 1]
     check(bool((flat.gather(1, agent[:, None]) == 0).all()), "agent on an empty cell")
+
+
+def near_top(p, cfg):
+    """A packed state with keys at int16's top end: even envs hold their axe
+    (slot 1 at key H*W, holding the axe) and every third env has lost its
+    rock (slot 3 at H*W + 1), as after a pickup and a chop."""
+    env = torch.arange(p.agent_r.shape[0], device=p.agent_r.device)
+    key = p.slot_key.clone()
+    hold = env % 2 == 0
+    key[1] = torch.where(hold, cfg.n_cells, key[1])
+    key[3] = torch.where(env % 3 == 0, cfg.n_cells + 1, key[3])
+    return p._replace(slot_key=key, holding=torch.where(hold, 2, p.holding).to(torch.int16))
 
 
 def main() -> int:
@@ -331,6 +580,14 @@ def main() -> int:
           f"trip, after): " + "; ".join(
               f"{k}: ({v.static}, {v.static_body}) ({v.pro}, {v.body}, {v.epi})"
               for k, v in SASS.items() if any(n in k for n in integer)))
+    for k in SASS:
+        if any(n in k for n in integer):
+            p = SASS[k]
+            trip_int = p.pipes["int"][1]
+            print(f"{tag} {k} path by pipe (before the loop, a trip, after): {pipe_line(k)}; "
+                  f"a trip issues {p.body} at one a clock, {2 * trip_int} clocks of the integer "
+                  f"pipe at one every second clock")
+    pipe_probe(tag)
     torch.backends.cuda.matmul.allow_tf32 = False  # plain f32 products in full f32
     if "--gemm-core" in sys.argv[1:]:  # phase 9a alone: the first check of a new core
         gemm_core_phase(dev, tag)
@@ -393,11 +650,15 @@ def main() -> int:
 
     # ---- 3. actions kernel vs plain ----------------------------------------
     gen = torch.Generator(device=dev)
+    flat = cw.flat_config(reward_equal=False)
+    # a grid whose keys come near int16's top: held key 32,761, removed 32,762
+    big = cw.ray_config(height=181, width=181)
     worst = 0
-    for cfg_, B_, mix in [(cfg, B, False),
-                          (cw.flat_config(reward_equal=False), 4096, True)]:
+    for label, cfg_, B_, T, mix in [("21x21", cfg, B, 64, False), ("8x8 mix", flat, B_SMALL, 64, True),
+                                    ("21x21 ragged", cfg, B + 37, 64, False),
+                                    ("21x21 T=1", cfg, B, 1, False),
+                                    ("181x181 mix", big, B_SMALL, 64, True)]:
         gen.manual_seed(1234)
-        T = 64
         actions = torch.randint(0, 6, (T, B_), generator=gen, device=dev,
                                 dtype=torch.int32)
         if mix:  # regular pickups and drops, so crafting fires
@@ -405,14 +666,17 @@ def main() -> int:
             actions = torch.where(t % 7 == 6, 4, torch.where(t % 11 == 10, 5, actions % 4))
             actions = actions.to(torch.int32).contiguous()
         p = packed(cfg_, B_, 2)
+        if cfg_ is big:
+            p = near_top(p, cfg_)
         pk, rk, dk = pf.rollout_packed_actions(cfg_, p, actions)
         pp, rp, dp = pf.rollout_packed_actions_plain(cfg_, p, actions)
         err = max_abs_diff(list(zip(pk, pp)) + [(rk, rp), (dk, dp)])
-        check(err == 0, f"actions kernel bit-exact, tolerance 0 ({cfg_.height}x{cfg_.width}, err {err})")
+        check(err == 0, f"actions kernel bit-exact, tolerance 0 ({label}, err {err})")
         worst = max(worst, err)
-        print(f"{tag} actions kernel == plain: {cfg_.height}x{cfg_.width} B={B_} T={T} "
+        print(f"{tag} actions kernel == plain: {label} B={B_} T={T} "
               f"reward_equal={cfg_.reward_equal} successes {int((rk == cfg_.max_steps).sum())} "
-              f"achieved bits {int(pk.achieved.sum())}")
+              f"achieved bits {int(pk.achieved.sum())}, max key {int(pk.slot_key.max())}, "
+              f"held or removed slots {int((pk.slot_key >= cfg_.n_cells).sum())}")
     p = packed(cfg, B, 3)
     acts = torch.randint(0, 6, (64, B), generator=gen, device=dev, dtype=torch.int32)
     results["packed_actions"] = dict(
@@ -423,6 +687,10 @@ def main() -> int:
     ms_entry = time_ms(lambda: pf.fused_rollout_packed(cfg, slots, acts, 64))
     print(f"{tag} fused_rollout_packed (entry point, pack/unpack included) "
           f"B={B} T=64: {ms_entry:.3f} ms")
+    # the collect's shape: one step a launch, 64 launches an update
+    acts1 = acts[:1].contiguous()
+    collect = dict(ms=time_ms(lambda: pf.rollout_packed_actions(cfg, p, acts1)),
+                   plain_ms=time_ms(lambda: pf.rollout_packed_actions_plain(cfg, p, acts1)))
 
     # ---- 4. stream kernel vs plain Philox ----------------------------------
     T = 256
@@ -446,20 +714,63 @@ def main() -> int:
         shape=f"B={B} T={T}")
 
     # ---- 5. bench kernel vs plain ------------------------------------------
-    T = 512
-    p = packed(cfg, B, 4)
-    pk, ck = pf.rollout_packed_bench(cfg, p, 99, T)
-    pp, cp = pf.rollout_packed_bench_plain(cfg, p, 99, T)
-    err = max_abs_diff(list(zip(pk, pp)) + [(ck, cp)])
-    check(err == 0, f"bench kernel bit-exact, tolerance 0 (err {err})")
-    print(f"{tag} bench kernel == plain: B={B} T={T}, checksum "
-          f"{int(ck.sum(dtype=torch.int64))}")
+    worst = 0
+    for label, cfg_, B_, T in [("21x21", cfg, B, 512), ("21x21 T=299", cfg, B, 299),
+                               ("21x21 ragged", cfg, B + 37, 300), ("8x8", flat, B_SMALL, 300),
+                               ("181x181", big, B_SMALL, 300)]:
+        p = packed(cfg_, B_, 4)
+        if cfg_ is big:
+            p = near_top(p, cfg_)
+        pk, ck = pf.rollout_packed_bench(cfg_, p, 99, T)
+        pp, cp = pf.rollout_packed_bench_plain(cfg_, p, 99, T)
+        err = max_abs_diff(list(zip(pk, pp)) + [(ck, cp)])
+        check(err == 0, f"bench kernel bit-exact, tolerance 0 ({label}, err {err})")
+        worst = max(worst, err)
+        print(f"{tag} bench kernel == plain: {label} B={B_} T={T}, checksum "
+              f"{int(ck.sum(dtype=torch.int64))}, {int((pk.achieved != 0).sum())} "
+              f"envs with a task bit, held or removed slots "
+              f"{int((pk.slot_key >= cfg_.n_cells).sum())}")
     T = 256
+    p = packed(cfg, B, 4)
     results["packed_bench"] = dict(
-        err=err,
+        err=worst,
         ms=time_ms(lambda: pf.rollout_packed_bench(cfg, p, 99, T)),
         plain_ms=time_ms(lambda: pf.rollout_packed_bench_plain(cfg, p, 99, T)),
         shape=f"B={B} T={T}")
+
+    # bounds at the timed shapes (instructions two-rate; bytes: state in and
+    # out, actions, rewards, dones, stream)
+    p3 = packed(cfg, B, 3)
+    warps = -(-B // 32)
+    state_bytes = 2 * sum(t.numel() * t.element_size() for t in p3)  # every field in and out
+    trips = {"cw_bench_kernel": 256 // 4, "cw_actions_kernel": 64,
+             "cw_stream_kernel": 256 // 4}
+    bounds = {"packed_bench": bound(pipe_bound_ms("cw_bench_kernel", warps, trips["cw_bench_kernel"]),
+                                    state_bytes + 4 * B),
+              "packed_actions": bound(pipe_bound_ms("cw_actions_kernel", warps,
+                                                    trips["cw_actions_kernel"]),
+                                      state_bytes + 64 * B * (4 + 4 + 1)),
+              "action_stream": bound(pipe_bound_ms("cw_stream_kernel", warps, trips["cw_stream_kernel"]),
+                                     256 * B * 4)}
+    b1 = bound(pipe_bound_ms("cw_actions_kernel", warps, 1), state_bytes + B * (4 + 4 + 1))
+    # device time (torch.profiler) beside the CUDA-event time, which also
+    # holds the wrapper's host work
+    device = {
+        "packed_actions T=1": (collect["ms"], device_ms(
+            lambda: pf.rollout_packed_actions(cfg, p3, acts1), "cw_actions_kernel", b1[0])),
+        "packed_actions T=64": (results["packed_actions"]["ms"], device_ms(
+            lambda: pf.rollout_packed_actions(cfg, p3, acts), "cw_actions_kernel",
+            bounds["packed_actions"][0])),
+        "packed_bench T=256": (results["packed_bench"]["ms"], device_ms(
+            lambda: pf.rollout_packed_bench(cfg, p, 99, 256), "cw_bench_kernel",
+            bounds["packed_bench"][0])),
+    }
+    for name, (ev, (dv, discarded)) in device.items():
+        print(f"{tag} {name} B={B}: CUDA events {ev:.4f} ms, device time {dv:.4f} ms "
+              f"(torch.profiler, mean of 20 calls); sessions discarded: "
+              + ("; ".join(discarded) or "none"))
+    results["packed_actions"]["device_ms"] = device["packed_actions T=64"][1][0]
+    results["packed_bench"]["device_ms"] = device["packed_bench T=256"][1][0]
 
     # ---- 6. throughput -----------------------------------------------------
     for B_ in (B, 8 * B):
@@ -468,10 +779,9 @@ def main() -> int:
         # one run >= 0.2 s, capped so that a broken timer cannot run away
         T = min(4 * math.ceil(0.25 / (probe / 1e3 / 4096) / 4), 1 << 22)
         ms = time_ms(lambda: pf.rollout_packed_bench(cfg, p, 7, T))
-        share = instruction_bound_ms("cw_bench_kernel", -(-B_ // 32), T // 4) / ms
         print(f"{tag} bench kernel B={B_} T={T}: {ms:.2f} ms/run, "
-              f"{B_ * T / (ms / 1e3):.4e} env-steps/s (median of 5), {share:.1%} of its "
-              f"issue bound")
+              f"{B_ * T / (ms / 1e3):.4e} env-steps/s (median of 5), "
+              f"{shares('cw_bench_kernel', -(-B_ // 32), T // 4, ms)}")
     sl = sm.from_env_state(cw.reset_from_seed(cfg, 6, B, device=dev))
     gen.manual_seed(0)
     ms = time_ms(lambda: pr.rollout_p_bench(cfg, sl, gen, 256))
@@ -493,23 +803,25 @@ def main() -> int:
     for name, fn in stages.items():
         print(f"{tag} stage {name} B={B} T={T_MAIN}: {time_ms(fn):.4f} ms "
               f"(device span, median of 5)")
-    for name, r in results.items():
-        print(f"{tag} {name} {r['shape']}: kernel {r['ms']:.4f} ms, "
-              f"plain {r['plain_ms']:.4f} ms")
     print(f"launch counters of the main path: {launches}")
 
     replaces = {"packed_bench": f"{JAX_KERNELS}:101",
                 "packed_actions": f"{JAX_KERNELS}:122",
                 "action_stream": f"{JAX_KERNELS}:247"}
-    warps = -(-B // 32)
-    # (instructions at the timed T; bytes: state in and out, actions, rewards, dones, stream)
-    state_bytes = 2 * sum(t.numel() * t.element_size() for t in p)  # every field in and out
-    bounds = {"packed_bench": bound(instruction_bound_ms("cw_bench_kernel", warps, 256 // 4),
-                                    state_bytes + 4 * B),
-              "packed_actions": bound(instruction_bound_ms("cw_actions_kernel", warps, 64),
-                                      state_bytes + 64 * B * (4 + 4 + 1)),
-              "action_stream": bound(instruction_bound_ms("cw_stream_kernel", warps, 256 // 4),
-                                     256 * B * 4)}
+    for name, r in results.items():
+        kern = f"cw_{name.split('_', 1)[1]}_kernel"
+        dv = r.get("device_ms")
+        print(f"{tag} {name} {r['shape']}: kernel {r['ms']:.4f} ms"
+              + (f" (device {dv:.4f} ms)" if dv else "") + f", plain {r['plain_ms']:.4f} ms, "
+              f"bound {bounds[name][0]:.5f} ms ({bounds[name][1]}); CUDA events "
+              f"{shares(kern, warps, trips[kern], r['ms'])}"
+              + (f"; device time {shares(kern, warps, trips[kern], dv)}" if dv else ""))
+    # one step a launch
+    dv = device["packed_actions T=1"][1][0]
+    print(f"{tag} packed_actions at the collect's shape B={B} T=1 (64 launches an update): "
+          f"kernel {collect['ms']:.4f} ms (CUDA events), device {dv:.5f} ms, "
+          f"plain {collect['plain_ms']:.4f} ms, bound {b1[0]:.5f} ms ({b1[1]}), "
+          f"device share {b1[0] / dv:.1%}")
     kernels = [dict(name=name, route="cuda", source=SOURCE, replaces=replaces[name],
                     launches=launches[name], max_abs_err=r["err"], ms=r["ms"],
                     plain_ms=r["plain_ms"], bound_ms=bounds[name][0], bound_by=bounds[name][1],
@@ -681,8 +993,6 @@ def gradient_breakdown(cw, dev, tag, r, reps=5):
     """Phase 10's view of the indexed gradient kernel at the default minibatch:
     device time per sub-kernel (``torch.profiler``), TFLOP/s and share of the
     bound from the CUDA-event time ``r["ms"]``, and the five-matmul yardstick."""
-    from torch.profiler import ProfilerActivity, profile
-
     from gym_craftingworld_tpu_torch.ops import fused_update as fu
     from gym_craftingworld_tpu_torch.train import fast_ppo as fp
 
@@ -698,25 +1008,21 @@ def gradient_breakdown(cw, dev, tag, r, reps=5):
     featb = (torch.rand((NB, BLK, F), generator=gen, device=dev) < 0.3).to(torch.bfloat16)
     ids = torch.randperm(NB, generator=gen, device=dev)[: NB // fppo.num_minibatches]
     run = lambda: fu.fused_minibatch_grads_indexed(fppo, params, featb, ids, batch[1:])
-    run()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            run()
-        torch.cuda.synchronize()
+    # whole when every sub-kernel ran a whole number of times a launch
+    whole = lambda ev: all(c % reps == 0 for k, c, _ in ev if any(n in k for n in GRADIENT_PARTS)) \
+        and all(any(n in k for k, _, _ in ev) for n in GRADIENT_PARTS)
+    events = device_events(run, reps, whole) or []
     parts = {v: 0.0 for v in GRADIENT_PARTS.values()}
     products, others = {}, {}
-    for evt in prof.key_averages():
-        if "CUDA" not in str(getattr(evt, "device_type", "")):
-            continue  # host ops; their kernels are listed on their own
-        ms = float(getattr(evt, "device_time_total", 0.0) or getattr(evt, "cuda_time_total", 0.0)) / 1e3 / reps
-        part = next((v for k, v in GRADIENT_PARTS.items() if k in evt.key), None)
+    for key, _, us in events:
+        ms = us / 1e3 / reps
+        part = next((v for k, v in GRADIENT_PARTS.items() if k in key), None)
         if part is None:
-            others[evt.key[:60]] = ms
+            others[key[:60]] = ms
             continue
         parts[part] += ms
         if part == "products":
-            products[evt.key.split("(")[0]] = ms
+            products[key.split("(")[0]] = ms
     if sum(parts.values()) > 0:
         print(f"{tag} gradient kernel N={N} H={fppo.hidden} per launch, device time by "
               f"sub-kernel (torch.profiler, {reps} launches): "
@@ -728,7 +1034,7 @@ def gradient_breakdown(cw, dev, tag, r, reps=5):
               + ")")
     else:
         print(f"{tag} gradient kernel per sub-kernel device time: not measured "
-              f"(the profiler showed no device time)")
+              f"(no profiler session recorded every sub-kernel whole)")
     flop, _ = grad_work(N, F, fppo.hidden)
     prod_flop = 2 * N * (2 * F * fppo.hidden + 3 * fppo.hidden ** 2)
     prod_ms = parts["products"]
@@ -851,7 +1157,7 @@ def fast_ppo_phases(cw, dev, tag):
         plain_ms=time_ms(lambda: fr.fresh_packed_plain(cfg, sd, n_pool)),
         shape=f"n={n_pool} 21x21", replaces="gym_craftingworld_tpu/ops/fused_reset.py:71",
         source="gym_craftingworld_tpu_torch/csrc/fused_reset.cu", library_ms=None,
-        bound=bound(instruction_bound_ms("cw_pool_kernelILi4E", n_pool, len(cfg.selected_task_indices)),
+        bound=bound(pipe_bound_ms("cw_pool_kernelILi4E", n_pool, len(cfg.selected_task_indices)),
                     4 * 2 + 10 * 4 * n_pool))
     ms_entry = time_ms(lambda: fr.fresh_packed_fused(cfg, sd[0], n_pool, seed2=sd[1]))
     print(f"{tag} fresh_packed_fused (entry point, assembly included) n={n_pool}: "
@@ -1117,16 +1423,16 @@ def ladder_phases(cw, dev, tag):
         n = max(1, math.ceil(250 / probe))
         ms = time_ms(chained(fn, start, n))
         rates[name] = B * T_CHUNK * n / (ms / 1e3)
-        share = n * instruction_bound_ms(kernel, -(-B // 32), T_CHUNK // 4) / ms
         print(f"{tag} {name} B={B}: {n} launches x T={T_CHUNK}, {ms:.2f} ms/run, "
-              f"{rates[name]:.4e} env-steps/s (median of 5), {share:.1%} of its issue bound")
+              f"{rates[name]:.4e} env-steps/s (median of 5), "
+              f"{shares(kernel, -(-B // 32), T_CHUNK // 4, ms / n)}")
     p = pr.pack(cfg, ts)
     probe = time_ms(lambda: pf.rollout_packed_bench(cfg, p, 7, 4096), reps=3)
     T = min(4 * math.ceil(0.25 / (probe / 1e3 / 4096) / 4), 1 << 22)
     ms = time_ms(lambda: pf.rollout_packed_bench(cfg, p, 7, T))
-    share = instruction_bound_ms("cw_bench_kernel", -(-B // 32), T // 4) / ms
     print(f"{tag} packed bench kernel (kernel 1) B={B} T={T}: {ms:.2f} ms/run, "
-          f"{B * T / (ms / 1e3):.4e} env-steps/s (median of 5), {share:.1%} of its issue bound")
+          f"{B * T / (ms / 1e3):.4e} env-steps/s (median of 5), "
+          f"{shares('cw_bench_kernel', -(-B // 32), T // 4, ms)}")
 
     T = 32
     gen.manual_seed(4)
@@ -1141,11 +1447,11 @@ def ladder_phases(cw, dev, tag):
     warps, T = -(-B // 32), 256
     state_bytes = 2 * sum(t.numel() * t.element_size() for t in sl)
     kern = "cw_slot_rollout_kernelI"
-    bounds = {"fused_rollout": bound(instruction_bound_ms(kern + "10RowsLayoutLb1E", warps, T // 4),
+    bounds = {"fused_rollout": bound(pipe_bound_ms(kern + "10RowsLayoutLb1E", warps, T // 4),
                                      state_bytes + 5 * T * B),
-              "fused_rollout_actions": bound(instruction_bound_ms(kern + "10RowsLayoutLb0E", warps, T),
+              "fused_rollout_actions": bound(pipe_bound_ms(kern + "10RowsLayoutLb0E", warps, T),
                                              state_bytes + 9 * T * B),
-              "fused_rollout_t": bound(instruction_bound_ms(kern + "13ColumnsLayoutLb1E", warps, T // 4),
+              "fused_rollout_t": bound(pipe_bound_ms(kern + "13ColumnsLayoutLb1E", warps, T // 4),
                                        state_bytes + 5 * T * B)}
     source = "gym_craftingworld_tpu_torch/csrc/fused_rollout.cu"
     replaces = {"fused_rollout": "gym_craftingworld_tpu/ops/fused_rollout.py:227",

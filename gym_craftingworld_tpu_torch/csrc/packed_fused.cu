@@ -6,18 +6,27 @@
 //   cw_actions_kernel <- _actions_kernel (:122), behind fused_rollout_packed
 //   cw_stream_kernel  <- fused_action_stream's inner kernel (:247)
 //
-// What bounds them: integer issue and latency, not bytes. An env's state is
-// 24 slot words and 9 scalars, read once and written once; a step is a chain
-// of ~150 dependent integer compares and selects on registers. The bench
-// kernel keeps the state in registers for all T steps and writes only the
-// final state and one int32 checksum per env. Global memory keeps
-// PackedState's int16 [8, B] / [B] layout, so neighbouring threads touch
-// neighbouring addresses; registers are 32-bit.
+// What bounds them: integer issue, not bytes. An env's state is 24 slot
+// words and 9 scalars, read once and written once; the bench kernel keeps it
+// in registers for all T steps and writes only the final state and one int32
+// checksum per env. Global memory keeps PackedState's int16 [8, B] / [B]
+// layout, so neighbouring threads touch neighbouring addresses.
 //
-// Occupancy: the headline batch of 16,384 envs is 16,384 threads, about 6%
-// of the card's ~270k resident-thread slots (132 SMs x 2,048), so each SM
-// sub-partition has about one warp to hide latency with. Filling the card
-// (more envs per launch, or several envs per thread for ILP) is later work.
+// Occupancy and issue: 16,384 envs are 128 blocks of 128 threads, one warp on
+// each of 512 of the card's 528 schedulers (132 SMs x 4). A lone warp issues
+// in order, so at that size the step's dependent instructions leave issue
+// slots idle; at 131,072 envs (eight warps a scheduler) the integer pipe,
+// which takes a warp-instruction every second clock, is the limit
+// (chip_smoke.py phases 1 and 6 count both). What the kernels do about it:
+//   * packed_step.cuh keeps the slot compares wide and branch-free and moves
+//     the reset-cell sum to the FMA pipe (its header has the design);
+//   * the bench kernel computes the next trip's four Philox draws beside the
+//     current trip's steps: they are independent of the state, and fill the
+//     issue slots the steps leave idle;
+//   * the actions kernel keeps its next CW_AHEAD actions in a ring of
+//     registers, loaded CW_AHEAD steps early, so no step waits on its own
+//     action's load, with one copy of the step in the loop (an unrolled
+//     trip of four made the one-step launch of the collect slower).
 //
 // Every entry point launches on the given stream, allocates nothing, and
 // returns cudaGetLastError() so that the caller can raise on a refused launch.
@@ -28,6 +37,8 @@
 #include "philox.cuh"
 
 #define CW_BLOCK 128
+// how many steps ahead the actions kernel loads its actions
+#define CW_AHEAD 4
 
 // PackedState field order (ops/packed_rollout.py): slot_key, slot_type,
 // init_key, init_type, agent_r, agent_c, holding, obj_here, icode_here,
@@ -42,41 +53,6 @@ struct PackedIO {
   int16_t* out[CW_N_OUT];
 };
 
-__device__ __forceinline__ void load_env(const PackedIO& io, int b, int B,
-                                         PackedEnv& s) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    s.key[i] = io.in[0][i * B + b];
-    s.typ[i] = io.in[1][i * B + b];
-    s.ikey[i] = io.in[2][i * B + b];
-  }
-  s.agent_r = io.in[4][b];
-  s.agent_c = io.in[5][b];
-  s.holding = io.in[6][b];
-  s.obj_here = io.in[7][b];
-  s.icode_here = io.in[8][b];
-  s.achieved = io.in[9][b];
-  s.desired = io.in[10][b];
-  s.init_agent_key = io.in[11][b];
-  s.step_num = io.in[12][b];
-}
-
-__device__ __forceinline__ void store_env(const PackedIO& io, int b, int B,
-                                          const PackedEnv& s) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    io.out[0][i * B + b] = (int16_t)s.key[i];
-    io.out[1][i * B + b] = (int16_t)s.typ[i];
-  }
-  io.out[2][b] = (int16_t)s.agent_r;
-  io.out[3][b] = (int16_t)s.agent_c;
-  io.out[4][b] = (int16_t)s.holding;
-  io.out[5][b] = (int16_t)s.obj_here;
-  io.out[6][b] = (int16_t)s.icode_here;
-  io.out[7][b] = (int16_t)s.achieved;
-  io.out[8][b] = (int16_t)s.step_num;
-}
-
 // T steps with actions from the Philox stream; final state + reward sum.
 __global__ void __launch_bounds__(CW_BLOCK)
     cw_bench_kernel(PackedIO io, int32_t* __restrict__ checksum, int B, int T,
@@ -84,22 +60,28 @@ __global__ void __launch_bounds__(CW_BLOCK)
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   PackedEnv s;
-  load_env(io, b, B, s);
+  packed_load(io.in, b, B, cfg, s);
   int acc = 0;
   bool done;
+  // the next trip's draws are computed beside this trip's steps, which
+  // leave most issue slots of a lone warp idle while they wait on each other
+  uint4 w = action_words(seed, 0u, (uint32_t)b);
   for (int t0 = 0; t0 < T; t0 += 4) {
-    const uint4 w = action_words(seed, (uint32_t)(t0 >> 2), (uint32_t)b);
     const uint32_t words[4] = {w.x, w.y, w.z, w.w};
+    w = action_words(seed, (uint32_t)(t0 >> 2) + 1u, (uint32_t)b);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       if (t0 + j < T) acc += packed_step(s, (int)(words[j] % CW_N_ACTIONS), cfg, done);
     }
   }
-  store_env(io, b, B, s);
+  packed_store(io.out, b, B, s);
   checksum[b] = acc;
 }
 
 // T steps over a given int32 [T, B] action slab; rewards and dones per step.
+// Each thread keeps its next CW_AHEAD actions in a ring of registers and loads
+// each action CW_AHEAD steps before it is stepped, so no step waits on its own
+// action's load; the step itself stays one copy in the loop.
 __global__ void __launch_bounds__(CW_BLOCK)
     cw_actions_kernel(PackedIO io, const int32_t* __restrict__ actions,
                       int32_t* __restrict__ reward, uint8_t* __restrict__ done,
@@ -107,14 +89,23 @@ __global__ void __launch_bounds__(CW_BLOCK)
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   PackedEnv s;
-  load_env(io, b, B, s);
+  packed_load(io.in, b, B, cfg, s);
+  int ring[CW_AHEAD];
+#pragma unroll
+  for (int j = 0; j < CW_AHEAD; ++j)
+    ring[j] = j < T ? __ldg(actions + (size_t)j * B + b) : 0;
   for (int t = 0; t < T; ++t) {
+    const int action = ring[0];
+#pragma unroll
+    for (int j = 0; j + 1 < CW_AHEAD; ++j) ring[j] = ring[j + 1];
+    const int ahead = t + CW_AHEAD;
+    ring[CW_AHEAD - 1] = ahead < T ? __ldg(actions + (size_t)ahead * B + b) : 0;
     const size_t at = (size_t)t * B + b;
     bool d;
-    reward[at] = packed_step(s, actions[at], cfg, d);
+    reward[at] = packed_step(s, action, cfg, d);
     done[at] = d;
   }
-  store_env(io, b, B, s);
+  packed_store(io.out, b, B, s);
 }
 
 // The bench kernel's action stream alone, as int32 [T, B].

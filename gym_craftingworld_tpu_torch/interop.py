@@ -43,20 +43,20 @@ def _arrays(items) -> dict:
     return out
 
 
-def env_state_from_numpy(d: dict, device="cpu") -> EnvState:
+def env_state_from_numpy(d: dict, device="cuda") -> EnvState:
     names = [f.name for f in dataclasses.fields(EnvState)]
     return EnvState(**_tensors(names, d, device))
 
 
-def slot_state_from_numpy(d: dict, device="cpu") -> SlotState:
+def slot_state_from_numpy(d: dict, device="cuda") -> SlotState:
     return SlotState(**_tensors(SlotState._fields, d, device))
 
 
-def tslot_state_from_numpy(d: dict, device="cpu") -> TSlotState:
+def tslot_state_from_numpy(d: dict, device="cuda") -> TSlotState:
     return TSlotState(**_tensors(TSlotState._fields, d, device))
 
 
-def packed_state_from_numpy(d: dict, device="cpu") -> PackedState:
+def packed_state_from_numpy(d: dict, device="cuda") -> PackedState:
     return PackedState(**_tensors(PackedState._fields, d, device))
 
 
@@ -77,7 +77,7 @@ def packed_state_to_numpy(state: PackedState) -> dict:
     return _arrays(state._asdict().items())
 
 
-def mlp_params_from_numpy(d: dict, device="cpu") -> MLPParams:
+def mlp_params_from_numpy(d: dict, device="cuda") -> MLPParams:
     """The JAX ``MLPParams`` (a dict of numpy arrays) as the port's module."""
     H, F = np.shape(d["w1"])
     params = MLPParams(F, H, device=device)
@@ -91,7 +91,7 @@ def mlp_params_to_numpy(params: MLPParams) -> dict:
     return {k: getattr(params, k).detach().cpu().numpy() for k in PARAM_NAMES}
 
 
-def adam_state_from_numpy(d: dict, device="cpu") -> AdamState:
+def adam_state_from_numpy(d: dict, device="cuda") -> AdamState:
     """optax ``ScaleByAdamState`` fields (numpy) as the port's ``AdamState``."""
     moment = lambda m: {k: torch.from_numpy(np.array(m[k], dtype=np.float32)).to(device)
                         for k in PARAM_NAMES}

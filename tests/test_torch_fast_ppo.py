@@ -43,11 +43,11 @@ def port_fppo(fppo):
 
 def to_port(p):
     """A JAX PackedState as the port's."""
-    return interop.packed_state_from_numpy(np_tree(p))
+    return interop.packed_state_from_numpy(np_tree(p), device="cpu")
 
 
 def port_params(jparams):
-    return interop.mlp_params_from_numpy({k: np.asarray(v) for k, v in jparams._asdict().items()})
+    return interop.mlp_params_from_numpy({k: np.asarray(v) for k, v in jparams._asdict().items()}, device="cpu")
 
 
 def f32(x):
@@ -239,7 +239,7 @@ def test_optimizer_matches_optax():
         for k in fp.PARAM_NAMES:
             np.testing.assert_allclose(got[m][k], f32(getattr(getattr(adam_j, m), k)),
                                        rtol=1e-6, atol=1e-10)
-    back = interop.adam_state_from_numpy(got)
+    back = interop.adam_state_from_numpy(got, device="cpu")
     assert all(torch.equal(back.mu[k], state_t.mu[k]) for k in fp.PARAM_NAMES)
     got_p = interop.mlp_params_to_numpy(params)
     for k, v in jparams._asdict().items():

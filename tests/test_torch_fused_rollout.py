@@ -87,8 +87,8 @@ def test_plain_versions_equal_jax_kernel_steps(reward_equal):
         dones.append(np.asarray(dn)[:, 0].astype(bool))
     want = jfr._unpack_outputs(jax_slots(d), tuple(state[i] for i in (0, 1, 2, 3, 4, 5, 7, 13))
                                + (np.stack(rewards), np.stack(dones)))
-    for got in (fr.rollout_slots_actions_plain(tcfg(cfg), interop.slot_state_from_numpy(d), stream),
-                fr.rollout_slots_seeded_plain(tcfg(cfg), interop.slot_state_from_numpy(d), seed, T)):
+    for got in (fr.rollout_slots_actions_plain(tcfg(cfg), interop.slot_state_from_numpy(d, device="cpu"), stream),
+                fr.rollout_slots_seeded_plain(tcfg(cfg), interop.slot_state_from_numpy(d, device="cpu"), seed, T)):
         assert_tree_equal(interop.slot_state_to_numpy(got[0]), np_tree(want[0]))
         np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
         np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
@@ -105,7 +105,7 @@ def test_plain_versions_equal_jax_kernel_steps(reward_equal):
     want_ts = jts._replace(**{f: (state[i][0] if state[i].shape[0] == 1 else state[i])
                               for i, f in enumerate(jts._fields)})
     ts, rew, _ = frt.rollout_t_seeded_plain(
-        tcfg(cfg), ttr.transpose_in(interop.slot_state_from_numpy(d)), seed, T)
+        tcfg(cfg), ttr.transpose_in(interop.slot_state_from_numpy(d, device="cpu")), seed, T)
     assert_tree_equal(interop.tslot_state_to_numpy(ts), np_tree(want_ts))
     np.testing.assert_array_equal(rew.numpy(), np.stack(rewards))
 

@@ -57,7 +57,7 @@ def params_pair(seed, cfg, hidden):
     """(JAX config, JAX params, port config, the same params in the port)."""
     fppo = jfp.FastPPOConfig(hidden=hidden)
     jp = jfp.init_params(jax.random.PRNGKey(seed), cfg, fppo)
-    params = interop.mlp_params_from_numpy({k: np.asarray(v) for k, v in jp._asdict().items()})
+    params = interop.mlp_params_from_numpy({k: np.asarray(v) for k, v in jp._asdict().items()}, device="cpu")
     return fppo, jp, fp.FastPPOConfig(**fppo._asdict()), params
 
 

@@ -36,13 +36,15 @@ jpf = importlib.import_module("gym_craftingworld_tpu.ops.packed_fused")
 torch.set_num_threads(1)
 
 
-@pytest.mark.parametrize("cfg,seed", [
-    (jcw.ray_config(), 0),
-    (jcw.flat_config(reward_equal=False), 1),
+@pytest.mark.parametrize("cfg,seed,B,T", [
+    (jcw.ray_config(), 0, 256, 64),
+    (jcw.flat_config(reward_equal=False), 1, 256, 64),
+    (jcw.ray_config(), 2, 128, 1),  # the collect's one step a launch
+    (jcw.flat_config(reward_equal=False), 3, 128, 7),  # T not a multiple of 4
 ])
-def test_fused_rollout_packed_equals_jax_kernel(cfg, seed):
-    """Against the JAX Pallas kernel in interpret mode, on the same actions."""
-    B, T = 256, 64
+def test_fused_rollout_packed_equals_jax_kernel(cfg, seed, B, T):
+    """Against the JAX Pallas kernel in interpret mode, on the same actions
+    (that kernel takes B a multiple of 128 only)."""
     jsl, tsl = jax_and_port_slots(cfg, seed, B)
     actions = crafting_actions(seed, T, B)
     jst, jrew, jdone = jpf.fused_rollout_packed(
@@ -54,11 +56,18 @@ def test_fused_rollout_packed_equals_jax_kernel(cfg, seed):
     assert_tree_equal(interop.slot_state_to_numpy(tst), np_tree(jst))
 
 
-def test_bench_equals_jax_rollout_p_over_stream():
+@pytest.mark.parametrize("B,T", [
+    (256, 96),
+    (200, 99),  # B not a multiple of 128, T not a multiple of 4
+    (131, 1),
+])
+def test_bench_equals_jax_rollout_p_over_stream(B, T):
     """The bench's checksum and final state equal JAX ``rollout_p`` fed the
-    port's own action stream."""
+    port's own action stream, and so do the actions path's rewards and dones
+    (JAX ``rollout_p`` is the scan its Pallas kernels are held to, and takes
+    any B)."""
     cfg = jcw.ray_config()
-    B, T, seed = 256, 96, 7
+    seed = 7
     jsl, tsl = jax_and_port_slots(cfg, 2, B)
     tst, checksum = pf.fused_rollout_packed_bench(tcfg(cfg), tsl, seed, T)
     stream = pf.fused_action_stream(B, seed, T, device="cpu")
@@ -66,6 +75,10 @@ def test_bench_equals_jax_rollout_p_over_stream():
     assert checksum.dtype == torch.int64
     assert int(checksum) == int(np.asarray(jout.reward, np.int64).sum())
     assert_tree_equal(interop.slot_state_to_numpy(tst), np_tree(jst))
+    ast, rew, done = pf.fused_rollout_packed(tcfg(cfg), tsl, stream, T)
+    np.testing.assert_array_equal(rew.numpy(), np.asarray(jout.reward))
+    np.testing.assert_array_equal(done.numpy(), np.asarray(jout.done))
+    assert_tree_equal(interop.slot_state_to_numpy(ast), np_tree(jst))
     again_st, again = pf.fused_rollout_packed_bench(tcfg(cfg), tsl, seed, T)
     assert int(again) == int(checksum)
 

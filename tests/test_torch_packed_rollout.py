@@ -43,7 +43,7 @@ def np_tree(x):
 
 def jax_and_port_slots(cfg, seed, B):
     st = jcw.reset_from_seed(cfg, seed, B)
-    port = tsm.from_env_state(interop.env_state_from_numpy(np_tree(st)))
+    port = tsm.from_env_state(interop.env_state_from_numpy(np_tree(st), device="cpu"))
     return jsm.from_env_state(st), port
 
 
@@ -67,14 +67,14 @@ def test_layouts_equal_jax(name):
     jsl, tsl = jax_and_port_slots(cfg, 7, 64)
     assert_tree_equal(interop.slot_state_to_numpy(tsl), np_tree(jsl))
     assert_tree_equal(interop.slot_state_to_numpy(
-        interop.slot_state_from_numpy(np_tree(jsl))), np_tree(jsl))
+        interop.slot_state_from_numpy(np_tree(jsl), device="cpu")), np_tree(jsl))
 
     jts, tts = jtr.transpose_in(jsl), ttr.transpose_in(tsl)
     assert_tree_equal({k: v.numpy() for k, v in tts._asdict().items()}, np_tree(jts))
 
     jp, tp = jpr.pack(cfg, jts), tpr.pack(tcfg(cfg), tts)
     assert_tree_equal(interop.packed_state_to_numpy(tp), np_tree(jp))
-    again = interop.packed_state_from_numpy(np_tree(jp))
+    again = interop.packed_state_from_numpy(np_tree(jp), device="cpu")
     assert all(torch.equal(a, b) for a, b in zip(again, tp))
 
     back = tpr.unpack(tcfg(cfg), tp, tts.desired, tpr._init_rows(tts))

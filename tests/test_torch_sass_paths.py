@@ -110,3 +110,69 @@ def test_a_function_without_a_loop(smoke):
     # path, and the early return (a data branch) is its shorter side
     assert (p.static, p.static_body, p.body, p.epi) == (12, 0, 0, 0)
     assert p.pro == 2
+
+
+def listing(body):
+    """A canned ``nvdisasm -g`` listing of a kernel whose one loop issues ``body``."""
+    ins = ["S2R R0, SR_TID.X"] + [".L_x_0:"] + body + ["@!P0 BRA `(.L_x_0)",
+                                                        "STG.E desc[UR4][R4.64], R2", "EXIT"]
+    out, addr = ["        .section        .text._Z4pipePiii,\"ax\",@progbits",
+                 ".text._Z4pipePiii:", '        //## File "/src/pipe.cu", line 1'], 0
+    for op in ins:
+        if op.endswith(":"):
+            out.append(op)
+            continue
+        out.append(f"        /*{addr:04x}*/                   {op} ;")
+        addr += 16
+    return "\n".join(out) + "\n"
+
+
+@pytest.mark.parametrize("body,pipes,binds", [
+    # integer-heavy: the step's compares, selects and bit logic
+    (["IADD3 R1, R1, 0x1, RZ", "LOP3.LUT R2, R2, R1, RZ, 0x3c, !PT",
+      "ISETP.NE.AND P1, PT, R2, RZ, PT", "@P1 SEL R3, R3, R2, P1",
+      "SHF.R.U32.HI R4, RZ, 0x10, R3", "PRMT R5, R4, 0xbb99, RZ", "IMNMX R6, R5, R4, PT"],
+     (7, 0, 0, 1), "int"),
+    # IMAD-heavy: Philox's products and the moves and adds the compiler puts on the FMA pipe
+    (["IMAD R1, R1, R1, RZ", "IMAD.WIDE.U32 R2, R1, 0x3, RZ", "IMAD.HI.U32 R4, R1, R3, RZ",
+      "IMAD.MOV.U32 R5, RZ, RZ, R4", "IADD3 R6, R5, R4, RZ"],
+     (1, 4, 0, 1), "all"),
+    # mixed, with a load, a uniform add and a predicated move: 8 clocks of the
+    # integer pipe a trip under its 9 issue slots
+    (["IADD3 R1, R1, 0x1, RZ", "IMAD R2, R1, R1, RZ", "LOP3.LUT R3, R2, R1, RZ, 0x3c, !PT",
+      "LDG.E R7, desc[UR4][R8.64]", "UIADD3 UR4, UR4, 0x1, URZ", "@!P2 MOV R9, R7",
+      "IMAD.SHL.U32 R10, R9, 0x2, RZ", "ISETP.GE.AND P2, PT, R10, R3, PT"],
+     (4, 2, 1, 2), "all"),
+])
+def test_path_by_pipe_and_two_rate_bound(smoke, monkeypatch, body, pipes, binds):
+    (name, p), = smoke.parse_nvdisasm(listing(body), lambda w: "").items()
+    assert (p.pro, p.body, p.epi) == (1, len(body) + 1, 2)
+    trip = tuple(p.pipes[k][1] for k in smoke.PIPES)
+    assert trip == pipes and sum(trip) == p.body
+    # before the loop S2R (other); after it STG (memory) and EXIT (other)
+    assert {k: (p.pipes[k][0], p.pipes[k][2]) for k in smoke.PIPES} == {
+        "int": (0, 0), "fma": (0, 0), "mem": (0, 1), "other": (1, 1)}
+    monkeypatch.setattr(smoke, "SASS", {name: p})
+    monkeypatch.setattr(smoke, "SM_CLOCK_HZ", 1.98e9)
+    warps, trips = 512, 75
+    n_all, n_int = 1 + p.body * trips + 2, p.on_pipe("int", trips)
+    assert n_int == pipes[0] * trips
+    per_clock = 132 * 4 * 1.98e9
+    one = smoke.instruction_bound_ms("pipe", warps, trips)
+    two = smoke.pipe_bound_ms("pipe", warps, trips)
+    assert one == pytest.approx(warps * n_all / per_clock * 1e3, rel=1e-12)
+    assert two == pytest.approx(warps * max(n_all, 2 * n_int) / per_clock * 1e3, rel=1e-12)
+    assert (two > one) if binds == "int" else (two == one)
+    # a share over 100% of the two-rate bound is not published
+    assert "not published" in smoke.shares("pipe", warps, trips, 0.5 * two)
+    assert f"{0.5:.1%} of its two-rate" in smoke.shares("pipe", warps, trips, 2 * two)
+
+
+@pytest.mark.parametrize("op,pipe", [
+    ("IADD3.X R1, R1, RZ, RZ, P0, !PT", "int"), ("IMAD.IADD R1, R1, 0x1, R2", "fma"),
+    ("SHFL.BFLY PT, R1, R2, 0x1, 0x1f", "mem"), ("ULDC.64 UR4, c[0x0][0x118]", "other"),
+    ("BRA `(.L_x_1)", "other"), ("VIMNMX R1, R2, R3, PT", "int"), ("LDS.U16 R1, [R2]", "mem"),
+    ("VIADD R0, R26, 0xffffffff", "fma"), ("VIADDMNMX R29, R29, R18, RZ, !PT", "int"),
+])
+def test_pipe_classes(smoke, op, pipe):
+    assert smoke.pipe_of(op) == pipe

@@ -108,3 +108,18 @@ def test_cuda_constants_match_python():
     assert ph["ACTION_KEY"] == pf.ACTION_KEY
     assert (ph["PHILOX_M0"], ph["PHILOX_M1"], ph["PHILOX_W0"], ph["PHILOX_W1"]) == (
         philox.PHILOX_M0, philox.PHILOX_M1, philox.PHILOX_W0, philox.PHILOX_W1)
+
+
+def test_interop_converters_default_to_the_card():
+    """Every converter from the JAX package's arrays puts its tensors on the
+    card unless the caller names another device, like the other entry points."""
+    import inspect
+
+    from gym_craftingworld_tpu_torch import interop
+
+    names = sorted(n for n in vars(interop) if n.endswith("_from_numpy"))
+    assert names == ["adam_state_from_numpy", "env_state_from_numpy", "mlp_params_from_numpy",
+                     "packed_state_from_numpy", "slot_state_from_numpy",
+                     "tslot_state_from_numpy"]
+    for n in names:
+        assert inspect.signature(getattr(interop, n)).parameters["device"].default == "cuda", n

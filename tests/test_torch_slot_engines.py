@@ -82,12 +82,12 @@ def test_slot_steps_fuzz_equal_jax(reward_equal):
     for action in range(C.N_ACTIONS):
         a = np.full(400, action, np.int32)
         jsl, jres = jsm.step_slots(cfg, jax_slots(d), jnp.asarray(a))
-        tsl, tres = tsm.step_slots(tcfg(cfg), interop.slot_state_from_numpy(d), torch.as_tensor(a))
+        tsl, tres = tsm.step_slots(tcfg(cfg), interop.slot_state_from_numpy(d, device="cpu"), torch.as_tensor(a))
         assert_tree_equal(interop.slot_state_to_numpy(tsl), np_tree(jsl))
         assert_result_equal(tres, jres)
 
         jts, jres_t = jtr._step_t(cfg, jtr.transpose_in(jax_slots(d)), jnp.asarray(a))
-        tts, tres_t = ttr._step_t(tcfg(cfg), ttr.transpose_in(interop.slot_state_from_numpy(d)),
+        tts, tres_t = ttr._step_t(tcfg(cfg), ttr.transpose_in(interop.slot_state_from_numpy(d, device="cpu")),
                                   torch.as_tensor(a))
         assert_tree_equal(interop.tslot_state_to_numpy(tts), np_tree(jts))
         assert_result_equal(tres_t, jres_t)
@@ -99,7 +99,7 @@ def test_step_slots_leaves_its_input_alone():
     d = synthetic_slots(4, 64, 9, 9)
     cfg = tcw.ray_config(height=9, width=9)
     for action in (C.ACTION_PICKUP, C.ACTION_DROP, C.ACTION_UP):
-        sl = interop.slot_state_from_numpy(d)
+        sl = interop.slot_state_from_numpy(d, device="cpu")
         tsm.step_slots(cfg, sl, torch.full((64,), action))
         ttr._step_t(cfg, ttr.transpose_in(sl), torch.full((64,), action))
         assert_tree_equal(interop.slot_state_to_numpy(sl), d)
@@ -158,10 +158,10 @@ def test_transposed_layout_equals_jax():
     cfg = jcw.ray_config()
     st = jcw.reset_from_seed(cfg, 5, 16)
     jsl = jsm.from_env_state(st)
-    tsl = tsm.from_env_state(interop.env_state_from_numpy(np_tree(st)))
+    tsl = tsm.from_env_state(interop.env_state_from_numpy(np_tree(st), device="cpu"))
     jts, tts = jtr.transpose_in(jsl), ttr.transpose_in(tsl)
     assert_tree_equal(interop.tslot_state_to_numpy(tts), np_tree(jts))
-    again = interop.tslot_state_from_numpy(np_tree(jts))
+    again = interop.tslot_state_from_numpy(np_tree(jts), device="cpu")
     assert all(torch.equal(a, b) and a.dtype == b.dtype for a, b in zip(again, tts))
     assert_tree_equal(interop.slot_state_to_numpy(ttr.transpose_out(tts, tsl.rng)),
                       np_tree(jtr.transpose_out(jts, jsl.rng)))

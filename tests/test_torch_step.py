@@ -96,7 +96,7 @@ def test_step_fuzz_equals_jax(seed, reward_equal):
     for action in range(C.N_ACTIONS):
         a = np.full(400, action, np.int32)
         jst, jres = jcw.step(cfg, jax_state(d), jnp.asarray(a))
-        tst, tres = tcw.step(tcfg(cfg), interop.env_state_from_numpy(d), torch.as_tensor(a))
+        tst, tres = tcw.step(tcfg(cfg), interop.env_state_from_numpy(d, device="cpu"), torch.as_tensor(a))
         assert_state_equal(tst, jst)
         for f in ("reward", "done", "changed"):
             got, want = getattr(tres, f).numpy(), np.asarray(getattr(jres, f))
@@ -136,7 +136,7 @@ def test_compute_reward_equals_jax(reward_equal):
 def test_rollout_equals_jax(cfg):
     B, T = 64, 120
     jst0 = jcw.reset_from_seed(cfg, 4, B)
-    tst0 = interop.env_state_from_numpy(np_tree(jst0))
+    tst0 = interop.env_state_from_numpy(np_tree(jst0), device="cpu")
     actions = crafting_actions(5, T, B)
     tst, tout = tcw.rollout(tcfg(cfg), tst0, torch.as_tensor(actions))
     jst, jout = jcw.rollout(cfg, jst0, jnp.asarray(actions))
@@ -233,14 +233,14 @@ def test_check_state_equals_jax():
     valid = np_tree(jcw.reset_from_seed(cfg, 3, 12))
     for state in (valid, _corrupt(valid)):
         want = jval.check_state(cfg, jax_state(state))
-        got = tval.check_state(tcfg(cfg), interop.env_state_from_numpy(state))
+        got = tval.check_state(tcfg(cfg), interop.env_state_from_numpy(state, device="cpu"))
         assert got.dtype == want.dtype == np.bool_
         np.testing.assert_array_equal(got, want)
     assert want[0] and not want[1:9].any() and want[9:].all()
     with pytest.raises(AssertionError) as jerr:
         jval.assert_valid_state(cfg, jax_state(state))
     with pytest.raises(AssertionError) as terr:
-        tval.assert_valid_state(tcfg(cfg), interop.env_state_from_numpy(state))
+        tval.assert_valid_state(tcfg(cfg), interop.env_state_from_numpy(state, device="cpu"))
     assert str(terr.value) == str(jerr.value)
     tval.assert_valid_state(tcfg(cfg), tcw.reset_from_seed(tcfg(cfg), 0, 8, device="cpu"))
 
