@@ -23,10 +23,11 @@ nothing of JAX. Phases, each of which must pass:
 4. action-stream kernel against the plain Philox (bit-exact, uniform, seeded);
 5. bench kernel against its plain version (bit-exact) on 21x21 at T=512 and
    T=299, a ragged batch, 8x8 and 181x181; the device time of the actions
-   kernel at T=1 and T=64 and of the bench kernel at T=256
-   (``torch.profiler``) beside their CUDA-event times; a profiler session
-   that reads below the kernel's bound, or lost events, is discarded and
-   named, and the phase fails if no session of five is sound;
+   kernel at T=1 and T=64, of the bench kernel and of phase 4's stream
+   kernel at T=256 (``torch.profiler``) beside their CUDA-event times and
+   bounds; a profiler session that reads below the kernel's bound, or lost
+   events, is discarded and named, with the launches that left no device
+   record, and the phase fails if no session of five is sound;
 6. timings with CUDA events, median of 5 runs after a warm-up; the bench
    kernel's long-T rate at B=16,384 and 131,072 with its share of both
    issue bounds;
@@ -43,7 +44,8 @@ nothing of JAX. Phases, each of which must pass:
    minibatch, each output within 1e-5 of the plain result relative to
    sum |a_i b_i|; then the gradient kernels against their plain version at
    N=131,072, H=512, F=67 (the CPU suite's tolerances), indexed against
-   gathered (rtol 1e-6), and two launches bit-identical;
+   gathered (rtol 1e-6), also with block ids past either end (read as JAX's
+   gather reads them), and two launches bit-identical;
 10. fast-PPO timings with CUDA events: ms per update, collect, update phase,
    pool and gradient kernels against their plain versions, the peak device
    memory of one default update; the indexed gradient kernel's device time
@@ -59,8 +61,25 @@ nothing of JAX. Phases, each of which must pass:
    at B=16,384, on 8x8 with pickups and drops, on a ragged batch, from the
    ladder's final state, and from synthetic states no reset reaches;
 13. ladder timings with CUDA events: each slot kernel against its plain
-   version, env-steps/s of the seeded slot kernels beside the packed bench
-   kernel's, and ms per step of the three plain-torch engines.
+   version, with its device time at T=256 (as phase 5 takes it) and share of
+   its bound, env-steps/s of the seeded slot kernels beside the packed bench
+   kernel's, and ms per step of the three plain-torch engines;
+14. renders at 16,384 worlds on 21x21, from a reset and after 40 random
+   steps: the three renderers and the ``state_images_*`` dicts on the card
+   equal, byte for byte, the same functions on a CPU copy; renders/s of each
+   renderer; ``rollout_obs_random`` per observation mode at T=64 (env-steps/s
+   with a render every step, peak device memory), and at T=8 its checksum
+   against a stepwise recompute and its final state against
+   ``rollout_slots_random``'s from the same generator state;
+15. the Gym façade: the four registered ids in parity mode, seed 0, on the
+   card against the same env on the CPU (one 8x8 Flat episode, 120 steps on
+   21x21; obs, reward, done and info every step), ``fixed_init_state=4`` and
+   ``incremental_render=True``, and ``batch_size=16384`` (reset and 3 steps,
+   ms a step with the obs copied to the host);
+16. the vector env at 16,384 envs per observation mode: 320 random steps,
+   every env done by step 300, each done env restarted at step_num 0 in a
+   valid state, obs on the card in the JAX package's shapes and dtypes, and
+   env-steps/s. Phases 14-16 launch no hand-written kernel, and check so.
 
 It prints one JSON line of per-kernel results, then, as its last line,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
@@ -133,27 +152,61 @@ def time_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+TIMED = "chip_smoke timed calls"
+
+
 def device_events(fn, reps: int, complete, tries: int = 3):
-    """``torch.profiler``'s device events ``[(name, count, us)]`` of ``reps``
-    calls of ``fn()``, from the first of ``tries`` sessions whose events pass
-    ``complete``; None if none does. A session in a process that has run
-    others before it can come back with events missing, so each caller says
-    what a whole session holds."""
-    from torch.profiler import ProfilerActivity, profile
+    """``torch.profiler``'s device records ``[(name, count, us)]`` of ``reps``
+    calls of ``fn()``, from the first of ``tries`` sessions whose records pass
+    ``complete``; None if none does. Late in this script the profiler can
+    lose a run of a session's device records: the first three of 20
+    slot-kernel launches in every session, or with the warm-up below, now and
+    then a longer run at the start or the end. So each session first makes
+    five calls and a sync, only the records of launches made inside the
+    timed range count, and each caller says what a whole session holds; an
+    incomplete session prints which timed launches left no record."""
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     fn()
     torch.cuda.synchronize()
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
+            for _ in range(5):
                 fn()
             torch.cuda.synchronize()
-        events = [(e.key, e.count, float(getattr(e, "device_time_total", 0.0)
-                                         or getattr(e, "cuda_time_total", 0.0)))
-                  for e in prof.key_averages() if "CUDA" in str(getattr(e, "device_type", ""))]
+            with record_function(TIMED):
+                for _ in range(reps):
+                    fn()
+            torch.cuda.synchronize()
+        events, lost = timed_records(prof)
         if complete(events):
             return events
+        print(f"profiler session incomplete: {lost}")
     return None
+
+
+def timed_records(prof):
+    """The device records of the launches made inside the session's timed
+    range, matched to the host's runtime calls by correlation id, as
+    ``[(name, count, us)]``; and which of those calls left no record."""
+    recs = list(prof.profiler.kineto_results.events())
+    on_card = lambda e: "CUDA" in str(e.device_type())
+    (window,) = [e for e in recs if e.name() == TIMED and not on_card(e)]
+    calls = sorted((e for e in recs if not on_card(e) and e.name().startswith("cu")
+                    and window.start_ns() <= e.start_ns() <= window.end_ns()),
+                   key=lambda e: e.start_ns())
+    device = {e.correlation_id(): e for e in recs if on_card(e)}
+    totals = {}
+    for c in calls:
+        if c.correlation_id() in device:
+            d = device[c.correlation_id()]
+            n, ns = totals.get(d.name(), (0, 0))
+            totals[d.name()] = (n + 1, ns + d.duration_ns())
+    launches = [c for c in calls if "LaunchKernel" in c.name()]
+    lost = [i for i, c in enumerate(launches) if c.correlation_id() not in device]
+    return ([(k, n, ns / 1e3) for k, (n, ns) in totals.items()],
+            f"{len(launches)} launches in the timed range; those at positions {lost} left no "
+            f"device record")
 
 
 def device_ms(fn, kernel: str, floor_ms: float, reps: int = 20, tries: int = 5):
@@ -180,6 +233,25 @@ def device_ms(fn, kernel: str, floor_ms: float, reps: int = 20, tries: int = 5):
     check(events is not None, f"a sound device time of {kernel} in {tries} sessions "
           f"(discarded: {'; '.join(discarded)})")
     return sum(us for k, _, us in events if kernel in k) / 1e3 / reps, discarded
+
+
+def kernel_wrappers(*names):
+    """{name: wrapper} of the nine hand-written kernels, or of those named,
+    each counting its launches in ``launches``."""
+    from gym_craftingworld_tpu_torch.ops import fused_reset as fre
+    from gym_craftingworld_tpu_torch.ops import fused_update as fu
+    from gym_craftingworld_tpu_torch.ops import packed_fused as pf
+
+    fr = importlib.import_module("gym_craftingworld_tpu_torch.ops.fused_rollout")
+    frt = importlib.import_module("gym_craftingworld_tpu_torch.ops.fused_rollout_t")
+    every = {"packed_bench": pf.rollout_packed_bench, "packed_actions": pf.rollout_packed_actions,
+             "action_stream": pf.fused_action_stream, "pool": fre.pool_picks,
+             "ppo_grads": fu.fused_minibatch_grads,
+             "ppo_grads_indexed": fu.fused_minibatch_grads_indexed,
+             "fused_rollout": fr.rollout_slots_seeded,
+             "fused_rollout_actions": fr.rollout_slots_actions,
+             "fused_rollout_t": frt.rollout_t_seeded}
+    return {k: every[k] for k in names} if names else every
 
 
 # ---------------------------------------------------------------------------
@@ -598,11 +670,7 @@ def main() -> int:
     B = B_MAIN
 
     # ---- 2. the main path, counted ---------------------------------------
-    wrappers = {
-        "packed_bench": pf.rollout_packed_bench,
-        "packed_actions": pf.rollout_packed_actions,
-        "action_stream": pf.fused_action_stream,
-    }
+    wrappers = kernel_wrappers("packed_bench", "packed_actions", "action_stream")
     T_MAIN, SEED = cfg.max_steps, 1
     for w in wrappers.values():
         w.launches = 0
@@ -756,21 +824,27 @@ def main() -> int:
     # device time (torch.profiler) beside the CUDA-event time, which also
     # holds the wrapper's host work
     device = {
-        "packed_actions T=1": (collect["ms"], device_ms(
+        "packed_actions T=1": (collect["ms"], b1[0], device_ms(
             lambda: pf.rollout_packed_actions(cfg, p3, acts1), "cw_actions_kernel", b1[0])),
-        "packed_actions T=64": (results["packed_actions"]["ms"], device_ms(
-            lambda: pf.rollout_packed_actions(cfg, p3, acts), "cw_actions_kernel",
-            bounds["packed_actions"][0])),
-        "packed_bench T=256": (results["packed_bench"]["ms"], device_ms(
-            lambda: pf.rollout_packed_bench(cfg, p, 99, 256), "cw_bench_kernel",
-            bounds["packed_bench"][0])),
+        "packed_actions T=64": (results["packed_actions"]["ms"], bounds["packed_actions"][0],
+                                device_ms(lambda: pf.rollout_packed_actions(cfg, p3, acts),
+                                          "cw_actions_kernel", bounds["packed_actions"][0])),
+        "packed_bench T=256": (results["packed_bench"]["ms"], bounds["packed_bench"][0],
+                               device_ms(lambda: pf.rollout_packed_bench(cfg, p, 99, 256),
+                                         "cw_bench_kernel", bounds["packed_bench"][0])),
+        # phase 4's kernel (row 3), which no main path launches
+        "action_stream T=256": (results["action_stream"]["ms"], bounds["action_stream"][0],
+                                device_ms(lambda: pf.fused_action_stream(B, 12345, 256, device=dev),
+                                          "cw_stream_kernel", bounds["action_stream"][0])),
     }
-    for name, (ev, (dv, discarded)) in device.items():
+    for name, (ev, floor, (dv, discarded)) in device.items():
         print(f"{tag} {name} B={B}: CUDA events {ev:.4f} ms, device time {dv:.4f} ms "
-              f"(torch.profiler, mean of 20 calls); sessions discarded: "
+              f"(torch.profiler, mean of 20 calls); bound {floor:.5f} ms, device share "
+              f"{floor / dv:.1%}, event share {floor / ev:.1%}; profiler sessions discarded: "
               + ("; ".join(discarded) or "none"))
-    results["packed_actions"]["device_ms"] = device["packed_actions T=64"][1][0]
-    results["packed_bench"]["device_ms"] = device["packed_bench T=256"][1][0]
+    results["packed_actions"]["device_ms"] = device["packed_actions T=64"][2][0]
+    results["packed_bench"]["device_ms"] = device["packed_bench T=256"][2][0]
+    results["action_stream"]["device_ms"] = device["action_stream T=256"][2][0]
 
     # ---- 6. throughput -----------------------------------------------------
     for B_ in (B, 8 * B):
@@ -817,7 +891,7 @@ def main() -> int:
               f"{shares(kern, warps, trips[kern], r['ms'])}"
               + (f"; device time {shares(kern, warps, trips[kern], dv)}" if dv else ""))
     # one step a launch
-    dv = device["packed_actions T=1"][1][0]
+    dv = device["packed_actions T=1"][2][0]
     print(f"{tag} packed_actions at the collect's shape B={B} T=1 (64 launches an update): "
           f"kernel {collect['ms']:.4f} ms (CUDA events), device {dv:.5f} ms, "
           f"plain {collect['plain_ms']:.4f} ms, bound {b1[0]:.5f} ms ({b1[1]}), "
@@ -829,6 +903,7 @@ def main() -> int:
                for name, r in results.items()]
     kernels += fast_ppo_phases(cw, dev, tag)
     kernels += ladder_phases(cw, dev, tag)
+    front_end_phases(cw, dev, tag)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -962,6 +1037,25 @@ def gradient_phase(cw, dev, tag):
     check(err_rel_i < 3e-2 and cos_i > 0.999, "indexed kernel within tolerance of plain")
     print(f"{tag} indexed kernel == gathered kernel (max rel diff {idx_rel:.3e}); vs plain: "
           f"max abs err {err_abs_i:.3e}, max rel err {err_rel_i:.3e}, min cosine {cos_i:.7f}")
+    # block ids past either end read featb[ids] as JAX's gather does: a
+    # negative id wraps once, then every id clamps into [0, NB - 1]
+    ids_oor = ids.clone()
+    ids_oor[:4] = torch.tensor([NB, NB + 5, -1, -NB - 3], device=dev)
+    go, ao = fu.fused_minibatch_grads_indexed(fppo, params, featb, ids_oor, batch[1:])
+    x_oor = featb[fu.block_ids(ids_oor, NB)].reshape(N, F)
+    check(fu.block_ids(ids_oor[:4], NB).tolist() == [NB - 1, NB - 1, NB - 1, 0],
+          "block_ids wraps once, then clamps")
+    gog, aog = fu.fused_minibatch_grads(fppo, params, (x_oor,) + batch[1:])
+    oor_rel = max(float(((go[k] - gog[k]).abs() / gog[k].abs().clamp_min(1e-30)).max()) for k in go)
+    check(all(torch.allclose(go[k], gog[k], rtol=1e-6, atol=0) for k in go)
+          and abs(float(ao["loss"]) - float(aog["loss"])) <= 1e-6 * abs(float(aog["loss"])),
+          f"out-of-range ids: indexed equals gathered featb[block_ids] at rtol 1e-6 ({oor_rel:.3e})")
+    gpo, *_ = fu.ppo_grads_plain(fppo, w, x_oor, *fu._rest(*batch[1:]))
+    err_abs_o, err_rel_o, cos_o = grads_err(go, gpo)
+    check(err_rel_o < 3e-2 and cos_o > 0.999, "out-of-range ids: indexed kernel within tolerance of plain")
+    print(f"{tag} indexed kernel with block ids {ids_oor[:4].tolist()} (NB={NB}) == gathered "
+          f"featb[block_ids] (max rel diff {oor_rel:.3e}); vs plain: max abs err {err_abs_o:.3e}, "
+          f"max rel err {err_rel_o:.3e}, min cosine {cos_o:.7f}")
     flop, nbytes = grad_work(N, F, fppo.hidden)
     library_ms = time_ms(five_matmuls(gen, dev, N, F, fppo.hidden))
     results["ppo_grads"] = dict(
@@ -1055,11 +1149,8 @@ def fast_ppo_phases(cw, dev, tag):
 
     cfg, B, T_ = cw.ray_config(), B_MAIN, PPO_UPDATES
     F = fp.feature_rows(cfg)
-    wrappers = {"pool": fr.pool_picks, "ppo_grads": fu.fused_minibatch_grads,
-                "ppo_grads_indexed": fu.fused_minibatch_grads_indexed,
-                "packed_actions": pf.rollout_packed_actions,
-                "packed_bench": pf.rollout_packed_bench,
-                "action_stream": pf.fused_action_stream}
+    wrappers = kernel_wrappers("pool", "ppo_grads", "ppo_grads_indexed", "packed_actions",
+                               "packed_bench", "action_stream")
     plains = [fr.fresh_packed_plain, fu.ppo_grads_plain, pf.rollout_packed_actions_plain,
               pf.rollout_packed_bench_plain, pf.action_stream_plain]
     gen = torch.Generator(device=dev)
@@ -1270,11 +1361,8 @@ def ladder_phases(cw, dev, tag):
 
     cfg, B = cw.ray_config(), B_MAIN
     T_MAIN, SEED = cfg.max_steps, 11
-    wrappers = {"fused_rollout": fr.rollout_slots_seeded,
-                "fused_rollout_actions": fr.rollout_slots_actions,
-                "fused_rollout_t": frt.rollout_t_seeded,
-                "packed_bench": pf.rollout_packed_bench,
-                "action_stream": pf.fused_action_stream}
+    wrappers = kernel_wrappers("fused_rollout", "fused_rollout_actions", "fused_rollout_t",
+                               "packed_bench", "action_stream")
     plains = [fr.rollout_slots_seeded_plain, fr.rollout_slots_actions_plain,
               frt.rollout_t_seeded_plain, pf.rollout_packed_bench_plain,
               pf.action_stream_plain]
@@ -1394,10 +1482,39 @@ def ladder_phases(cw, dev, tag):
         "fused_rollout_t": (lambda: frt.rollout_t_seeded(cfg, ts, 9, T),
                             lambda: frt.rollout_t_seeded_plain(cfg, ts, 9, T)),
     }
+    kernel_of = {k: kern for k, (kern, _) in results.items()}
     results = {k: dict(ms=time_ms(kern), plain_ms=time_ms(plain))
                for k, (kern, plain) in results.items()}
     for name, r in results.items():
         print(f"{tag} {name} B={B} T={T}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms")
+    # bounds at the timed B and T: instructions, or the state in and out, the
+    # rewards and dones, and the given actions
+    warps = -(-B // 32)
+    state_bytes = 2 * sum(t.numel() * t.element_size() for t in sl)
+    # each instantiation's name in the SASS (mangled) and in the profiler's
+    # records (demangled)
+    kern = {"fused_rollout": ("cw_slot_rollout_kernelI10RowsLayoutLb1E",
+                              "cw_slot_rollout_kernel<RowsLayout, true>"),
+            "fused_rollout_actions": ("cw_slot_rollout_kernelI10RowsLayoutLb0E",
+                                      "cw_slot_rollout_kernel<RowsLayout, false>"),
+            "fused_rollout_t": ("cw_slot_rollout_kernelI13ColumnsLayoutLb1E",
+                                "cw_slot_rollout_kernel<ColumnsLayout, true>")}
+    bounds = {"fused_rollout": bound(pipe_bound_ms(kern["fused_rollout"][0], warps, T // 4),
+                                     state_bytes + 5 * T * B),
+              "fused_rollout_actions": bound(pipe_bound_ms(kern["fused_rollout_actions"][0],
+                                                           warps, T), state_bytes + 9 * T * B),
+              "fused_rollout_t": bound(pipe_bound_ms(kern["fused_rollout_t"][0], warps, T // 4),
+                                       state_bytes + 5 * T * B)}
+    # device time (torch.profiler) beside the CUDA-event time; no main path
+    # launches these kernels (rows 7-9)
+    for name, r in results.items():
+        dv, discarded = device_ms(kernel_of[name], kern[name][1], bounds[name][0])
+        r["device_ms"] = dv
+        print(f"{tag} {name} B={B} T={T}: CUDA events {r['ms']:.4f} ms, device time {dv:.4f} ms "
+              f"(torch.profiler, mean of 20 calls); bound {bounds[name][0]:.5f} ms "
+              f"({bounds[name][1]}), device share {bounds[name][0] / dv:.1%}, event share "
+              f"{bounds[name][0] / r['ms']:.1%}; launches on a main path 0; profiler sessions "
+              f"discarded: " + ("; ".join(discarded) or "none"))
     print(f"{tag} entry points B={B} T={T}: fused_rollout "
           f"{time_ms(lambda: cw.ops.fused_rollout(cfg, sl, 9, T)):.4f} ms, fused_rollout_t "
           f"(transposes included) {time_ms(lambda: frt.fused_rollout_t(cfg, sl, 9, T)):.4f} ms")
@@ -1415,9 +1532,9 @@ def ladder_phases(cw, dev, tag):
 
     rates = {}
     for name, kernel, fn, start in (
-            ("fused_rollout (kernel 7)", "cw_slot_rollout_kernelI10RowsLayoutLb1E",
+            ("fused_rollout (kernel 7)", kern["fused_rollout"][0],
              lambda s, i: fr.rollout_slots_seeded(cfg, s, i, T_CHUNK)[0], sl),
-            ("fused_rollout_t (kernel 9)", "cw_slot_rollout_kernelI13ColumnsLayoutLb1E",
+            ("fused_rollout_t (kernel 9)", kern["fused_rollout_t"][0],
              lambda s, i: frt.rollout_t_seeded(cfg, s, i, T_CHUNK)[0], ts)):
         probe = time_ms(chained(fn, start, 1), reps=3)
         n = max(1, math.ceil(250 / probe))
@@ -1442,17 +1559,6 @@ def ladder_phases(cw, dev, tag):
         ms = time_ms(fn)
         print(f"{tag} {name} B={B} T={T}: {ms / T:.4f} ms per step (plain torch, median of 5)")
 
-    # bounds at the timed B and T: instructions, or the state in and out, the
-    # rewards and dones, and the given actions
-    warps, T = -(-B // 32), 256
-    state_bytes = 2 * sum(t.numel() * t.element_size() for t in sl)
-    kern = "cw_slot_rollout_kernelI"
-    bounds = {"fused_rollout": bound(pipe_bound_ms(kern + "10RowsLayoutLb1E", warps, T // 4),
-                                     state_bytes + 5 * T * B),
-              "fused_rollout_actions": bound(pipe_bound_ms(kern + "10RowsLayoutLb0E", warps, T),
-                                             state_bytes + 9 * T * B),
-              "fused_rollout_t": bound(pipe_bound_ms(kern + "13ColumnsLayoutLb1E", warps, T // 4),
-                                       state_bytes + 5 * T * B)}
     source = "gym_craftingworld_tpu_torch/csrc/fused_rollout.cu"
     replaces = {"fused_rollout": "gym_craftingworld_tpu/ops/fused_rollout.py:227",
                 "fused_rollout_actions": "gym_craftingworld_tpu/ops/fused_rollout.py:242",
@@ -1462,6 +1568,230 @@ def ladder_phases(cw, dev, tag):
                  plain_ms=r["plain_ms"], bound_ms=bounds[name][0], bound_by=bounds[name][1],
                  library_ms=None)
             for name, r in results.items()]
+
+
+# ---------------------------------------------------------------------------
+# the front end: renders, the observation rollout, the façade, the vector env
+# (phases 14-16)
+# ---------------------------------------------------------------------------
+
+
+def on_host(state):
+    """A CPU copy of an ``EnvState``."""
+    return type(state)(**{f.name: getattr(state, f.name).cpu() for f in dataclasses.fields(state)})
+
+
+def same(got, want, what: str) -> None:
+    """Equal observations, rewards, dones and infos: dicts key by key, arrays
+    in dtype, shape and every element."""
+    import numpy as np
+
+    if isinstance(want, dict):
+        check(isinstance(got, dict) and set(got) == set(want), f"{what}: keys")
+        for k in want:
+            same(got[k], want[k], f"{what} {k}")
+        return
+    g, w = np.asarray(got), np.asarray(want)
+    check(g.dtype == w.dtype and g.shape == w.shape and np.array_equal(g, w),
+          f"{what}: equal ({g.dtype}{g.shape} vs {w.dtype}{w.shape})")
+
+
+def front_end_phases(cw, dev, tag):
+    """Phases 14-16: the renderers and the observation rollout at 16,384 envs
+    on 21x21, the Gym façade on the card against the CPU, and the vector env."""
+    import numpy as np
+
+    from gym_craftingworld_tpu_torch import api
+    from gym_craftingworld_tpu_torch.core import slots as sm
+    from gym_craftingworld_tpu_torch.core import validate
+    from gym_craftingworld_tpu_torch.ops import obs_rollout as obr
+    from gym_craftingworld_tpu_torch.render import raster
+
+    cfg, B = cw.ray_config(), B_MAIN
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    gen = torch.Generator(device=dev)
+
+    # ---- 14. renders -----------------------------------------------------------
+    gen.manual_seed(14)
+    fresh = cw.reset_from_seed(cfg, 14, B, device=dev)
+    stepped, _ = cw.rollout_random(cfg, fresh, gen, 40)  # held items, crafted objects
+    renderers = {"render_ray": raster.render_ray, "render_altobs": raster.render_altobs,
+                 "render_onehot": raster.render_onehot}
+    for label, st in (("reset_from_seed", fresh), ("after 40 random steps", stepped)):
+        host = on_host(st)
+        for name, fn in renderers.items():
+            got = fn(st.objects, st.agent, st.holding)
+            want = fn(host.objects, host.agent, host.holding)
+            check(got.device == st.objects.device and got.dtype == want.dtype
+                  and torch.equal(got.cpu(), want), f"{name} on the card == on the CPU ({label})")
+        for name in ("state_images_ray", "state_images_altobs", "state_obs_onehot"):
+            got, want = getattr(raster, name)(st), getattr(raster, name)(host)
+            check(set(got) == set(want), f"{name} keys")
+            for k in want:
+                check(got[k].dtype == want[k].dtype and torch.equal(got[k].cpu(), want[k]),
+                      f"{name}[{k}] on the card == on the CPU ({label})")
+            del got, want
+        check(torch.equal(raster.state_images_altobs(st, stacked=True).cpu(),
+                          raster.state_images_altobs(host, stacked=True)),
+              f"stacked AltObs on the card == on the CPU ({label})")
+        alt = raster.render_altobs(st.objects, st.agent, st.holding)
+        print(f"{tag} renders on the card == on the CPU, byte for byte: {label}, B={B} 21x21, "
+              f"the three renderers and the state_images_* dicts; envs holding an item "
+              f"{int((st.holding > 0).sum())}, AltObs max {int(alt.max())}")
+        del host, alt
+    for name, fn in renderers.items():
+        out = fn(stepped.objects, stepped.agent, stepped.holding)
+        nbytes = out.numel() * out.element_size()
+        ms = time_ms(lambda: fn(stepped.objects, stepped.agent, stepped.holding))
+        print(f"{tag} {name} B={B} 21x21 -> {tuple(out.shape)} {out.dtype}: {ms:.4f} ms, "
+              f"{B / (ms / 1e3):.4e} renders/s (median of 5, CUDA events); writes "
+              f"{nbytes / 1e6:.1f} MB, {nbytes / (ms / 1e3) / 1e9:.1f} GB/s, "
+              f"{nbytes / PEAK_BYTES * 1e3 / ms:.1%} of the HBM rate")
+        del out
+
+    slots = sm.from_env_state(cw.reset_from_seed(cfg, 15, B, device=dev))
+    T = 64
+    for mode, fn in (("ray", raster.render_ray), ("altobs", raster.render_altobs),
+                     ("onehot", raster.render_onehot)):
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        ms = time_ms(lambda: obr.rollout_obs_random(cfg, slots, gen, T, mode))
+        peak = torch.cuda.max_memory_allocated(dev)
+        steps_ms = time_ms(lambda: sm.rollout_slots_random(cfg, slots, gen, T))
+        print(f"{tag} rollout_obs_random {mode} B={B} T={T}: {ms:.2f} ms/run, "
+              f"{B * T / (ms / 1e3):.4e} env-steps/s with a render every step (median of 5, "
+              f"CUDA events), {ms / T:.4f} ms a step; rollout_slots_random without renders "
+              f"{steps_ms / T:.4f} ms a step; peak device memory {peak / 2**30:.3f} GiB, "
+              f"{(peak - held) / 2**20:.1f} MiB above the {held / 2**20:.1f} MiB held before")
+        # T=8: the checksum against a stepwise recompute, the final state
+        # against the pure slot rollout from the same generator state
+        gen.manual_seed(100)
+        final, checksum = obr.rollout_obs_random(cfg, slots, gen, 8, mode)
+        gen.manual_seed(100)
+        ref, _ = sm.rollout_slots_random(cfg, slots, gen, 8)
+        gen.manual_seed(100)
+        actions = torch.randint(0, 6, (8, B), generator=gen, device=dev, dtype=torch.int32)
+        expect, s = 0, slots
+        for t in range(8):
+            s, res = sm.step_slots(cfg, s, actions[t])
+            objects, agent, holding = sm.to_grid(s, cfg)
+            expect += int(fn(objects, agent, holding).sum(dtype=torch.int64))
+            expect += int(res.reward.sum(dtype=torch.int64))
+        check(int(checksum) == expect % 2**32,
+              f"{mode} checksum {int(checksum)} == stepwise recompute {expect % 2**32}")
+        for f in sm.SlotState._fields:
+            check(torch.equal(getattr(final, f), getattr(ref, f)),
+                  f"{mode} obs rollout and rollout_slots_random agree on {f}")
+        print(f"{tag} rollout_obs_random {mode} B={B} T=8: checksum {int(checksum)} == stepwise "
+              f"recompute (sum {expect}), final state == rollout_slots_random's")
+
+    # ---- 15. the façade -----------------------------------------------------------
+    acts = np.random.RandomState(15).randint(6, size=120)
+    for env_id in ("craftingworld-v3", "craftingworldflat-v3", "craftingworldonehot-v3",
+                   "craftingworldaltobs-v3"):
+        flat = "flat" in env_id
+        card = api.make(env_id, rng_mode="parity", seed=0, device=dev)
+        host = api.make(env_id, rng_mode="parity", seed=0, device="cpu")
+        same(card.reset(), host.reset(), f"{env_id} reset")
+        n, resets, card_s = 0, 0, 0.0
+        for i in range(100 if flat else 120):
+            t0 = time.perf_counter()
+            co, cr, cd, ci = card.step(int(acts[i]))
+            card_s += time.perf_counter() - t0
+            ho, hr, hd, hi = host.step(int(acts[i]))
+            check((cr, cd) == (hr, hd), f"{env_id} step {i}: reward and done")
+            same(co, ho, f"{env_id} step {i} obs")
+            same(ci, hi, f"{env_id} step {i} info")
+            n += 1
+            if cd:
+                if flat:
+                    break
+                same(card.reset(), host.reset(), f"{env_id} reset at step {i}")
+                resets += 1
+        check(not flat or cd, "the 8x8 Flat episode ended")
+        print(f"{tag} façade {env_id} parity seed 0, {card.STATE_W}x{card.STATE_H}: {n} steps "
+              f"({resets} resets) on the card == on the CPU (obs, reward, done, info); "
+              f"{card_s / n * 1e3:.3f} ms a step on the card (host clock, obs copied to the host)")
+    # the incremental render against the CPU env's full render
+    for label, kw, host_kw in (("fixed_init_state=4", dict(fixed_init_state=4),
+                                dict(fixed_init_state=4)),
+                               ("incremental_render=True", dict(incremental_render=True), {})):
+        card = api.make("craftingworld-v3", rng_mode="parity", seed=3, device=dev, **kw)
+        host = api.make("craftingworld-v3", rng_mode="parity", seed=3, device="cpu", **host_kw)
+        same(card.reset(), host.reset(), f"{label} reset")
+        for i in range(60):
+            co, cr, cd, ci = card.step(int(acts[i]))
+            ho, hr, hd, hi = host.step(int(acts[i]))
+            check((cr, cd) == (hr, hd), f"{label} step {i}: reward and done")
+            same(co, ho, f"{label} step {i} obs")
+        print(f"{tag} façade craftingworld-v3 {label}: 60 steps on the card == on the CPU "
+              f"with {host_kw or 'its full render'}")
+    env = api.make("craftingworld-v3", batch_size=B, seed=0, device=dev)
+    t0 = time.perf_counter()
+    obs = env.reset()
+    t_reset = time.perf_counter() - t0
+    validate.assert_valid_state(env.cfg, env.state)
+    times = []
+    for i in range(3):
+        t0 = time.perf_counter()
+        obs, reward, done, info = env.step(np.arange(B) % 6)
+        times.append(time.perf_counter() - t0)
+    validate.assert_valid_state(env.cfg, env.state)
+    check(isinstance(obs["observation"], np.ndarray) and obs["observation"].shape == (B, 84, 84, 3)
+          and obs["observation"].dtype == np.uint8, "full-width façade obs shape and dtype")
+    check(reward.shape == (B,) and done.dtype == bool and info["achieved_goal"].shape == (B, 9),
+          "full-width façade reward, done and info")
+    print(f"{tag} façade craftingworld-v3 batch_size={B}: reset {t_reset * 1e3:.1f} ms, "
+          f"steps {', '.join(f'{t * 1e3:.1f}' for t in times)} ms (host clock, the obs dict "
+          f"copied to the host: {sum({id(v): v.nbytes for v in obs.values()}.values()) / 1e6:.0f} MB "
+          f"a step)")
+    del env, obs
+
+    # ---- 16. the vector env ----------------------------------------------------------
+    expect = {"onehot": ((21, 21, 12), torch.uint8), "pixels": ((84, 84, 3), torch.uint8),
+              "features": ((21 * 21 * 12 + 18,), torch.float32)}
+    for mode, (shape, dtype) in expect.items():
+        env = api.CraftingWorldVectorEnv(B, obs_mode=mode, seed=16, device=dev)
+        obs, _ = env.reset()
+        gen.manual_seed(16)
+        ever = torch.zeros(B, dtype=torch.bool, device=dev)
+        resets = torch.zeros((), dtype=torch.int64, device=dev)
+        restarted_late = torch.zeros((), dtype=torch.int64, device=dev)
+        for i in range(320):
+            a = torch.randint(0, 6, (B,), generator=gen, device=dev, dtype=torch.int32)
+            obs, reward, term, trunc, infos = env.step(a)
+            done = term | trunc
+            if i < 300:
+                ever |= done
+            resets += done.sum()
+            restarted_late += (done & (env.state.step_num != 0)).sum()
+            if i % 40 == 0 or i in (299, 300, 319):
+                check(bool(validate.check_state(env.cfg, env.state).all()),
+                      f"vector env {mode}: valid states at step {i}")
+        check(bool(ever.all()), f"vector env {mode}: every env terminated or truncated by step 300")
+        check(int(restarted_late) == 0, f"vector env {mode}: a done env restarts at step_num 0")
+        check(obs.device == dev and tuple(obs.shape) == (B,) + shape and obs.dtype == dtype,
+              f"vector env {mode}: obs on the card, {(B,) + shape} {dtype}")
+        check(reward.dtype == torch.int32 and term.dtype == torch.bool and reward.device == dev,
+              f"vector env {mode}: reward and flags on the card")
+        steps = torch.randint(0, 6, (64, B), generator=gen, device=dev, dtype=torch.int32)
+
+        def run():  # keeps no step's observations
+            for a in steps:
+                env.step(a)
+        ms = time_ms(run, reps=3)
+        print(f"{tag} vector env {mode} B={B} 21x21: 320 steps, {int(resets)} resets, every env "
+              f"done by step 300, valid restarts; {B * 64 / (ms / 1e3):.4e} env-steps/s "
+              f"({ms / 64:.4f} ms a step, 64 steps a run, median of 3, CUDA events), "
+              f"obs {tuple(obs.shape)} {obs.dtype}")
+        del env, obs
+    launches = {k: w.launches for k, w in wrappers.items()}
+    check(all(n == 0 for n in launches.values()),
+          f"the front end runs plain PyTorch and no hand-written kernel: {launches}")
+    print(f"{tag} launch counters over phases 14-16: {launches}")
 
 
 if __name__ == "__main__":

@@ -17,7 +17,12 @@ Ported so far:
   (:mod:`.ops.fused_rollout`, :mod:`.ops.fused_rollout_t`) and the packed
   layout (:mod:`.ops.packed_fused`);
 - the fast-PPO trainer (:mod:`.train.fast_ppo`) with its world-pool and
-  gradient kernels (:mod:`.ops.fused_reset`, :mod:`.ops.fused_update`).
+  gradient kernels (:mod:`.ops.fused_reset`, :mod:`.ops.fused_update`);
+- the front end: the renderers (:mod:`.render`), the observation-interleaved
+  rollout (:mod:`.ops.obs_rollout`), the policy features
+  (:mod:`.models.actor_critic`, features only), the four Gym env variants,
+  the vector env and the registry (:mod:`.api`), and parity-mode resets with
+  the reference oracle's loader and gym shim (:mod:`.parity`).
 
 The CUDA kernels live in ``csrc/``.
 """

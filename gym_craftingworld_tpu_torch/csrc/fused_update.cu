@@ -4,7 +4,8 @@
 // _kernel (:57, behind fused_minibatch_grads) and _kernel_prefetched (:270,
 // behind fused_minibatch_grads_indexed). Both forms are the one entry point
 // cw_ppo_grads below; the indexed form passes the minibatch's block ids, and
-// row r of the minibatch then reads feature row ids[r / blk] * blk + r % blk.
+// row r of the minibatch then reads feature row ids[r / blk] * blk + r % blk,
+// with an out-of-range id wrapped and clamped as JAX's gather does (cw_pad_kernel).
 // Plain version and rounding points: ops/fused_update.py.
 //
 // What bounds it: tensor-core products. At N = 131,072 rows, F = 67 and
@@ -54,10 +55,12 @@ typedef __nv_bfloat16 bf16;
 #define CW_PAD_ROWS 64  // rows a block of cw_pad_kernel
 
 // dst[r, c] = src[row(r), c] for c < f, 0 for f <= c < CW_FPAD, r < rows, with
-// row(r) = ids[r / blk] * blk + r % blk when ids is set, else r; and, when
-// dst_t is set, dst_t[c, r] the same for r < ldt (0 for r >= rows).
+// row(r) = id(r / blk) * blk + r % blk when ids is set, else r; and, when
+// dst_t is set, dst_t[c, r] the same for r < ldt (0 for r >= rows). id(i) is
+// block ids[i] of src's nb blocks as featb[ids] gathers it in JAX: a negative
+// id wraps once, then the id clamps into [0, nb - 1].
 __global__ void __launch_bounds__(256)
-    cw_pad_kernel(const bf16* __restrict__ src, const int32_t* __restrict__ ids, int blk,
+    cw_pad_kernel(const bf16* __restrict__ src, const int32_t* __restrict__ ids, int blk, int nb,
                   int rows, int f, bf16* __restrict__ dst, bf16* __restrict__ dst_t, int ldt) {
   __shared__ bf16 tile[CW_PAD_ROWS][CW_FPAD + 2];
   const int r0 = blockIdx.x * CW_PAD_ROWS;
@@ -65,7 +68,13 @@ __global__ void __launch_bounds__(256)
     const int r = i / CW_FPAD, c = i % CW_FPAD, row = r0 + r;
     bf16 v = __float2bfloat16(0.f);
     if (row < rows && c < f) {
-      const long long at = ids ? (long long)ids[row / blk] * blk + row % blk : (long long)row;
+      long long at = row;
+      if (ids) {
+        int id = ids[row / blk];
+        id = id < 0 ? id + nb : id;
+        id = min(max(id, 0), nb - 1);
+        at = (long long)id * blk + row % blk;
+      }
       v = src[at * f + c];
     }
     tile[r][c] = v;
@@ -266,7 +275,8 @@ static bool covers(int k, int s, int kc) {
     if (err_ != cudaSuccess) return (int)err_; \
   } while (0)
 
-// in:   x bf16 [rows, f], ids int32 [n / blk] or null, action int32 [n],
+// in:   x bf16 [rows, f] (nb blocks of blk rows), ids int32 [n / blk] or null,
+//       action int32 [n],
 //       old_lp, old_v, adv_n, ret f32 [n], w1 bf16 [h, f], b1 f32 [h],
 //       w2 bf16 [h, h], b2 f32 [h], wlv bf16 [7, h], blv f32 [7]
 // work: h1, h2, dz1, dz2 bf16 [n, h], dheads f32 [n, 8],
@@ -280,11 +290,11 @@ static bool covers(int k, int s, int kc) {
 // out:  gw1 f32 [h, f], gw2 f32 [h, h], ghead f32 [9h + 8] (gwlv [7, h],
 //       gblv [8], gb1 [h], gb2 [h]), pg_row, v_row, ent_row f32 [n]
 extern "C" int cw_ppo_grads(const void* const* in, void* const* work, void* const* out,
-                            int n, int f, int h, int blk, int ldt, int s_w1, int kc_w1,
+                            int n, int f, int h, int blk, int nb, int ldt, int s_w1, int kc_w1,
                             int s_w2, int kc_w2, int s_head, float clip_eps, float vf_coef,
                             float ent_coef, void* stream) {
   cudaGetLastError();
-  if (n <= 0 || h <= 0 || f <= 0 || f > CW_FPAD || h % 8 || ldt < n || ldt % 8 ||
+  if (n <= 0 || h <= 0 || f <= 0 || f > CW_FPAD || h % 8 || ldt < n || ldt % 8 || nb <= 0 ||
       ldt - n >= 8 || !covers(ldt, s_w1, kc_w1) || !covers(ldt, s_w2, kc_w2) || s_head <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
@@ -299,9 +309,9 @@ extern "C" int cw_ppo_grads(const void* const* in, void* const* work, void* cons
   // K-major operands: the minibatch's padded features and their transpose,
   // w1 padded, w2 transposed
   cw_pad_kernel<<<(ldt + CW_PAD_ROWS - 1) / CW_PAD_ROWS, 256, 0, st>>>(
-      x, (const int32_t*)in[1], blk, n, f, x_pad, x_pad_t, ldt);
+      x, (const int32_t*)in[1], blk, nb, n, f, x_pad, x_pad_t, ldt);
   cw_pad_kernel<<<(h + CW_PAD_ROWS - 1) / CW_PAD_ROWS, 256, 0, st>>>(
-      w1, nullptr, 1, h, f, w1_pad, nullptr, 0);
+      w1, nullptr, 1, 1, h, f, w1_pad, nullptr, 0);
   launch_transpose(w2, h, h, w2_t, h, st);
 
   // forward: h1 = bf16(relu(x w1^T + b1)) and h1^T, h2 = bf16(relu(h1 w2^T + b2))

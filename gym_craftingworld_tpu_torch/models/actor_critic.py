@@ -1,0 +1,57 @@
+"""The flagship policy's observation features.
+
+Counterpart of ``gym_craftingworld_tpu/models/actor_critic.py``, for the
+features only: the flat one-hot grid with the desired and achieved goal bits
+(``obs_features``), optionally with the init-grid one-hot
+(``obs_features_init``), and their widths. The vector env's ``features``
+observation mode uses them. The ``ActorCritic`` network and ``init_params``
+are not ported yet; they come with the models and trainers.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from gym_craftingworld_tpu_torch import constants as C
+from gym_craftingworld_tpu_torch.core.state import EnvState
+from gym_craftingworld_tpu_torch.render.raster import render_onehot
+
+f32 = torch.float32
+
+
+def obs_features(state: EnvState) -> torch.Tensor:
+    """Policy features: flat one-hot grid + desired + achieved bits, f32[B, D]."""
+    B = state.objects.shape[0]
+    grid = render_onehot(state.objects, state.agent, state.holding)
+    return torch.cat(
+        [grid.reshape(B, -1).to(f32), state.desired.to(f32), state.achieved.to(f32)],
+        dim=-1,
+    )
+
+
+def feature_dim(height: int, width: int) -> int:
+    return height * width * C.N_CHANNELS + 2 * C.N_TASKS
+
+
+def obs_features_init(state: EnvState) -> torch.Tensor:
+    """:func:`obs_features` ++ the flattened init-grid one-hot (9 channels:
+    8 objects + the agent's reset cell).
+
+    The Move*/GoToHouse evaluation compares the live grid against
+    INIT_OBS_VECTOR (craftingworld_ray.py:670-702): stepping on an item's
+    *origin* cell while carrying it clears its Move* bit — but origin cells
+    are empty in the current grid, so a policy without the init view cannot
+    route around them (the reference carries ``init_observation`` in its
+    observation dict for exactly this reason, :183-187).
+    """
+    B = state.objects.shape[0]
+    init = state.init_objects.to(torch.int32)
+    # channels 0-7: object origins; channel 8: agent reset cell (code 9);
+    # code 0 gives a zero row, as jax.nn.one_hot(init - 1, 9) does
+    codes = torch.arange(1, C.N_OBJECTS + 2, dtype=torch.int32, device=init.device)
+    init_oh = (init[..., None] == codes).to(f32)
+    return torch.cat([obs_features(state), init_oh.reshape(B, -1)], dim=-1)
+
+
+def feature_dim_init(height: int, width: int) -> int:
+    return feature_dim(height, width) + height * width * (C.N_OBJECTS + 1)

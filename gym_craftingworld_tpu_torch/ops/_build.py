@@ -53,9 +53,9 @@ _SIGNATURES = {
     # seeds, picks, n, hw, sel_mask, n_sel, n_tasks, stacking, stream
     "cw_pool": (_P, _P, _I, _I, _U32, _I, _I, _I, _P),
     # fused_update.cu
-    # in[13], work[15], out[6], n, f, h, blk, ldt, s_w1, kc_w1, s_w2, kc_w2,
+    # in[13], work[15], out[6], n, f, h, blk, nb, ldt, s_w1, kc_w1, s_w2, kc_w2,
     # s_head, clip_eps, vf_coef, ent_coef, stream
-    "cw_ppo_grads": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P),
+    "cw_ppo_grads": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P),
     # a, b, part, out, M, N, K, splits, kchunk, stream
     "cw_gemm_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }

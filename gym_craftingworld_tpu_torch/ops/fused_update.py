@@ -141,14 +141,22 @@ def ppo_grads_plain(fppo, w: Weights, x, action, old_lp, old_v, adv_n, ret):
 ppo_grads_plain.calls = 0
 
 
+def block_ids(ids, nb: int) -> torch.Tensor:
+    """int64 block ids as JAX's gather ``featb[ids]`` reads them from ``nb``
+    blocks: a negative id wraps once, then every id clamps into [0, nb - 1]."""
+    ids = ids.to(torch.int64)
+    return torch.where(ids < 0, ids + nb, ids).clamp(0, nb - 1)
+
+
 def pad_features_plain(x, ids=None, blk: int = 1, width: int = _FPAD):
     """Plain version of the kernel's pad pass: (x_pad bf16[n, width], its transpose).
 
-    Minibatch row ``r`` is ``x[r]``, or with ``ids`` ``x[ids[r // blk] * blk + r % blk]``;
-    columns past F are zero.
+    Minibatch row ``r`` is ``x[r]``, or with ``ids``
+    ``x[block_ids(ids)[r // blk] * blk + r % blk]``; columns past F are zero.
     """
     if ids is not None:
-        x = x.view(-1, blk, x.shape[-1])[ids.to(torch.int64)].reshape(-1, x.shape[-1])
+        xb = x.view(-1, blk, x.shape[-1])
+        x = xb[block_ids(ids, xb.shape[0])].reshape(-1, x.shape[-1])
     x_pad = torch.nn.functional.pad(x.to(bf16), (0, width - x.shape[-1]))
     return x_pad, x_pad.T.contiguous()
 
@@ -232,7 +240,8 @@ def ppo_grads_kernel(fppo, w: Weights, x, ids, blk: int, action, old_lp, old_v,
     """Launch ``cw_ppo_grads``: (grads, pg_row, v_row, ent_row).
 
     ``x`` bf16[rows, F]; minibatch row ``r`` reads ``x[r]``, or with ``ids``
-    (int32[n / blk]) ``x[ids[r // blk] * blk + r % blk]``.
+    (int32[n / blk]) ``x[block_ids(ids)[r // blk] * blk + r % blk]``: the
+    kernel wraps and clamps each id itself, with no host sync.
     """
     dev = x.device
     n = action.shape[0]
@@ -266,7 +275,7 @@ def ppo_grads_kernel(fppo, w: Weights, x, ids, blk: int, action, old_lp, old_v,
     ins = [x, ids, action, old_lp, old_v, adv_n, ret, *w]  # a null ids: no block map
     code = _build.load().cw_ppo_grads(
         _pointers(ins), _pointers(work), _pointers([gw1, gw2, ghead, *rows]),
-        n, F, H, blk, p.ldt, p.s_w1, p.kc_w1, p.s_w2, p.kc_w2, p.s_head,
+        n, F, H, blk, x.shape[0] // blk, p.ldt, p.s_w1, p.kc_w1, p.s_w2, p.kc_w2, p.s_head,
         fppo.clip_eps, fppo.vf_coef, fppo.ent_coef,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check("cw_ppo_grads", code)
@@ -354,15 +363,17 @@ def fused_minibatch_grads_indexed(fppo, params, featb, ids, rest):
     int[nbm], this minibatch's blocks in order; rest: (action, old_log_prob,
     old_value, adv unnormalized, ret), each [nbm * BLK], already in minibatch
     order. Returns what ``fused_minibatch_grads(fppo, params,
-    (featb[ids].reshape(-1, F),) + rest)`` returns: the kernel reads block
-    ``ids[i]`` in place of gathering it, and does the same arithmetic.
+    (featb[ids].reshape(-1, F),) + rest)`` returns, ``featb[ids]`` taken as
+    JAX takes it (``block_ids``: an out-of-range id wraps once, then clamps):
+    the kernel reads block ``ids[i]`` in place of gathering it, and does the
+    same arithmetic.
     """
     NB, BLK, F = featb.shape
     n = ids.shape[0] * BLK
     w = weights(params)
     rest = _rest(*rest)
     if not _on_cuda(featb):
-        x = featb[ids.to(torch.int64)].reshape(n, F)
+        x = featb[block_ids(ids, NB)].reshape(n, F)
         return _finish(fppo, n, *ppo_grads_plain(fppo, w, x, *rest))
     x = featb.to(bf16).contiguous().view(NB * BLK, F)
     out = ppo_grads_kernel(fppo, w, x, ids.to(torch.int32).contiguous(), BLK, *rest)

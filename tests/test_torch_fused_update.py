@@ -132,6 +132,41 @@ def test_indexed_equals_gathered():
     np.testing.assert_allclose(float(aux_idx["loss"]), float(aux_ref["loss"]), rtol=1e-6)
 
 
+def test_out_of_range_block_ids_follow_jax_gather():
+    """Block ids past either end read ``featb[ids]`` as JAX gathers it (a
+    negative id wraps once, then clamps), held against the JAX kernel on
+    JAX's own gather. JAX's indexed Pallas path in interpret mode refuses
+    such ids instead, so it cannot be the yardstick here."""
+    cfg = jcw.ray_config()
+    fppo, jparams, tfppo, params = params_pair(2, cfg, 64)
+    rng = np.random.default_rng(8)
+    NB, BLK, F = 8, 256, jfp.feature_rows(cfg)
+    feat = rng.standard_normal((NB, BLK, F)).astype(np.float32)
+    ids = np.array([NB, NB + 5, -1, -NB - 3], dtype=np.int32)
+    N = len(ids) * BLK
+    rest = (rng.integers(0, 6, N).astype(np.int32),) + tuple(
+        rng.standard_normal(N).astype(np.float32) for _ in range(4))
+    jfeatb = jnp.asarray(feat, jnp.bfloat16)
+    jids = np.array(jnp.arange(NB)[jnp.asarray(ids)])
+    np.testing.assert_array_equal(fu.block_ids(torch.as_tensor(ids), NB).numpy(), jids)
+    assert jids.tolist() == [NB - 1, NB - 1, NB - 1, 0]
+
+    featb = torch.as_tensor(feat).to(torch.bfloat16)
+    x_pad, _ = fu.pad_features_plain(featb.view(NB * BLK, F), torch.as_tensor(ids), BLK)
+    np.testing.assert_array_equal(x_pad[:, :F].float().numpy(),
+                                  featb[torch.as_tensor(jids).long()].reshape(N, F).float().numpy())
+
+    trest = tuple(torch.as_tensor(x) for x in rest)
+    grads, aux = fu.fused_minibatch_grads_indexed(tfppo, params, featb, torch.as_tensor(ids), trest)
+    jbatch = (jfeatb[jnp.asarray(ids)].reshape(N, F),) + tuple(jnp.asarray(x) for x in rest)
+    jg, jaux = jfu.fused_minibatch_grads(fppo, jparams, jbatch, interpret=True)
+    assert_grads_close(grads, jg._asdict(), "out-of-range ids vs JAX kernel on featb[ids]")
+    assert_losses_close(aux, jaux)
+    with pytest.raises(Exception, match="Out-of-bounds block index"):
+        jfu.fused_minibatch_grads_indexed(fppo, jparams, jfeatb, jnp.asarray(ids),
+                                          tuple(jnp.asarray(x) for x in rest), interpret=True)
+
+
 def test_advantage_std_has_ddof_zero():
     """jnp.std divides by N; torch.std by N - 1 unless told otherwise."""
     adv = np.random.default_rng(2).standard_normal(37).astype(np.float32)
