@@ -38,7 +38,8 @@ nothing of JAX. Phases, each of which must pass:
    ``fused_minibatch_grads``; the same 3 updates with ``throughput()``. The
    pool, indexed-gradient and actions kernels must have run 3, 48 and 192
    times, and no plain version at all;
-8. pool kernel against its plain version (bit-exact) at n=32,768;
+8. pool kernel against its plain version (bit-exact) at n=32,768, and its
+   device time there (``torch.profiler``) beside its bound;
 9. (9a) the gradient's bf16 product core (``gemm_bf16_kernel``) against its
    plain version on one tile, a ragged shape and the five product shapes of a
    minibatch, each output within 1e-5 of the plain result relative to
@@ -79,7 +80,22 @@ nothing of JAX. Phases, each of which must pass:
 16. the vector env at 16,384 envs per observation mode: 320 random steps,
    every env done by step 300, each done env restarted at step_num 0 in a
    valid state, obs on the card in the JAX package's shapes and dtypes, and
-   env-steps/s. Phases 14-16 launch no hand-written kernel, and check so.
+   env-steps/s. Phases 14-16 launch no hand-written kernel, and check so;
+17. pixel PPO at 16,384 envs on 21x21, with every counter set to 0 just
+   before: ``train_many_pixel`` for 3 updates at the default
+   ``PixelPPOConfig`` (conv 32/64, hidden 256, stride 2, T=64, 2 epochs x 16
+   minibatches) and at ``throughput()`` (conv 16/32, hidden 192, stride 3, 1
+   epoch x 8); the actions kernel must have run 192 times, no other kernel
+   and no plain version; then ``render_grid_obs`` on the card equal to the
+   CPU's byte for byte, ``apply_pixel_policy`` and one minibatch's loss and
+   gradient within the CPU tests' tolerances, and the times (CUDA events,
+   median of 5): ms per update, pool, collect, GAE, update phase, peak memory;
+18. the policy families: ``ActorCritic``, ``PixelActorCritic``,
+   ``PixelDistillStudent`` and ``GridActorCritic`` on the card against the
+   CPU on the same parameters (carried by ``interop``); one ``train/ppo.py``
+   update per family at hidden 512 on 21x21 (mlp and cnn at 4,096 envs, vit
+   at 256), ms per update, and ``evaluate_policy`` over 1,024 greedy
+   episodes; no hand-written kernel runs, and the phase checks so.
 
 It prints one JSON line of per-kernel results, then, as its last line,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
@@ -904,6 +920,8 @@ def main() -> int:
     kernels += fast_ppo_phases(cw, dev, tag)
     kernels += ladder_phases(cw, dev, tag)
     front_end_phases(cw, dev, tag)
+    pixel_ppo_phases(cw, dev, tag)
+    policy_families_phase(cw, dev, tag)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1253,6 +1271,12 @@ def fast_ppo_phases(cw, dev, tag):
     ms_entry = time_ms(lambda: fr.fresh_packed_fused(cfg, sd[0], n_pool, seed2=sd[1]))
     print(f"{tag} fresh_packed_fused (entry point, assembly included) n={n_pool}: "
           f"{ms_entry:.4f} ms; agent-cell chi2 {chi2:.1f} (dof 440)")
+    floor = results["pool"]["bound"][0]
+    dv, discarded = device_ms(lambda: fr.pool_picks(cfg, sd, n_pool), "cw_pool_kernel", floor)
+    print(f"{tag} pool kernel n={n_pool} 21x21: CUDA events {results['pool']['ms']:.4f} ms, "
+          f"device time {dv:.5f} ms (torch.profiler, mean of 20 calls); bound {floor:.5f} ms, "
+          f"device share {floor / dv:.1%}, event share {floor / results['pool']['ms']:.1%}; "
+          f"profiler sessions discarded: " + ("; ".join(discarded) or "none"))
 
     # ---- 9. the product core, then the gradient kernels vs plain ----------------
     gemm_core_phase(dev, tag)
@@ -1792,6 +1816,268 @@ def front_end_phases(cw, dev, tag):
     check(all(n == 0 for n in launches.values()),
           f"the front end runs plain PyTorch and no hand-written kernel: {launches}")
     print(f"{tag} launch counters over phases 14-16: {launches}")
+
+
+# ---------------------------------------------------------------------------
+# pixel PPO and the policy families (phases 17-18)
+# ---------------------------------------------------------------------------
+
+# envs of each family's train_step in phase 18: a vit minibatch of 4,096 rows
+# already holds 6.4 GB of attention weights per block
+FAMILY_B = {"mlp": 4096, "cnn": 4096, "vit": 256}
+EVAL_EPISODES = 1024
+GRAD_ROWS = 4096  # rows of phase 17's card-vs-CPU gradient check
+
+
+def plain_versions():
+    """Every kernel's plain version, each counting its calls in ``calls``."""
+    from gym_craftingworld_tpu_torch.ops import fused_reset as fre
+    from gym_craftingworld_tpu_torch.ops import fused_update as fu
+    from gym_craftingworld_tpu_torch.ops import packed_fused as pf
+
+    fr = importlib.import_module("gym_craftingworld_tpu_torch.ops.fused_rollout")
+    frt = importlib.import_module("gym_craftingworld_tpu_torch.ops.fused_rollout_t")
+    return [fre.fresh_packed_plain, fu.ppo_grads_plain, pf.rollout_packed_actions_plain,
+            pf.rollout_packed_bench_plain, pf.action_stream_plain, fr.rollout_slots_seeded_plain,
+            fr.rollout_slots_actions_plain, frt.rollout_t_seeded_plain]
+
+
+def rel_l2(got, want) -> float:
+    return float((got.float() - want.float()).norm() / want.float().norm())
+
+
+def kernel_breakdown(fn, top: int = 8):
+    """Device time of one ``fn()`` call by kernel (``torch.profiler``, after a
+    warm-up call): (total ms, span ms by CUDA events, [(name, ms, launches)]
+    of the ``top`` kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+                   if "CUDA" in str(e.device_type)), key=lambda r: -r[1])
+    return sum(r[1] for r in rows), start.elapsed_time(end), rows[:top]
+
+
+def pixel_ppo_phases(cw, dev, tag):
+    """Phase 17: ``train_many_pixel`` at 16,384 envs on 21x21 for both presets,
+    counted; the card against the CPU; the stages' times."""
+    from gym_craftingworld_tpu_torch import interop
+    from gym_craftingworld_tpu_torch.train import fast_pixel_ppo as fx
+
+    cfg, B, U = cw.ray_config(), B_MAIN, PPO_UPDATES
+    wrappers, plains = kernel_wrappers(), plain_versions()
+    gen = torch.Generator(device=dev)
+    for preset, ppo in (("default", fx.PixelPPOConfig()),
+                        ("throughput", fx.PixelPPOConfig.throughput())):
+        T = ppo.rollout_steps
+        gen.manual_seed(17)
+        ts = fx.init_pixel_train_state(gen, cfg, ppo)
+        env = fx.fresh_packed_batch(cfg, gen, B)
+        before = {k: v.detach().clone() for k, v in ts.params.tensors().items()}
+        torch.cuda.synchronize()
+        for w in wrappers.values():
+            w.launches = 0
+        for f in plains:
+            f.calls = 0
+        t0 = time.perf_counter()
+        ts, env, gen, m = fx.train_many_pixel(cfg, ppo, ts, env, U, gen)
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t0
+        launches = {k: w.launches for k, w in wrappers.items()}
+        calls = {f.__name__: f.calls for f in plains}
+        print(f"{tag} pixel PPO {preset}: B={B} conv {ppo.conv1}/{ppo.conv2} stride {ppo.stride1} "
+              f"hidden {ppo.hidden} T={T} {ppo.update_epochs}x{ppo.num_minibatches} minibatches, "
+              f"{U} updates in {t_train * 1e3:.1f} ms (cold, host clock); launches {launches}; "
+              f"plain calls {calls}")
+        check(launches["packed_actions"] == U * T,
+              f"actions kernel once per collect step ({launches['packed_actions']})")
+        check(all(n == 0 for k, n in launches.items() if k != "packed_actions"),
+              f"no other kernel ran (the pixel path draws its pool with torch): {launches}")
+        check(all(c == 0 for c in calls.values()), f"no plain version ran: {calls}")
+        metrics = {k: v.tolist() for k, v in m.items()}
+        print(f"{tag} pixel PPO {preset} metrics: {json.dumps(metrics)}")
+        check(all(math.isfinite(x) for v in metrics.values() for x in v), "finite metrics")
+        check(all(len(v) == U for v in metrics.values()), "metrics stacked per update")
+        check(ts.update_idx == U and int(ts.opt_state.count) == U * ppo.update_epochs
+              * ppo.num_minibatches, "update and optimizer counts")
+        check(all(not torch.equal(before[k], v) for k, v in ts.params.tensors().items()
+                  if k in ("k1", "k2", "w1", "wl", "wv")), "the weights changed")
+        check(abs(metrics["entropy"][0] - math.log(6)) < 0.05,
+              f"first update's entropy within 0.05 of log 6 ({metrics['entropy'][0]:.4f})")
+        check(bool(((env.slot_key >= 0) & (env.slot_key <= cfg.n_cells + 1)).all()),
+              "env keys in range after training")
+
+        # the card against the CPU on one state of B worlds
+        host_env = type(env)(*(x.cpu() for x in env))
+        host_params = interop.conv_params_from_numpy(interop.conv_params_to_numpy(ts.params),
+                                                     device="cpu")
+        card_obs, host_obs = fx.render_grid_obs(cfg, env), fx.render_grid_obs(cfg, host_env)
+        for got, want in zip(card_obs, host_obs):
+            check(got.dtype == want.dtype and torch.equal(got.cpu(), want),
+                  f"render_grid_obs on the card == on the CPU, byte for byte ({preset})")
+        with torch.no_grad():
+            card_out = fx.apply_pixel_policy(ts.params, *card_obs, ppo.stride1)
+            host_out = fx.apply_pixel_policy(host_params, *host_obs, ppo.stride1)
+        err_fwd = max(float((a.cpu() - b).abs().max()) for a, b in zip(card_out, host_out))
+        check(all(torch.allclose(a.cpu(), b, rtol=2e-2, atol=2e-2) for a, b in zip(card_out, host_out)),
+              f"apply_pixel_policy card vs CPU within rtol 2e-2 / atol 2e-2 ({err_fwd:.3e})")
+        n = GRAD_ROWS
+        rows = type(env)(*(x[..., :n] for x in env))
+        draws = (torch.randint(0, 6, (n,), generator=gen, device=dev, dtype=torch.int32),
+                 -torch.rand((n,), generator=gen, device=dev) - 1.5,
+                 *(torch.randn((n,), generator=gen, device=dev) for _ in range(3)))
+        g_card, a_card = fx._pixel_grads(ppo, ts.params, cfg, (rows,) + draws)
+        g_host, a_host = fx._pixel_grads(ppo, host_params, cfg, (type(rows)(*(x.cpu() for x in rows)),)
+                                         + tuple(x.cpu() for x in draws))
+        err_loss = max(abs(float(a_card[k]) - float(a_host[k])) for k in a_host)
+        check(all(math.isclose(float(a_card[k]), float(a_host[k]), rel_tol=2e-3, abs_tol=2e-4)
+                  for k in a_host), f"loss terms card vs CPU within rtol 2e-3 / atol 2e-4 "
+                                    f"({err_loss:.3e})")
+        err_grad = max(rel_l2(g_card[k].cpu(), g_host[k]) for k in g_host)
+        check(err_grad <= 2e-2, f"each gradient card vs CPU within 2e-2 relative L2 ({err_grad:.3e})")
+        print(f"{tag} pixel PPO {preset} card vs CPU: render_grid_obs byte for byte at B={B}; "
+              f"apply_pixel_policy max abs {err_fwd:.3e}; on {n} rows loss terms max abs "
+              f"{err_loss:.3e}, gradients max relative L2 {err_grad:.3e}")
+        del card_obs, host_obs, host_env
+
+        # times
+        state = {"ts": ts, "env": env}
+
+        def step():
+            state["ts"], state["env"], _, _ = fx.train_step_pixel(cfg, ppo, state["ts"],
+                                                                  state["env"], gen)
+
+        ms_update = time_ms(step)
+        env0 = state["env"]
+        pool = fx.fresh_packed_batch(cfg, gen, 2 * B)
+        u = fx.gumbel_uniforms(gen, (T, 6, B))
+        with torch.no_grad():
+            ms_collect = time_ms(lambda: fx._collect_pixel(cfg, ppo, state["ts"].params, env0, pool, u))
+            _, traj = fx._collect_pixel(cfg, ppo, state["ts"].params, env0, pool, u)
+            _, lv = fx._policy_tb(state["ts"].params, cfg, env0, ppo.stride1)
+            ms_gae = time_ms(lambda: fx._gae(ppo.as_fast, traj, lv))
+            adv, ret = fx._gae(ppo.as_fast, traj, lv)
+        NB = T * B // fx.BLK
+        perms = torch.stack([torch.randperm(NB, generator=gen, device=dev)
+                             for _ in range(ppo.update_epochs)])
+        ms_upd = time_ms(lambda: fx._update_phase(cfg, ppo, state["ts"], traj, adv, ret, perms))
+        ms_pool = time_ms(lambda: fx.fresh_packed_batch(cfg, gen, 2 * B))
+        del traj, adv, ret
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        step()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev)
+        if preset == "default":
+            total, span, rows = kernel_breakdown(step)
+            print(f"{tag} pixel PPO default, one update by kernel (torch.profiler): device "
+                  f"{total:.2f} ms in a {span:.2f} ms span (CUDA events), idle share "
+                  f"{1 - total / span:.1%}; top kernels: " + "; ".join(
+                      f"{name[:70]} {ms:.2f} ms x{n} ({ms / total:.1%})" for name, ms, n in rows))
+        print(f"{tag} pixel PPO {preset} B={B}: {ms_update:.2f} ms per update "
+              f"({B * T / (ms_update / 1e3):.4e} env-steps/s of the full loop; median of 5, CUDA "
+              f"events); stages: pool {ms_pool:.3f} ms, collect {ms_collect:.2f} ms, GAE "
+              f"{ms_gae:.3f} ms, update phase {ms_upd:.2f} ms; peak device memory of one update "
+              f"{peak / 2**30:.3f} GiB (torch.cuda.max_memory_allocated)")
+        del state, env, ts, env0, pool
+
+
+def policy_families_phase(cw, dev, tag):
+    """Phase 18: the four flax families on the card against the CPU, one
+    ``train/ppo.py`` update per family at hidden 512 on 21x21, and greedy
+    evaluation; no hand-written kernel."""
+    from gym_craftingworld_tpu_torch import interop
+    from gym_craftingworld_tpu_torch.models import actor_critic as ac
+    from gym_craftingworld_tpu_torch.models import cnn
+    from gym_craftingworld_tpu_torch.models import vit
+    from gym_craftingworld_tpu_torch.train import evaluate as ev
+    from gym_craftingworld_tpu_torch.train import ppo
+
+    cfg = cw.ray_config()
+    wrappers, plains = kernel_wrappers(), plain_versions()
+    for w in wrappers.values():
+        w.launches = 0
+    for f in plains:
+        f.calls = 0
+    gen = torch.Generator(device=dev).manual_seed(18)
+    st, _ = cw.rollout_random(cfg, cw.reset_from_seed(cfg, 18, 256, device=dev), gen, 40)
+    host = on_host(st)
+    g = torch.Generator().manual_seed(18)  # drawn on the CPU, carried to the card by interop
+    images = lambda s: (cnn.student_images(cfg, s.objects, s.agent, s.holding, s.goal_objects,
+                                           s.goal_agent, s.init_objects, s.init_agent),)
+    models = {
+        "ActorCritic": (ac.init_params(g), interop.actor_critic_from_numpy,
+                        lambda s: (ac.obs_features(s),)),
+        "PixelActorCritic": (cnn.init_params(g), interop.pixel_actor_critic_from_numpy, cnn.pixel_obs),
+        "PixelDistillStudent": (cnn.init_student(g, cfg), interop.pixel_distill_student_from_numpy,
+                                images),
+        "GridActorCritic": (vit.init_params(g), interop.grid_actor_critic_from_numpy, vit.grid_tokens),
+    }
+    for name, (m_host, from_numpy, inputs) in models.items():
+        m_card = from_numpy(interop.flax_params_to_numpy(m_host), device=dev)
+        with torch.no_grad():
+            card, want = m_card(*inputs(st)), m_host(*inputs(host))
+        err = max(float((a.cpu() - b).abs().max()) for a, b in zip(card, want))
+        check(all(a.device == st.objects.device and torch.allclose(a.cpu(), b, rtol=2e-2, atol=2e-2)
+                  for a, b in zip(card, want)),
+              f"{name} on the card vs the CPU within rtol 2e-2 / atol 2e-2 ({err:.3e})")
+        print(f"{tag} {name} forward at B=256 on 21x21, the card vs the CPU on the same "
+              f"parameters: max abs {err:.3e}")
+    del models
+
+    for policy, B in FAMILY_B.items():
+        p = ppo.PPOConfig(policy=policy)
+        gen.manual_seed(18)
+        ts = ppo.init_train_state(gen, cfg, p)
+        before = {k: v.detach().clone() for k, v in ts.params.named_parameters()}
+        env = cw.reset_from_seed(cfg, 18, B, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        ts, env, gen, m = ppo.train_step(cfg, p, ts, env, gen)
+        torch.cuda.synchronize()
+        t_cold = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+        metrics = {k: float(v) for k, v in m.items()}
+        check(all(math.isfinite(x) for x in metrics.values()), f"{policy}: finite metrics {metrics}")
+        check(ts.update_idx == 1 and int(ts.opt_state.count) == p.update_epochs * p.num_minibatches,
+              f"{policy}: one update of {p.update_epochs}x{p.num_minibatches} minibatches")
+        after = dict(ts.params.named_parameters())
+        check(all(not torch.equal(before[k], after[k]) for k in before if k.endswith("kernel")),
+              f"{policy}: every kernel changed")
+        state = {"ts": ts, "env": env}
+
+        def step():
+            state["ts"], state["env"], _, _ = ppo.train_step(cfg, p, state["ts"], state["env"], gen)
+
+        ms = time_ms(step, reps=3)
+        t0 = time.perf_counter()
+        summary = ev.evaluate_policy(cfg, p, state["ts"].params, EVAL_EPISODES, seed=0)
+        t_eval = time.perf_counter() - t0
+        check(summary["episodes"] == EVAL_EPISODES
+              and 0 < summary["mean_episode_steps"] <= cfg.max_steps,
+              f"{policy}: evaluate_policy summary {summary}")
+        print(f"{tag} train/ppo.py {policy} hidden {p.hidden} B={B} T={p.rollout_steps} "
+              f"{p.update_epochs}x{p.num_minibatches} minibatches of {p.rollout_steps * B // p.num_minibatches} "
+              f"rows: {ms:.2f} ms per update (median of 3, CUDA events), "
+              f"{B * p.rollout_steps / (ms / 1e3):.4e} env-steps/s; first update {t_cold * 1e3:.1f} ms "
+              f"(cold, host clock), peak device memory {peak / 2**30:.3f} GiB; metrics "
+              f"{json.dumps(metrics)}; evaluate_policy over {EVAL_EPISODES} greedy episodes in "
+              f"{t_eval:.2f} s (host clock): success {summary['success_rate']:.4f}, mean steps "
+              f"{summary['mean_episode_steps']:.2f}")
+        del state, ts, env, before, after
+    launches = {k: w.launches for k, w in wrappers.items()}
+    calls = {f.__name__: f.calls for f in plains}
+    check(all(n == 0 for n in launches.values()) and all(c == 0 for c in calls.values()),
+          f"the policy families launch no hand-written kernel: {launches}, plain calls {calls}")
+    print(f"{tag} launch counters over phase 18: {launches}")
 
 
 if __name__ == "__main__":

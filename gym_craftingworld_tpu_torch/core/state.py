@@ -149,9 +149,10 @@ def state_from_reference(
     achieved: np.ndarray,
     goal_one_hot: np.ndarray | None = None,
     step_num: int = 0,
-    device="cpu",
+    device="cuda",
 ) -> EnvState:
-    """Build a B=1 EnvState that mirrors a live reference env (parity harness)."""
+    """Build a B=1 EnvState that mirrors a live reference env (parity harness),
+    on the card unless asked for the CPU."""
     objects, agent, holding = packed_from_onehot(obs_one_hot)
     init_codes = init_codes_from_onehot(init_obs_vector)
     _, init_agent, _ = packed_from_onehot(init_obs_vector)

@@ -6,11 +6,18 @@ The JAX package's states arrive as dicts of numpy arrays keyed by field name
 ``rng``: the JAX package's uint32 key data becomes the port's opaque int64
 field, and goes back to uint32 on the way out.
 
-Weights cross the same way: the fast-PPO policy's ``MLPParams`` as a dict of
-f32 numpy arrays under the JAX names (``w1 b1 w2 b2 wl bl wv bv``, JAX
-layouts), and its Adam state as optax's ``ScaleByAdamState`` fields: a dict
-``{"count": int32 scalar, "mu": {...}, "nu": {...}}`` with one such dict of
-arrays per moment.
+Weights cross the same way: the fast-PPO policy's ``MLPParams`` and the
+pixel policy's ``ConvParams`` as dicts of f32 numpy arrays under the JAX
+names and layouts (``w1 b1 w2 b2 wl bl wv bv``; ``k1 b1 k2 b2 w1 bd wl bl wv
+bv``, kernels HWIO), and their Adam state as optax's ``ScaleByAdamState``
+fields: a dict ``{"count": int32 scalar, "mu": {...}, "nu": {...}}`` with
+one such dict of arrays per moment, keyed like the parameters.
+
+The flax families (``ActorCritic``, ``PixelActorCritic``,
+``PixelDistillStudent``, ``GridActorCritic``) cross as their flax variable
+trees, ``{"params": {module: {param: array}}}`` nested as flax nests them.
+The port's modules hold their parameters under the same names and in the
+same layouts, so a tree loads by name; the widths are read from the tree.
 """
 
 from __future__ import annotations
@@ -22,8 +29,12 @@ import torch
 
 from gym_craftingworld_tpu_torch.core.slots import SlotState
 from gym_craftingworld_tpu_torch.core.state import EnvState
+from gym_craftingworld_tpu_torch.models.actor_critic import ActorCritic
+from gym_craftingworld_tpu_torch.models.cnn import PixelActorCritic, PixelDistillStudent
+from gym_craftingworld_tpu_torch.models.vit import GridActorCritic
 from gym_craftingworld_tpu_torch.ops.packed_rollout import PackedState
 from gym_craftingworld_tpu_torch.ops.transposed_rollout import TSlotState
+from gym_craftingworld_tpu_torch.train.fast_pixel_ppo import CONV_NAMES, ConvParams
 from gym_craftingworld_tpu_torch.train.fast_ppo import PARAM_NAMES, AdamState, MLPParams
 
 
@@ -91,15 +102,101 @@ def mlp_params_to_numpy(params: MLPParams) -> dict:
     return {k: getattr(params, k).detach().cpu().numpy() for k in PARAM_NAMES}
 
 
+def conv_params_from_numpy(d: dict, device="cuda") -> ConvParams:
+    """The JAX ``ConvParams`` (a dict of numpy arrays) as the port's module."""
+    _, _, c1, c2 = np.shape(d["k2"])
+    rows, hidden = np.shape(d["w1"])
+    params = ConvParams(c1, c2, rows - 22, hidden, device=device)
+    with torch.no_grad():
+        for k in CONV_NAMES:
+            getattr(params, k).copy_(torch.from_numpy(np.array(d[k], dtype=np.float32)))
+    return params
+
+
+def conv_params_to_numpy(params: ConvParams) -> dict:
+    return {k: getattr(params, k).detach().cpu().numpy() for k in CONV_NAMES}
+
+
 def adam_state_from_numpy(d: dict, device="cuda") -> AdamState:
-    """optax ``ScaleByAdamState`` fields (numpy) as the port's ``AdamState``."""
-    moment = lambda m: {k: torch.from_numpy(np.array(m[k], dtype=np.float32)).to(device)
-                        for k in PARAM_NAMES}
+    """optax ``ScaleByAdamState`` fields (numpy) as the port's ``AdamState``,
+    with the moments' parameter names as they come (``MLPParams``' or
+    ``ConvParams``')."""
+    moment = lambda m: {k: torch.from_numpy(np.array(v, dtype=np.float32)).to(device)
+                        for k, v in m.items()}
     count = torch.tensor(int(np.asarray(d["count"])), dtype=torch.int32, device=device)
     return AdamState(count, moment(d["mu"]), moment(d["nu"]))
 
 
 def adam_state_to_numpy(state: AdamState) -> dict:
-    moment = lambda m: {k: m[k].detach().cpu().numpy() for k in PARAM_NAMES}
+    moment = lambda m: {k: v.detach().cpu().numpy() for k, v in m.items()}
     return {"count": np.int32(int(state.count)), "mu": moment(state.mu),
             "nu": moment(state.nu)}
+
+
+def _flat_tree(tree: dict, prefix: str = "") -> dict:
+    """A nested dict of arrays as {"a.b.c": array}."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat_tree(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def _load_flax(model: torch.nn.Module, variables: dict, device) -> torch.nn.Module:
+    """``model`` (built on the meta device) holding the arrays of flax
+    ``variables``, by name and in their shapes."""
+    flat = _flat_tree(variables["params"])
+    model = model.to_empty(device="cpu")
+    names = dict(model.named_parameters())
+    if sorted(flat) != sorted(names):
+        raise ValueError(f"flax tree {sorted(flat)} does not match the module's "
+                         f"parameters {sorted(names)}")
+    with torch.no_grad():
+        for k, p in names.items():
+            p.data = torch.from_numpy(np.array(flat[k], dtype=np.float32))
+    return model.to(device)
+
+
+def actor_critic_from_numpy(variables: dict, device="cuda") -> ActorCritic:
+    """A flax ``ActorCritic``'s variables as the port's module."""
+    d_in, hidden = np.shape(variables["params"]["torso0"]["kernel"])
+    return _load_flax(ActorCritic(d_in, hidden, device="meta"), variables, device)
+
+
+def pixel_actor_critic_from_numpy(variables: dict, device="cuda") -> PixelActorCritic:
+    """A flax ``PixelActorCritic``'s variables as the port's module."""
+    hidden = np.shape(variables["params"]["Dense_0"]["kernel"])[1]
+    return _load_flax(PixelActorCritic(hidden=hidden, device="meta"), variables, device)
+
+
+def pixel_distill_student_from_numpy(variables: dict, device="cuda") -> PixelDistillStudent:
+    """A flax ``PixelDistillStudent``'s variables as the port's module."""
+    p = variables["params"]
+    model = PixelDistillStudent(channels=np.shape(p["conv0"]["kernel"])[3],
+                                hidden=np.shape(p["dense0"]["kernel"])[1],
+                                stem=np.shape(p["stem"]["kernel"])[3], device="meta")
+    return _load_flax(model, variables, device)
+
+
+def grid_actor_critic_from_numpy(variables: dict, device="cuda") -> GridActorCritic:
+    """A flax ``GridActorCritic``'s variables as the port's module."""
+    p = variables["params"]
+    _, n_tokens, hidden = np.shape(p["pos"])
+    depth = sum(k.startswith("block") for k in p)
+    heads = np.shape(p["block0"]["MultiHeadDotProductAttention_0"]["query"]["kernel"])[1]
+    model = GridActorCritic(n_tokens, hidden, depth, heads, device="meta")
+    return _load_flax(model, variables, device)
+
+
+def flax_params_to_numpy(model: torch.nn.Module) -> dict:
+    """A flax family's module as its flax variables, ``{"params": {...}}``."""
+    tree = {}
+    for name, p in model.named_parameters():
+        *path, leaf = name.split(".")
+        node = tree
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = p.detach().cpu().numpy()
+    return {"params": tree}

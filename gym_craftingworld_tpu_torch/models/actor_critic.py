@@ -1,22 +1,46 @@
-"""The flagship policy's observation features.
+"""Flagship policy network: goal-conditioned actor-critic.
 
-Counterpart of ``gym_craftingworld_tpu/models/actor_critic.py``, for the
-features only: the flat one-hot grid with the desired and achieved goal bits
-(``obs_features``), optionally with the init-grid one-hot
-(``obs_features_init``), and their widths. The vector env's ``features``
-observation mode uses them. The ``ActorCritic`` network and ``init_params``
-are not ported yet; they come with the models and trainers.
+Counterpart of ``gym_craftingworld_tpu/models/actor_critic.py``: the policy
+consumes the flat one-hot grid with the desired and achieved goal bits
+(``obs_features``; with the init-grid one-hot, ``obs_features_init``) through
+a bf16 MLP torso and f32 heads (``ActorCritic``). The vector env's
+``features`` observation mode uses the same features.
 """
 
 from __future__ import annotations
 
 import torch
+from torch import nn
 
 from gym_craftingworld_tpu_torch import constants as C
 from gym_craftingworld_tpu_torch.core.state import EnvState
+from gym_craftingworld_tpu_torch.models.layers import Dense
 from gym_craftingworld_tpu_torch.render.raster import render_onehot
 
 f32 = torch.float32
+
+
+class ActorCritic(nn.Module):
+    """Shared-torso MLP actor-critic (bf16 compute, f32 params and heads).
+
+    obs [B, in_features] -> (logits f32[B, 6], value f32[B]). Parameters
+    under the flax names (``torso0 torso1 policy value``, each ``kernel``
+    [in, out] and ``bias``).
+    """
+
+    def __init__(self, in_features: int, hidden: int = 512, n_actions: int = C.N_ACTIONS,
+                 generator: torch.Generator | None = None, device=None):
+        super().__init__()
+        kw = dict(generator=generator, device=device)
+        self.torso0 = Dense(in_features, hidden, **kw)
+        self.torso1 = Dense(hidden, hidden // 2, **kw)
+        self.policy = Dense(hidden // 2, n_actions, dtype=f32, **kw)
+        self.value = Dense(hidden // 2, 1, dtype=f32, **kw)
+
+    def forward(self, obs: torch.Tensor):
+        x = torch.relu(self.torso0(obs))
+        x = torch.relu(self.torso1(x))
+        return self.policy(x), self.value(x)[:, 0]
 
 
 def obs_features(state: EnvState) -> torch.Tensor:
@@ -55,3 +79,11 @@ def obs_features_init(state: EnvState) -> torch.Tensor:
 
 def feature_dim_init(height: int, width: int) -> int:
     return feature_dim(height, width) + height * width * (C.N_OBJECTS + 1)
+
+
+def init_params(generator: torch.Generator, height: int = 21, width: int = 21,
+                hidden: int = 512) -> ActorCritic:
+    """An ``ActorCritic`` over ``feature_dim(height, width)`` features, its
+    weights drawn from ``generator`` on the generator's device (flax's
+    initializers). The module holds its parameters."""
+    return ActorCritic(feature_dim(height, width), hidden, generator=generator)

@@ -65,7 +65,10 @@ def render_ray(objects, agent, holding):
     B, H, W = objects.shape
     dev = objects.device
     palette = _const("palette", dev)
-    base = palette[objects.long()]  # [B, H, W, 3]
+    # codes outside 1..8 (the init grid's AGENT_INIT_MARK) render black, as
+    # the JAX select-sum over the eight object codes does
+    obj = objects.long()
+    base = palette[torch.where(obj <= C.N_OBJECTS, obj, 0)]  # [B, H, W, 3]
     img = base[:, :, None, :, None, :].expand(B, H, 4, W, 4, 3).reshape(B, 4 * H, 4 * W, 3)
     # white 2x2 block at cell px [1:3, 1:3]; its bottom row takes the held
     # item's colour while holding (craftingworld_ray.py:483-486)

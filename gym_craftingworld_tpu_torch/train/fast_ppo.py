@@ -263,10 +263,10 @@ def make_optimizer(fppo: FastPPOConfig, b1: float = 0.9, b2: float = 0.999,
 
 
 @torch.no_grad()
-def apply_updates(params: MLPParams, updates: dict) -> None:
-    """params += updates, in place."""
+def apply_updates(params: nn.Module, updates: dict) -> None:
+    """params += updates, in place, by parameter name (dotted for submodules)."""
     for k, u in updates.items():
-        getattr(params, k).add_(u)
+        params.get_parameter(k).add_(u)
 
 
 # ---------------------------------------------------------------------------

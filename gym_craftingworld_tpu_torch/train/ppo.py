@@ -1,0 +1,266 @@
+"""PPO over the batched grid env: the parity-grade trainer of the flax families.
+
+Counterpart of ``gym_craftingworld_tpu/train/ppo.py``: a rollout of batched
+env steps with auto-reset, GAE, and clipped-surrogate updates over shuffled
+minibatches, for the three policy families ``mlp`` (``models/actor_critic``),
+``cnn`` (``models/cnn``) and ``vit`` (``models/vit``). Rollouts store a
+compact ``Snapshot`` of each step's state, and the loss renders the
+observations anew from it.
+
+What the port does differently:
+
+* Stepping is the port's batched grid step (``core/step.step``). The JAX
+  package resets a done env from that env's own ``rng`` key; the port's
+  ``rng`` field is opaque, so every step draws a fresh batch of worlds from
+  the generator and done envs take theirs, as ``core/rollout.py`` does.
+* Actions are ``jax.random.categorical``'s Gumbel-argmax over explicit
+  Gumbel noise ``noise`` f32[T, B, 6], and the epoch shuffles are explicit
+  permutations ``perms`` int[update_epochs, T*B], so a test can pass JAX's
+  draws in.
+* A policy is a ``torch.nn.Module`` holding its parameters (flax's names and
+  layouts, ``models/layers.py``); the optimizer is the hand-written clip +
+  Adam of ``train/fast_ppo.py`` on its named parameters, applied in place.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+from torch import nn
+
+from gym_craftingworld_tpu_torch import constants as C
+from gym_craftingworld_tpu_torch.config import EnvConfig
+from gym_craftingworld_tpu_torch.core.reset import reset
+from gym_craftingworld_tpu_torch.core.rollout import _select
+from gym_craftingworld_tpu_torch.core.state import EnvState
+from gym_craftingworld_tpu_torch.core.step import step
+from gym_craftingworld_tpu_torch.ops.fused_update import normalize_adv
+from gym_craftingworld_tpu_torch.render.raster import render_onehot, render_ray
+from gym_craftingworld_tpu_torch.train import fast_ppo
+
+f32 = torch.float32
+
+
+class PPOConfig(NamedTuple):
+    rollout_steps: int = 64
+    update_epochs: int = 2
+    num_minibatches: int = 4
+    gamma: float = 0.99
+    gae_lambda: float = 0.95
+    clip_eps: float = 0.2
+    vf_coef: float = 0.5
+    ent_coef: float = 0.01
+    lr: float = 3e-4
+    max_grad_norm: float = 0.5
+    hidden: int = 512
+    policy: str = "mlp"  # "mlp" (one-hot features) | "cnn" (pixel renders) | "vit"
+
+
+class Snapshot(NamedTuple):
+    """Compact per-step state capture stored in rollouts; observations are
+    rendered anew from it in the loss."""
+
+    objects: torch.Tensor  # int8[B, H, W]
+    agent: torch.Tensor  # int32[B, 2]
+    holding: torch.Tensor  # int32[B]
+    desired: torch.Tensor  # int8[B, 9]
+    achieved: torch.Tensor  # int8[B, 9]
+
+
+class Transition(NamedTuple):
+    obs: Snapshot  # [T, B, ...]
+    action: torch.Tensor  # int32[T, B]
+    log_prob: torch.Tensor  # f32[T, B]
+    value: torch.Tensor  # f32[T, B]
+    reward: torch.Tensor  # f32[T, B]
+    done: torch.Tensor  # bool[T, B]
+
+
+class TrainState(NamedTuple):
+    params: nn.Module
+    opt_state: fast_ppo.AdamState
+    update_idx: int
+
+
+def snapshot(state: EnvState) -> Snapshot:
+    return Snapshot(state.objects, state.agent, state.holding, state.desired, state.achieved)
+
+
+def _goal_bits(snap: Snapshot) -> torch.Tensor:
+    return torch.cat([snap.desired.to(f32), snap.achieved.to(f32)], dim=-1)
+
+
+def make_policy(ppo: PPOConfig):
+    """Model family dispatch: (module class, apply(params, snapshot))."""
+    if ppo.policy == "mlp":
+        from gym_craftingworld_tpu_torch.models.actor_critic import ActorCritic
+
+        def apply_fn(params, snap: Snapshot):
+            B = snap.objects.shape[0]
+            grid = render_onehot(snap.objects, snap.agent, snap.holding)
+            return params(torch.cat([grid.reshape(B, -1).to(f32), _goal_bits(snap)], dim=-1))
+
+        return ActorCritic, apply_fn
+    if ppo.policy == "cnn":
+        from gym_craftingworld_tpu_torch.models.cnn import PixelActorCritic
+
+        def apply_fn(params, snap: Snapshot):
+            return params(render_ray(snap.objects, snap.agent, snap.holding), _goal_bits(snap))
+
+        return PixelActorCritic, apply_fn
+    if ppo.policy == "vit":
+        from gym_craftingworld_tpu_torch.models.vit import GridActorCritic
+
+        def apply_fn(params, snap: Snapshot):
+            B, H, W = snap.objects.shape
+            grid = render_onehot(snap.objects, snap.agent, snap.holding)
+            return params(grid.reshape(B, H * W, grid.shape[-1]), _goal_bits(snap))
+
+        return GridActorCritic, apply_fn
+    raise ValueError(f"unknown policy family {ppo.policy!r}")
+
+
+def make_optimizer(ppo: PPOConfig) -> fast_ppo.Optimizer:
+    """``optax.chain(clip_by_global_norm(max_grad_norm), adam(lr))`` on a dict
+    of named tensors (``train/fast_ppo.make_optimizer``)."""
+    return fast_ppo.make_optimizer(ppo)
+
+
+def init_train_state(generator: torch.Generator, cfg: EnvConfig, ppo: PPOConfig) -> TrainState:
+    """The family's module, drawn from ``generator`` on its device, and a
+    fresh optimizer state."""
+    if ppo.policy == "cnn":
+        from gym_craftingworld_tpu_torch.models.cnn import init_params
+    elif ppo.policy == "vit":
+        from gym_craftingworld_tpu_torch.models.vit import init_params
+    else:
+        from gym_craftingworld_tpu_torch.models.actor_critic import init_params
+
+    params = init_params(generator, cfg.height, cfg.width, ppo.hidden)
+    return TrainState(params, make_optimizer(ppo).init(dict(params.named_parameters())), 0)
+
+
+def gumbel(generator: torch.Generator, shape) -> torch.Tensor:
+    """Standard Gumbel noise as ``jax.random.gumbel``: ``-log(-log(u))`` of
+    uniforms on [tiny, 1)."""
+    u = torch.rand(shape, generator=generator, device=generator.device)
+    return -torch.log(-torch.log(torch.clamp_min(u, torch.finfo(f32).tiny)))
+
+
+def _collect(cfg: EnvConfig, ppo: PPOConfig, apply_fn, params: nn.Module,
+             env_state: EnvState, noise: torch.Tensor, generator: torch.Generator):
+    """``rollout_steps`` policy steps with auto-reset; ``noise`` f32[T, B, 6]
+    Gumbel draws. Done envs restart from a fresh batch drawn from
+    ``generator`` every step. Returns (env_state, Transition)."""
+    T, B = ppo.rollout_steps, env_state.objects.shape[0]
+    dev = env_state.objects.device
+    buf = lambda x: torch.empty((T, *x.shape), dtype=x.dtype, device=dev)
+    tr = Transition(Snapshot(*(buf(x) for x in snapshot(env_state))),
+                    *(torch.empty((T, B), dtype=d, device=dev)
+                      for d in (torch.int32, f32, f32, f32, torch.bool)))
+    win = torch.tensor(1.0, device=dev)
+    lose = torch.tensor(-1.0 / cfg.max_steps, device=dev)
+    st = env_state
+    for t in range(T):
+        obs = snapshot(st)
+        logits, value = apply_fn(params, obs)
+        action = torch.argmax(noise[t] + logits, dim=-1).to(torch.int32)
+        log_prob = torch.log_softmax(logits, dim=-1).gather(1, action.long()[:, None])[:, 0]
+        st, res = step(cfg, st, action)
+        st = _select(res.done, reset(cfg, B, generator, dev), st)
+        for dst, src in zip(tr.obs, obs):
+            dst[t] = src
+        for dst, src in zip(tr[1:], (action, log_prob, value,
+                                     torch.where(res.reward == cfg.max_steps, win, lose),
+                                     res.done)):
+            dst[t] = src
+    return st, tr
+
+
+def _gae(ppo: PPOConfig, traj: Transition, last_value: torch.Tensor):
+    """Generalised advantages (reverse scan); (adv, returns) f32[T, B]."""
+    return fast_ppo._gae(ppo, traj, last_value)
+
+
+def _ppo_loss(ppo: PPOConfig, apply_fn, params: nn.Module, batch):
+    obs, action, old_log_prob, old_value, adv, ret = batch
+    logits, value = apply_fn(params, obs)
+    log_probs = torch.log_softmax(logits, dim=-1)
+    log_prob = log_probs.gather(1, action.long()[:, None])[:, 0]
+    ratio = torch.exp(log_prob - old_log_prob)
+    adv_n = normalize_adv(adv)
+    pg = -torch.minimum(
+        ratio * adv_n,
+        torch.clamp(ratio, 1 - ppo.clip_eps, 1 + ppo.clip_eps) * adv_n,
+    ).mean()
+    v_clipped = old_value + torch.clamp(value - old_value, -ppo.clip_eps, ppo.clip_eps)
+    v_loss = 0.5 * torch.maximum((value - ret) ** 2, (v_clipped - ret) ** 2).mean()
+    entropy = -(torch.exp(log_probs) * log_probs).sum(-1).mean()
+    loss = pg + ppo.vf_coef * v_loss - ppo.ent_coef * entropy
+    return loss, {"pg_loss": pg, "v_loss": v_loss, "entropy": entropy}
+
+
+def _grads(ppo: PPOConfig, apply_fn, params: nn.Module, batch):
+    """(grads by parameter name, aux with "loss") by autograd of ``_ppo_loss``."""
+    named = dict(params.named_parameters())
+    with torch.enable_grad():
+        loss, aux = _ppo_loss(ppo, apply_fn, params, batch)
+        g = torch.autograd.grad(loss, list(named.values()))
+    return dict(zip(named, g)), {"loss": loss.detach(),
+                                 **{k: v.detach() for k, v in aux.items()}}
+
+
+def _update_phase(ppo: PPOConfig, apply_fn, ts: TrainState, traj: Transition, adv, ret,
+                  perms: torch.Tensor):
+    """The minibatched updates of one iteration. ``perms`` int[update_epochs,
+    T*B]: each epoch's permutation of the rows. Returns (params, opt_state,
+    losses [E, M], aux dict of [E, M]); params are updated in place."""
+    T, B = traj.action.shape
+    merge = lambda x: x.reshape((T * B,) + x.shape[2:])
+    flat = (Snapshot(*(merge(x) for x in traj.obs)),) + tuple(
+        merge(x) for x in (traj.action, traj.log_prob, traj.value, adv, ret))
+    mb_size = T * B // ppo.num_minibatches
+    optimizer = make_optimizer(ppo)
+    params, opt_state = ts.params, ts.opt_state
+    losses, auxes = [], []
+    for e in range(ppo.update_epochs):
+        perm = perms[e].to(torch.int64)
+        for i in range(ppo.num_minibatches):
+            idx = perm[i * mb_size: (i + 1) * mb_size]
+            batch = (Snapshot(*(x[idx] for x in flat[0])),) + tuple(x[idx] for x in flat[1:])
+            grads, aux = _grads(ppo, apply_fn, params, batch)
+            updates, opt_state = optimizer.update(grads, opt_state)
+            fast_ppo.apply_updates(params, updates)
+            losses.append(aux.pop("loss"))
+            auxes.append(aux)
+    shape = (ppo.update_epochs, ppo.num_minibatches)
+    stack = lambda xs: torch.stack(xs).reshape(shape)
+    return (params, opt_state, stack(losses),
+            {k: stack([a[k] for a in auxes]) for k in auxes[0]})
+
+
+@torch.no_grad()
+def train_step(cfg: EnvConfig, ppo: PPOConfig, ts: TrainState, env_state: EnvState,
+               generator: torch.Generator):
+    """One PPO iteration: rollout -> GAE -> minibatched clipped updates;
+    (ts, env_state, generator, metrics). Every draw comes from
+    ``generator``, on the env's device: the Gumbel noise, the auto-reset
+    worlds, the epoch permutations."""
+    _, apply_fn = make_policy(ppo)
+    T, B = ppo.rollout_steps, env_state.objects.shape[0]
+    noise = gumbel(generator, (T, B, C.N_ACTIONS))
+    env_state, traj = _collect(cfg, ppo, apply_fn, ts.params, env_state, noise, generator)
+    _, last_value = apply_fn(ts.params, snapshot(env_state))
+    adv, ret = _gae(ppo, traj, last_value)
+    perms = torch.stack([torch.randperm(T * B, generator=generator, device=generator.device)
+                         for _ in range(ppo.update_epochs)])
+    params, opt_state, losses, auxes = _update_phase(ppo, apply_fn, ts, traj, adv, ret, perms)
+    metrics = {
+        "loss": losses.mean(),
+        "reward_mean": traj.reward.mean(),
+        "episode_done_frac": traj.done.to(f32).mean(),
+        "success_rate": (traj.reward > 0.5).sum() / traj.done.sum().clamp_min(1),
+        **{k: v.mean() for k, v in auxes.items()},
+    }
+    return TrainState(params, opt_state, ts.update_idx + 1), env_state, generator, metrics

@@ -1,9 +1,9 @@
 """Pins of the front end's copied modules, its registry and its lazy imports.
 
 The port never imports the JAX package (importing it imports JAX), so the
-framework-free modules of ``api``, ``parity`` and ``utils`` are copies. Each
-copy's code must equal its JAX source's once the package name is unified and
-docstrings are set aside. The oracle's default place for the reference may
+framework-free modules of ``agents``, ``api``, ``parity`` and ``utils`` are
+copies. Each copy's code must equal its JAX source's once the package name
+is unified and docstrings are set aside. The oracle's default place for the reference may
 differ: the port looks inside its own checkout.
 """
 
@@ -29,7 +29,7 @@ torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
 JAX, PORT = ROOT / "gym_craftingworld_tpu", ROOT / "gym_craftingworld_tpu_torch"
 SHIM = "parity/gymshim"
-COPIES = ["api/spaces.py", "parity/seeding.py", "parity/oracle.py", "utils/coordinates.py",
+COPIES = ["agents/expert.py", "api/spaces.py", "parity/seeding.py", "parity/oracle.py", "utils/coordinates.py",
           "utils/gif.py"] + sorted(str(p.relative_to(JAX)) for p in (JAX / SHIM).rglob("*.py"))
 MAY_DIFFER = {"parity/oracle.py": {"_REFERENCE_PATH"}}
 IDS = ["craftingworld-v3", "craftingworldflat-v3", "craftingworldonehot-v3",

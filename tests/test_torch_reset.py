@@ -159,7 +159,7 @@ def test_state_helpers_equal_jax():
                   step_num=7)
         want = jstate.state_from_reference(cfg, onehot, init, **kw)
         got = interop.env_state_to_numpy(tstate.state_from_reference(
-            tcw.flat_config(), onehot, init, **kw))
+            tcw.flat_config(), onehot, init, **kw, device="cpu"))
         for f in dataclasses.fields(want):
             np.testing.assert_array_equal(got[f.name], np.asarray(getattr(want, f.name)),
                                           err_msg=f.name)

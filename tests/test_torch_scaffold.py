@@ -1,6 +1,7 @@
 """The PyTorch port's scaffolding: copies pinned to the JAX package, no JAX
 import, the Philox generator, and the constants the CUDA sources hard-code."""
 
+import ast
 import dataclasses
 import re
 import subprocess
@@ -58,18 +59,29 @@ def test_config_equal_jax(kw):
         tcfg.EnvConfig(height=2, width=4)
 
 
+def _imported_roots(path: Path) -> set:
+    """The top-level package of every module ``path`` imports, by AST."""
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
 def test_import_pulls_in_no_jax():
     code = ("import sys, gym_craftingworld_tpu_torch, gym_craftingworld_tpu_torch.ops, "
-            "gym_craftingworld_tpu_torch.interop\n"
+            "gym_craftingworld_tpu_torch.interop, gym_craftingworld_tpu_torch.train.ppo, "
+            "gym_craftingworld_tpu_torch.train.evaluate, gym_craftingworld_tpu_torch.agents.expert\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'gym_craftingworld_tpu')]\n"
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True,
                    cwd=PORT.parent, timeout=120)
-    for f in PORT.rglob("*.py"):
-        text = f.read_text()
-        assert not re.search(r"^\s*(import|from)\s+(jax|flax|optax|gym_craftingworld_tpu)\b",
-                             text, re.M), f
+    for f in [*PORT.rglob("*.py"), PORT.parent / "chip_smoke.py"]:
+        bad = _imported_roots(f) & {"jax", "jaxlib", "flax", "optax", "gym_craftingworld_tpu"}
+        assert not bad, (f, bad)
 
 
 @pytest.mark.parametrize("counter,key,expect", [
@@ -118,8 +130,10 @@ def test_interop_converters_default_to_the_card():
     from gym_craftingworld_tpu_torch import interop
 
     names = sorted(n for n in vars(interop) if n.endswith("_from_numpy"))
-    assert names == ["adam_state_from_numpy", "env_state_from_numpy", "mlp_params_from_numpy",
-                     "packed_state_from_numpy", "slot_state_from_numpy",
-                     "tslot_state_from_numpy"]
+    assert names == ["actor_critic_from_numpy", "adam_state_from_numpy", "conv_params_from_numpy",
+                     "env_state_from_numpy", "grid_actor_critic_from_numpy",
+                     "mlp_params_from_numpy", "packed_state_from_numpy",
+                     "pixel_actor_critic_from_numpy", "pixel_distill_student_from_numpy",
+                     "slot_state_from_numpy", "tslot_state_from_numpy"]
     for n in names:
         assert inspect.signature(getattr(interop, n)).parameters["device"].default == "cuda", n
