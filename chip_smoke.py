@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py               # every phase
     python3 chip_smoke.py --gemm-core   # phases 1, 9a and 9 only
+    python3 chip_smoke.py --imitation   # the card's name, then phases 19 and 20
 
 Needs one CUDA card and ``nvcc`` (on PATH or under CUDA_HOME); imports
 nothing of JAX. Phases, each of which must pass:
@@ -95,7 +96,24 @@ nothing of JAX. Phases, each of which must pass:
    CPU on the same parameters (carried by ``interop``); one ``train/ppo.py``
    update per family at hidden 512 on 21x21 (mlp and cnn at 4,096 envs, vit
    at 256), ms per update, and ``evaluate_policy`` over 1,024 greedy
-   episodes; no hand-written kernel runs, and the phase checks so.
+   episodes; no hand-written kernel runs, and the phase checks so;
+19. the canonical imitation path on 21x21 stacked goals (max_steps 300):
+   ``collect_expert_demos`` of 384 episodes in batches of 192 (noise 0.05);
+   ``expert_relabel`` of 256 collected rows reproducing their labels;
+   ``snap_columns_from_state`` on the card equal to the host extraction and
+   ``planes_from_state`` equal to ``planes_from_snaps`` and to the CPU's, byte
+   for byte; ``bc_train_snaps`` of GridPolicy(96, 1536) and of
+   CPVGridPolicy(96, 1024, embed 32) (batch 4,096, lr 1e-3, 2 epochs; the
+   loss must fall), with one minibatch's forward, loss and gradient on the
+   card against the CPU; ``evaluate_grid_policy`` over 4,096 greedy episodes;
+   one ``dagger_round`` (768 episodes, 20,000 states, 1 epoch), its rollout,
+   relabel and training timed;
+20. ``train_step_rnn`` at 4,096 envs on 21x21 (default ``PPOConfig``) for 3
+   updates; ``RecurrentActorCritic`` over 8 steps with dones and ``CPVPolicy``
+   with and without the init view, on the card against the CPU; ``bc.py``'s
+   small-data path through the façade (16 episodes, 3 epochs at hidden 256,
+   16 greedy episodes). Phases 19-20 launch no hand-written kernel and no
+   plain version, and check so.
 
 It prints one JSON line of per-kernel results, then, as its last line,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
@@ -651,6 +669,11 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     tag = f"[{card}]"
+    if "--imitation" in sys.argv[1:]:  # phases 19-20 alone: they launch no kernel
+        torch.backends.cuda.matmul.allow_tf32 = False
+        imitation_phase(cw, dev, tag)
+        recurrent_phase(cw, dev, tag)
+        return 0
     path, seconds, log = _build.build()
     print(f"{tag} built {path.relative_to(HERE)} in {seconds:.1f} s")
     for line in log.splitlines():
@@ -922,6 +945,8 @@ def main() -> int:
     front_end_phases(cw, dev, tag)
     pixel_ppo_phases(cw, dev, tag)
     policy_families_phase(cw, dev, tag)
+    imitation_phase(cw, dev, tag)
+    recurrent_phase(cw, dev, tag)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2078,6 +2103,333 @@ def policy_families_phase(cw, dev, tag):
     check(all(n == 0 for n in launches.values()) and all(c == 0 for c in calls.values()),
           f"the policy families launch no hand-written kernel: {launches}, plain calls {calls}")
     print(f"{tag} launch counters over phase 18: {launches}")
+
+
+# ---------------------------------------------------------------------------
+# the imitation path, recurrent PPO and the flat families (phases 19-20)
+# ---------------------------------------------------------------------------
+
+# phase 19 at the canonical imitation settings (tools/collect_canonical_demos.py,
+# tools/train_canonical.py): DAgger's states are cut from the tool's 300,000 to
+# 20,000 because the host relabels them one by one
+DEMO_EPISODES, DEMO_BATCH = 384, 192
+BC_BATCH, BC_EPOCHS = 4096, 2
+GRID_WIDTHS, CPV_WIDTHS = (96, 1536), (96, 1024, 32)  # the published canonical widths
+GRID_EVAL_EPISODES = 4096
+DAGGER_EPISODES, DAGGER_STATES = 768, 20_000
+CHECK_B = 4096  # worlds of phase 19's on-card feature checks
+RNN_B, RNN_UPDATES = 4096, 3
+FLAT_EPISODES = 16  # bc.py's small-data path (phase 20)
+SNAP_COLS = ("occ_key", "occ_code", "init_key", "init_agent_key", "agent_key", "holding",
+             "desired", "achieved")
+
+
+def zero_counters():
+    """Every kernel wrapper's launch counter and every plain version's call
+    counter set to 0; returns (wrappers, plains) to read them back."""
+    wrappers, plains = kernel_wrappers(), plain_versions()
+    for w in wrappers.values():
+        w.launches = 0
+    for f in plains:
+        f.calls = 0
+    return wrappers, plains
+
+
+def no_kernel_ran(wrappers, plains, what: str) -> None:
+    launches = {k: w.launches for k, w in wrappers.items()}
+    calls = {f.__name__: f.calls for f in plains}
+    check(all(n == 0 for n in launches.values()) and all(c == 0 for c in calls.values()),
+          f"{what} launch no hand-written kernel and no plain version: {launches}, {calls}")
+
+
+def card_vs_cpu(name: str, card, host, rtol=2e-2, atol=2e-2) -> float:
+    """Max |card - CPU| over pairs of float tensors, checked within rtol/atol."""
+    err = max(float((a.cpu() - b).abs().max()) for a, b in zip(card, host))
+    check(all(torch.allclose(a.cpu(), b, rtol=rtol, atol=atol) for a, b in zip(card, host)),
+          f"{name} on the card vs the CPU within rtol {rtol:g} / atol {atol:g} ({err:.3e})")
+    return err
+
+
+def grads_vs_cpu(name: str, card: dict, host: dict) -> float:
+    """Each gradient within 2e-2 relative L2 of the CPU's (bias vectors, which
+    sum bf16 cotangents with cancellation, within 5e-2); gradients under 1e-4
+    of the largest are roundoff and skipped, as in the CPU tests. Prints every
+    tensor's error before it checks."""
+    top = max(float(g.norm()) for g in host.values())
+    errs = {k: rel_l2(card[k].cpu(), g) for k, g in host.items() if float(g.norm()) >= 1e-4 * top}
+    print(f"{name} gradients card vs CPU, relative L2: "
+          + ", ".join(f"{k} {e:.3e}" for k, e in errs.items()))
+    for k, err in errs.items():
+        check(err <= (5e-2 if k.endswith("bias") else 2e-2), f"{name} gradient {k} ({err:.3e})")
+    return max(errs.values())
+
+
+def imitation_phase(cw, dev, tag):
+    """Phase 19: the canonical imitation path on 21x21 stacked goals:
+    snapshot demos, BC of GridPolicy(96, 1536) and CPVGridPolicy(96, 1024,
+    32), greedy evaluation, one DAgger round; the features on the card
+    against the host extraction and the CPU."""
+    import numpy as np
+
+    from gym_craftingworld_tpu_torch import interop
+    from gym_craftingworld_tpu_torch.models import cpv
+    from gym_craftingworld_tpu_torch.models import grid_policy as gp
+    from gym_craftingworld_tpu_torch.train import dagger, demos
+
+    t_phase = time.perf_counter()
+    cfg = cw.EnvConfig(height=21, width=21, max_steps=300, stacking=True)
+    wrappers, plains = zero_counters()
+    gen = torch.Generator(device=dev)
+
+    # ---- snapshot demos ----------------------------------------------------------
+    t0 = time.perf_counter()
+    snaps = demos.collect_expert_demos(cfg, DEMO_EPISODES, seed=0, noise_eps=0.05,
+                                       batch=DEMO_BATCH, device=dev)
+    t_demo = time.perf_counter() - t0
+    check(snaps.num_episodes >= 0.9 * DEMO_EPISODES and set(np.unique(snaps.action)) <= set(range(6)),
+          f"the expert solved {snaps.num_episodes} of {DEMO_EPISODES} episodes")
+    print(f"{tag} collect_expert_demos 21x21 stacked, {DEMO_EPISODES} episodes in batches of "
+          f"{DEMO_BATCH}, noise 0.05: {snaps.num_rows} rows, {snaps.num_episodes} episodes kept, "
+          f"{t_demo:.2f} s ({snaps.num_episodes / t_demo * 60:.1f} episodes a minute, "
+          f"{snaps.num_rows / t_demo:.0f} rows/s; host clock)")
+    rows = np.random.RandomState(0).choice(snaps.num_rows, 256, replace=False)
+    relabeled = dagger.expert_relabel(cfg, {k: getattr(snaps, k)[rows] for k in SNAP_COLS})
+    check(np.array_equal(relabeled.action, snaps.action[rows]),
+          "expert_relabel of 256 collected rows reproduces their labels")
+
+    # ---- features on the card -----------------------------------------------------
+    gen.manual_seed(19)
+    st, _ = cw.rollout_random(cfg, cw.reset_from_seed(cfg, 19, CHECK_B, device=dev), gen, 60)
+    cols = gp.snap_columns_from_state(cfg, st)
+    host = on_host(st)
+    agent = host.agent.numpy()
+    occ_key, occ_code = demos.occupancy_from_grids(host.objects.reshape(CHECK_B, -1).numpy(),
+                                                   cfg.n_cells)
+    init_key, init_agent_key = demos.init_keys_from_grids(
+        host.init_objects.reshape(CHECK_B, -1).numpy())
+    want = dict(occ_key=occ_key, occ_code=occ_code, init_key=init_key,
+                init_agent_key=init_agent_key,
+                agent_key=(agent[:, 0] * cfg.width + agent[:, 1]).astype(np.int16),
+                holding=host.holding.numpy().astype(np.int8),
+                desired=demos.bits_to_mask(host.desired.numpy()),
+                achieved=demos.bits_to_mask(host.achieved.numpy()))
+    for k in SNAP_COLS:
+        got = cols[k]
+        check(got.device == st.objects.device and got.cpu().numpy().dtype == want[k].dtype
+              and np.array_equal(got.cpu().numpy(), want[k]),
+              f"snap_columns_from_state {k} on the card == the host extraction")
+    p_state, e_state = gp.planes_from_state(cfg, st)
+    p_snap, e_snap = gp.planes_from_snaps(cfg, *(cols[k] for k in SNAP_COLS))
+    p_host, e_host = gp.planes_from_state(cfg, host)
+    bits = lambda x: x.view(torch.int16).cpu()
+    for a, b, what in ((p_snap, p_state, "planes_from_snaps == planes_from_state on the card"),
+                       (e_snap, e_state, "extras from snaps == from state on the card"),
+                       (p_state, p_host, "planes on the card == on the CPU"),
+                       (e_state, e_host, "extras on the card == on the CPU")):
+        check(torch.equal(bits(a), bits(b)), f"{what}, byte for byte")
+    print(f"{tag} features on the card, B={CHECK_B} 21x21 after 60 random steps: "
+          f"snap_columns_from_state == the host extraction (occupancy_from_grids, "
+          f"init_keys_from_grids, bits_to_mask), column for column; planes_from_state == "
+          f"planes_from_snaps == the CPU's, byte for byte; objects off the grid "
+          f"{int((cols['occ_key'] == cfg.n_cells + 1).sum())}")
+    del st, host, cols, p_state, e_state, p_snap, e_snap, p_host, e_host
+
+    # ---- BC of the two grid families ----------------------------------------------
+    data = dagger.device_columns(snaps, dev)
+    n_mb = snaps.num_rows // BC_BATCH
+    states = {}
+    for name, widths, make, from_numpy in (
+            ("GridPolicy", GRID_WIDTHS, lambda g: gp.init_grid_policy(g, cfg, *GRID_WIDTHS),
+             interop.grid_policy_from_numpy),
+            ("CPVGridPolicy", CPV_WIDTHS, lambda g: cpv.init_cpv_grid(g, cfg, *CPV_WIDTHS),
+             interop.cpv_grid_policy_from_numpy)):
+        gen.manual_seed(19)
+        state = dagger.init_bc_state(make(gen))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        ts, hist = dagger.bc_train_snaps(cfg, snaps, gen, state=state, epochs=BC_EPOCHS,
+                                         batch_size=BC_BATCH, lr=1e-3)
+        torch.cuda.synchronize()
+        t_bc = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+        check(all(math.isfinite(h["loss"]) for h in hist) and hist[-1]["loss"] < hist[0]["loss"],
+              f"{name}: the BC loss falls {hist}")
+        perm1 = torch.randperm(snaps.num_rows, generator=gen, device=dev)[:BC_BATCH]
+        ms_mb = time_ms(lambda: dagger._bc_epoch(cfg, 1e-3, ts, data, perm1, BC_BATCH), reps=3)
+        # the card against the CPU on the same parameters
+        host_model = from_numpy(interop.flax_params_to_numpy(ts.params), device="cpu")
+        mb = {k: v[perm1[:512]] for k, v in data.items()}
+        mb_host = {k: v.cpu() for k, v in mb.items()}
+        with torch.no_grad():
+            err_fwd = card_vs_cpu(f"{name} forward", ts.params(*dagger._batch_planes(cfg, mb)),
+                                  host_model(*dagger._batch_planes(cfg, mb_host)))
+        loss_c, acc_c, g_c = dagger._snap_grads(cfg, ts.params, mb)
+        loss_h, acc_h, g_h = dagger._snap_grads(cfg, host_model, mb_host)
+        err_loss = abs(float(loss_c) - float(loss_h))
+        check(math.isclose(float(loss_c), float(loss_h), rel_tol=1e-3, abs_tol=1e-3),
+              f"{name} BC loss card vs CPU within rtol 1e-3 / atol 1e-3 ({err_loss:.3e})")
+        err_grad = grads_vs_cpu(name, g_c, g_h)
+        print(f"{tag} bc_train_snaps {name}{widths}, 21x21: {snaps.num_rows} rows, {BC_EPOCHS} epochs "
+              f"of {n_mb} minibatches of {BC_BATCH} in {t_bc:.2f} s (host clock, first epoch "
+              f"cold); one minibatch {ms_mb:.2f} ms (median of 3, CUDA events); peak device memory "
+              f"{peak / 2**30:.3f} GiB; history {json.dumps(hist)}; card vs CPU on 512 rows: "
+              f"forward max abs {err_fwd:.3e}, loss {err_loss:.3e}, gradients max relative L2 "
+              f"{err_grad:.3e}")
+        states[name] = ts
+        del host_model, g_c, g_h
+
+    # ---- greedy evaluation ------------------------------------------------------
+    model = states["GridPolicy"].params
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    summary = dagger.evaluate_grid_policy(cfg, model, GRID_EVAL_EPISODES, seed=0)
+    t_eval = time.perf_counter() - t0
+    check(summary["episodes"] == GRID_EVAL_EPISODES
+          and 0 < summary["mean_episode_steps"] <= cfg.max_steps, f"evaluate summary {summary}")
+    steps = summary["mean_episode_steps"] * GRID_EVAL_EPISODES
+    print(f"{tag} evaluate_grid_policy GridPolicy{GRID_WIDTHS} over {GRID_EVAL_EPISODES} greedy episodes, "
+          f"21x21 stacked: {t_eval:.2f} s (host clock), {steps / t_eval:.4e} env-steps/s of the "
+          f"episodes' own steps; success {summary['success_rate']:.4f}, mean steps "
+          f"{summary['mean_episode_steps']:.2f}")
+
+    # ---- one DAgger round, its stages timed -------------------------------------
+    stages = {}
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            stages[name] = time.perf_counter() - t
+            return out
+        return run
+
+    names = ("collect_policy_states", "expert_relabel", "bc_train_snaps")
+    saved = {k: getattr(dagger, k) for k in names}
+    for k in names:
+        setattr(dagger, k, timed(k, saved[k]))
+    try:
+        t0 = time.perf_counter()
+        ts, dataset, info = dagger.dagger_round(cfg, states["GridPolicy"], snaps, 0, gen,
+                                                num_episodes=DAGGER_EPISODES,
+                                                max_states=DAGGER_STATES, epochs=1,
+                                                batch_size=BC_BATCH, lr=3e-4)
+        t_round = time.perf_counter() - t0
+    finally:
+        for k, f in saved.items():
+            setattr(dagger, k, f)
+    added = dataset.num_rows - snaps.num_rows
+    check(0 < added <= DAGGER_STATES and math.isfinite(info["history"][0]["loss"]),
+          f"the DAgger round added {added} rows: {info}")
+    print(f"{tag} dagger_round {DAGGER_EPISODES} episodes, max_states {DAGGER_STATES} (cut from "
+          f"the tool's 300,000: the host relabels one state at a time), 1 epoch: {t_round:.2f} s; "
+          f"rollout {stages['collect_policy_states'] * 1e3:.1f} ms, relabel "
+          f"{stages['expert_relabel'] * 1e3:.1f} ms ({stages['expert_relabel'] / added * 1e3:.3f} ms "
+          f"a state), training {stages['bc_train_snaps'] * 1e3:.1f} ms (host clock); +{added} rows "
+          f"-> {dataset.num_rows}; rollout success {info['rollout_success']:.4f}; history "
+          f"{json.dumps(info['history'])}")
+    no_kernel_ran(wrappers, plains, "phase 19: the imitation path")
+    print(f"{tag} phase 19 took {time.perf_counter() - t_phase:.1f} s")
+
+
+def recurrent_phase(cw, dev, tag):
+    """Phase 20: recurrent PPO at 4,096 envs, the GRU and CPVPolicy on the card
+    against the CPU, and bc.py's small-data path through the façade."""
+    from gym_craftingworld_tpu_torch import interop
+    from gym_craftingworld_tpu_torch.models import actor_critic as ac
+    from gym_craftingworld_tpu_torch.models import cpv
+    from gym_craftingworld_tpu_torch.train import bc, ppo, ppo_rnn
+
+    t_phase = time.perf_counter()
+    cfg = cw.ray_config()
+    wrappers, plains = zero_counters()
+    gen = torch.Generator(device=dev).manual_seed(20)
+
+    # ---- recurrent PPO ------------------------------------------------------------
+    p = ppo.PPOConfig()
+    ts = ppo_rnn.init_rnn_train_state(gen, cfg, p, RNN_B)
+    before = {k: v.detach().clone() for k, v in ts.params.named_parameters()}
+    env = cw.reset_from_seed(cfg, 20, RNN_B, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    times, metrics = [], []
+    for _ in range(RNN_UPDATES):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        ts, env, gen, m = ppo_rnn.train_step_rnn(cfg, p, ts, env, gen)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        metrics.append({k: float(v) for k, v in m.items()})
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(all(math.isfinite(x) for m in metrics for x in m.values()), f"finite metrics {metrics}")
+    check(ts.update_idx == RNN_UPDATES and int(ts.opt_state.count) == RNN_UPDATES
+          * p.update_epochs * p.num_minibatches, "update and optimizer counts")
+    after = dict(ts.params.named_parameters())
+    check(all(not torch.equal(before[k], after[k]) for k in before if k.endswith("kernel")),
+          "every kernel of the GRU actor-critic changed")
+    print(f"{tag} train_step_rnn hidden {p.hidden} B={RNN_B} 21x21 T={p.rollout_steps} "
+          f"{p.update_epochs}x{p.num_minibatches} minibatches of {RNN_B // p.num_minibatches} "
+          f"sequences: {', '.join(f'{t:.1f}' for t in times)} ms per update (CUDA events; the "
+          f"first cold), {RNN_B * p.rollout_steps / (statistics.median(times) / 1e3):.4e} env-steps/s "
+          f"at the median; peak device memory {peak / 2**30:.3f} GiB; metrics {json.dumps(metrics)}")
+
+    # ---- the GRU and CPVPolicy on the card against the CPU ------------------------
+    st, _ = cw.rollout_random(cfg, cw.reset_from_seed(cfg, 21, 256, device=dev), gen, 30)
+    host = on_host(st)
+    rnn_host = interop.recurrent_actor_critic_from_numpy(interop.flax_params_to_numpy(ts.params),
+                                                         device="cpu")
+    h, hh = ts.params.initial_state(256), rnn_host.initial_state(256)
+    err = 0.0
+    with torch.no_grad():
+        for t in range(8):
+            done = torch.rand(256, generator=gen, device=dev) < 0.25
+            obs = ac.obs_features(st)
+            h, lc, vc = ts.params(h, obs, done)
+            hh, lh, vh = rnn_host(hh, obs.cpu(), done.cpu())
+            err = max(err, card_vs_cpu(f"RecurrentActorCritic step {t}", (h, lc, vc), (hh, lh, vh)))
+            st, _ = cw.rollout_random(cfg, st, gen, 1)
+    print(f"{tag} RecurrentActorCritic hidden {p.hidden}, 8 steps with dones at B=256 on 21x21, "
+          f"the card vs the CPU on the same parameters (hidden state carried on each): max abs "
+          f"{err:.3e}")
+    g = torch.Generator().manual_seed(20)  # drawn on the CPU, carried to the card by interop
+    for with_init in (False, True):
+        m_host = cpv.init_cpv(g, 21, 21, with_init=with_init)
+        m_card = interop.cpv_policy_from_numpy(interop.flax_params_to_numpy(m_host), 21, 21,
+                                               with_init, device=dev)
+        feats = ac.obs_features_init if with_init else ac.obs_features
+        with torch.no_grad():
+            err = card_vs_cpu(f"CPVPolicy with_init={with_init}", m_card(feats(host).to(dev)),
+                              m_host(feats(host)))
+        print(f"{tag} CPVPolicy with_init={with_init} (embed 32, hidden 256) at B=256 on 21x21, "
+              f"the card vs the CPU: max abs {err:.3e}")
+    del st, host
+
+    # ---- bc.py's small-data path through the façade --------------------------------
+    t0 = time.perf_counter()
+    flat = bc.collect_demos(FLAT_EPISODES, seed=0, device=dev)
+    t_collect = time.perf_counter() - t0
+    check(flat.num_episodes > 0 and flat.features.shape[1] == ac.feature_dim(21, 21),
+          f"bc.collect_demos kept {flat.num_episodes} episodes")
+    gen.manual_seed(20)
+    t0 = time.perf_counter()
+    model, bm = bc.bc_train(flat, gen, 21, 21, hidden=256, epochs=3)
+    t_train = time.perf_counter() - t0
+    check(all(math.isfinite(x) for x in bm["loss"]) and bm["loss"][-1] < bm["loss"][0],
+          f"bc_train's loss falls {bm}")
+    t0 = time.perf_counter()
+    ev = bc.evaluate_bc(model, FLAT_EPISODES, seed=0, device=dev)
+    t_eval = time.perf_counter() - t0
+    check(ev["episodes"] == FLAT_EPISODES and 0.0 <= ev["success_rate"] <= 1.0, f"evaluate_bc {ev}")
+    print(f"{tag} bc.py on 21x21 through the façade on the card: collect_demos {FLAT_EPISODES} "
+          f"episodes, {flat.features.shape[0]} rows, {flat.num_episodes} kept, {t_collect:.2f} s; "
+          f"bc_train hidden 256, 3 epochs {t_train:.2f} s, loss {bm['loss']}, accuracy "
+          f"{bm['accuracy']:.4f}; evaluate_bc {FLAT_EPISODES} episodes {t_eval:.2f} s, {ev} "
+          f"(host clock)")
+    no_kernel_ran(wrappers, plains, "phase 20: recurrent PPO and the flat families")
+    print(f"{tag} phase 20 took {time.perf_counter() - t_phase:.1f} s")
 
 
 if __name__ == "__main__":

@@ -22,7 +22,15 @@ Ported so far:
   rollout (:mod:`.ops.obs_rollout`), the policy features
   (:mod:`.models.actor_critic`, features only), the four Gym env variants,
   the vector env and the registry (:mod:`.api`), and parity-mode resets with
-  the reference oracle's loader and gym shim (:mod:`.parity`).
+  the reference oracle's loader and gym shim (:mod:`.parity`);
+- pixel PPO (:mod:`.train.fast_pixel_ppo`), the flax policy families
+  (:mod:`.models`) with their PPO trainer and evaluator (:mod:`.train.ppo`,
+  :mod:`.train.evaluate`);
+- the imitation path: snapshot demos (:mod:`.train.demos`), BC and DAgger of
+  the grid policy and the CPV family (:mod:`.train.dagger`,
+  :mod:`.models.grid_policy`, :mod:`.models.cpv`), the flat BC path
+  (:mod:`.train.bc`), and recurrent PPO (:mod:`.models.rnn`,
+  :mod:`.train.ppo_rnn`).
 
 The CUDA kernels live in ``csrc/``.
 """

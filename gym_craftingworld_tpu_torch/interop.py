@@ -14,10 +14,14 @@ fields: a dict ``{"count": int32 scalar, "mu": {...}, "nu": {...}}`` with
 one such dict of arrays per moment, keyed like the parameters.
 
 The flax families (``ActorCritic``, ``PixelActorCritic``,
-``PixelDistillStudent``, ``GridActorCritic``) cross as their flax variable
-trees, ``{"params": {module: {param: array}}}`` nested as flax nests them.
-The port's modules hold their parameters under the same names and in the
-same layouts, so a tree loads by name; the widths are read from the tree.
+``PixelDistillStudent``, ``GridActorCritic``, ``GridPolicy``,
+``CPVPolicy``, ``CPVGridPolicy``, ``RecurrentActorCritic``) cross as their
+flax variable trees, ``{"params": {module: {param: array}}}`` nested as flax
+nests them. The port's modules hold their parameters under the same names and
+in the same layouts, so a tree loads by name; the widths are read from the
+tree. The trainers' states (``BCTrainState``, ``RnnTrainState``) cross with
+optax's ``chain(clip_by_global_norm, adam)`` state: an empty clip state, then
+``ScaleByAdamState`` with its moments over the flax tree.
 """
 
 from __future__ import annotations
@@ -31,11 +35,16 @@ from gym_craftingworld_tpu_torch.core.slots import SlotState
 from gym_craftingworld_tpu_torch.core.state import EnvState
 from gym_craftingworld_tpu_torch.models.actor_critic import ActorCritic
 from gym_craftingworld_tpu_torch.models.cnn import PixelActorCritic, PixelDistillStudent
+from gym_craftingworld_tpu_torch.models.cpv import CPVGridPolicy, CPVPolicy
+from gym_craftingworld_tpu_torch.models.grid_policy import N_EXTRAS, GridPolicy
+from gym_craftingworld_tpu_torch.models.rnn import RecurrentActorCritic
 from gym_craftingworld_tpu_torch.models.vit import GridActorCritic
 from gym_craftingworld_tpu_torch.ops.packed_rollout import PackedState
 from gym_craftingworld_tpu_torch.ops.transposed_rollout import TSlotState
 from gym_craftingworld_tpu_torch.train.fast_pixel_ppo import CONV_NAMES, ConvParams
+from gym_craftingworld_tpu_torch.train.dagger import BCTrainState
 from gym_craftingworld_tpu_torch.train.fast_ppo import PARAM_NAMES, AdamState, MLPParams
+from gym_craftingworld_tpu_torch.train.ppo_rnn import RnnTrainState
 
 
 def _tensors(names, d: dict, device) -> dict:
@@ -188,6 +197,89 @@ def grid_actor_critic_from_numpy(variables: dict, device="cuda") -> GridActorCri
     heads = np.shape(p["block0"]["MultiHeadDotProductAttention_0"]["query"]["kernel"])[1]
     model = GridActorCritic(n_tokens, hidden, depth, heads, device="meta")
     return _load_flax(model, variables, device)
+
+
+def grid_policy_from_numpy(variables: dict, device="cuda") -> GridPolicy:
+    """A flax ``GridPolicy``'s variables as the port's module. The tree
+    fixes the grid's cell count H*W (``dense0`` has ``H*W*32 + 33`` rows),
+    which is all the module's shapes depend on."""
+    p = variables["params"]
+    hw = (np.shape(p["dense0"]["kernel"])[0] - N_EXTRAS) // 32
+    model = GridPolicy(1, hw, channels=np.shape(p["conv0"]["kernel"])[3],
+                       hidden=np.shape(p["dense0"]["kernel"])[1], device="meta")
+    return _load_flax(model, variables, device)
+
+
+def cpv_grid_policy_from_numpy(variables: dict, device="cuda") -> CPVGridPolicy:
+    """A flax ``CPVGridPolicy``'s variables as the port's module (the cell
+    count from ``dense0``'s ``H*W*32 + 6 + embed`` rows, as for
+    ``GridPolicy``)."""
+    p = variables["params"]
+    embed = np.shape(p["task_embed"])[1]
+    hw = (np.shape(p["dense0"]["kernel"])[0] - 6 - embed) // 32
+    model = CPVGridPolicy(1, hw, channels=np.shape(p["conv0"]["kernel"])[3],
+                          hidden=np.shape(p["dense0"]["kernel"])[1], embed_dim=embed,
+                          device="meta")
+    return _load_flax(model, variables, device)
+
+
+def cpv_policy_from_numpy(variables: dict, height: int, width: int, with_init: bool = False,
+                          device="cuda") -> CPVPolicy:
+    """A flax ``CPVPolicy(height, width, with_init=...)``'s variables as the
+    port's module (the flat family's tree does not hold the grid's shape)."""
+    p = variables["params"]
+    model = CPVPolicy(height, width, embed_dim=np.shape(p["task_embed"])[1],
+                      hidden=np.shape(p["grid0"]["kernel"])[1], with_init=with_init,
+                      device="meta")
+    return _load_flax(model, variables, device)
+
+
+def recurrent_actor_critic_from_numpy(variables: dict, device="cuda") -> RecurrentActorCritic:
+    """A flax ``RecurrentActorCritic``'s variables as the port's module."""
+    d_in, hidden = np.shape(variables["params"]["encoder"]["kernel"])
+    return _load_flax(RecurrentActorCritic(d_in, hidden, device="meta"), variables, device)
+
+
+def _scale_by_adam(state):
+    """The ``ScaleByAdamState`` inside an optax state (a chain nests tuples
+    of states; the clip and learning-rate states are empty)."""
+    if hasattr(state, "mu"):
+        return state
+    found = [s for s in map(_scale_by_adam, state if isinstance(state, (tuple, list)) else ())
+             if s is not None]
+    return found[0] if len(found) == 1 else None
+
+
+def _chain_adam_state(opt_state, device) -> AdamState:
+    """optax ``chain(clip_by_global_norm, adam)``'s state (an empty clip
+    state, then adam's: ``ScaleByAdamState`` with moments over the flax tree
+    and an empty learning-rate state) as the port's ``AdamState``, keyed by
+    the module's dotted parameter names."""
+    adam = _scale_by_adam(opt_state)
+    return adam_state_from_numpy({"count": adam.count,
+                                  "mu": _flat_tree(adam.mu["params"]),
+                                  "nu": _flat_tree(adam.nu["params"])}, device)
+
+
+def bc_train_state_from_numpy(params: dict, opt_state, device="cuda") -> BCTrainState:
+    """A JAX ``train/dagger.BCTrainState`` (flax variables and optax chain
+    state, as numpy) as the port's; the family (``GridPolicy`` or
+    ``CPVGridPolicy``, which holds ``task_embed``) is read from the tree."""
+    from_numpy = (cpv_grid_policy_from_numpy if "task_embed" in params["params"]
+                  else grid_policy_from_numpy)
+    return BCTrainState(from_numpy(params, device), _chain_adam_state(opt_state, device))
+
+
+def rnn_train_state_from_numpy(d: dict, device="cuda") -> RnnTrainState:
+    """A JAX ``train/ppo_rnn.RnnTrainState`` as a dict of its fields (flax
+    variables, optax chain state, ``hidden``, ``prev_done``, ``update_idx``;
+    numpy) as the port's."""
+    return RnnTrainState(
+        params=recurrent_actor_critic_from_numpy(d["params"], device),
+        opt_state=_chain_adam_state(d["opt_state"], device),
+        hidden=torch.from_numpy(np.array(d["hidden"], dtype=np.float32)).to(device),
+        prev_done=torch.from_numpy(np.array(d["prev_done"], dtype=bool)).to(device),
+        update_idx=int(np.asarray(d["update_idx"])))
 
 
 def flax_params_to_numpy(model: torch.nn.Module) -> dict:

@@ -35,8 +35,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-# f32 products must be f32 (flax's dtype=f32 heads), not TF32
+# f32 products must be f32 (flax's dtype=f32 heads), not TF32; bf16 products
+# are summed in f32, as XLA sums them, not in cuBLAS's reduced-precision
+# split-K reductions
 torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 bf16 = torch.bfloat16
 f32 = torch.float32
@@ -103,20 +106,36 @@ def conv_nhwc(x: torch.Tensor, kernel: torch.Tensor, strides) -> torch.Tensor:
     return y.permute(0, 2, 3, 1)  # NHWC
 
 
+def orthogonal(generator: torch.Generator, shape) -> torch.Tensor:
+    """flax's ``initializers.orthogonal()`` for a kernel [in, out]: a matrix
+    with orthonormal rows or columns, drawn on the generator's device."""
+    x = torch.empty(shape, dtype=f32, device=generator.device)
+    return nn.init.orthogonal_(x, generator=generator)
+
+
 class Dense(nn.Module):
-    """flax ``nn.Dense(features, dtype=...)``: ``kernel`` f32[in, out], ``bias`` f32[out]."""
+    """flax ``nn.Dense(features, dtype=..., use_bias=...)``: ``kernel`` f32[in,
+    out], ``bias`` f32[out] unless ``use_bias`` is False. ``init="orthogonal"``
+    draws the kernel as flax's ``orthogonal()`` does (the GRU's recurrent
+    kernels)."""
 
     def __init__(self, in_features: int, features: int, dtype=bf16,
-                 generator: torch.Generator | None = None, device=None):
+                 generator: torch.Generator | None = None, device=None,
+                 use_bias: bool = True, init: str = "lecun_normal"):
         super().__init__()
         self.dtype = dtype
         shape = (in_features, features)
-        self.kernel = _kernel(shape, in_features, generator, device)
-        self.bias = nn.Parameter(torch.zeros(features, dtype=f32, device=self.kernel.device))
+        if init == "orthogonal" and generator is not None:
+            self.kernel = nn.Parameter(orthogonal(generator, shape))
+        else:
+            self.kernel = _kernel(shape, in_features, generator, device)
+        self.bias = (nn.Parameter(torch.zeros(features, dtype=f32, device=self.kernel.device))
+                     if use_bias else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         d = self.dtype
-        return x.to(d) @ self.kernel.to(d) + self.bias.to(d)
+        y = x.to(d) @ self.kernel.to(d)
+        return y if self.bias is None else y + self.bias.to(d)
 
 
 class LayerNorm(nn.Module):

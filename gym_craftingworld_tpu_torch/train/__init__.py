@@ -1,1 +1,3 @@
-"""Trainers of the port. So far: the fast PPO loop over the packed engine."""
+"""Trainers of the port: fast PPO over the packed engine, pixel PPO, the
+parity-grade PPO of the flax families, recurrent PPO, and the imitation
+trainers (snapshot BC with DAgger, flat BC)."""

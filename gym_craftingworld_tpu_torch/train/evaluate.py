@@ -11,7 +11,7 @@ The JAX package loops until every episode is done. Every episode ends by
 
 from __future__ import annotations
 
-import dataclasses
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -74,19 +74,16 @@ def summarize(out) -> dict:
 
 
 class _HostView:
-    """An env as the numpy expert reads it: every attribute the env's own,
-    but its state copied to the host (the expert reads it with numpy)."""
+    """An env as the numpy expert reads it, made after a reset: every
+    attribute the env's own, but its init grid (all the expert reads of
+    ``_state``, with numpy) copied to the host once for the episode."""
 
     def __init__(self, env):
         self._env = env
+        self._state = SimpleNamespace(init_objects=env.state.init_objects.cpu())
 
     def __getattr__(self, name):
         return getattr(self._env, name)
-
-    @property
-    def _state(self) -> EnvState:
-        s = self._env._state
-        return EnvState(**{f.name: getattr(s, f.name).cpu() for f in dataclasses.fields(s)})
 
 
 def evaluate_expert(num_episodes: int = 20, seed: int = 0, **env_kwargs) -> dict:

@@ -241,7 +241,13 @@ def make_optimizer(fppo: FastPPOConfig, b1: float = 0.9, b2: float = 0.999,
     Adam's step is ``-lr * mu_hat / (sqrt(nu_hat) + eps)`` with the moments
     bias-corrected by the step count.
     """
-    max_norm, lr = fppo.max_grad_norm, fppo.lr
+    return adam(fppo.lr, b1, b2, eps, max_norm=fppo.max_grad_norm)
+
+
+def adam(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+         max_norm: float | None = None) -> Optimizer:
+    """``optax.adam(lr)`` on dicts; with ``max_norm``,
+    ``optax.chain(clip_by_global_norm(max_norm), adam(lr))``."""
 
     def init(params) -> AdamState:
         zeros = {k: torch.zeros_like(v, dtype=f32).detach() for k, v in params.items()}
@@ -249,9 +255,10 @@ def make_optimizer(fppo: FastPPOConfig, b1: float = 0.9, b2: float = 0.999,
         return AdamState(count, zeros, {k: v.clone() for k, v in zeros.items()})
 
     def update(grads: dict, state: AdamState):
-        norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
-        keep = norm < max_norm
-        grads = {k: torch.where(keep, g, g / norm * max_norm) for k, g in grads.items()}
+        if max_norm is not None:
+            norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
+            keep = norm < max_norm
+            grads = {k: torch.where(keep, g, g / norm * max_norm) for k, g in grads.items()}
         mu = {k: (1 - b1) * g + b1 * state.mu[k] for k, g in grads.items()}
         nu = {k: (1 - b2) * g ** 2 + b2 * state.nu[k] for k, g in grads.items()}
         count = state.count + 1

@@ -1,10 +1,12 @@
-"""Pins of the front end's copied modules, its registry and its lazy imports.
+"""Pins of the port's copied code, the front end's registry and its lazy imports.
 
 The port never imports the JAX package (importing it imports JAX), so the
 framework-free modules of ``agents``, ``api``, ``parity`` and ``utils`` are
-copies. Each copy's code must equal its JAX source's once the package name
-is unified and docstrings are set aside. The oracle's default place for the reference may
-differ: the port looks inside its own checkout.
+copies, and so are the framework-free parts of the imitation trainers
+(``train/demos``, ``train/bc``, ``train/dagger``). Each copy's code must
+equal its JAX source's once the package name is unified and docstrings are
+set aside. The oracle's default place for the reference may differ: the port
+looks inside its own checkout.
 """
 
 import ast
@@ -36,10 +38,9 @@ IDS = ["craftingworld-v3", "craftingworldflat-v3", "craftingworldonehot-v3",
        "craftingworldaltobs-v3"]
 
 
-def code(path: Path, skip=()) -> str:
-    """The module's code as an AST dump: the port's package name read as the
-    JAX package's, docstrings dropped, and module-level assignments to the
-    names in ``skip`` left out."""
+def stripped(path: Path) -> ast.Module:
+    """The module's AST with the port's package name read as the JAX
+    package's and docstrings dropped."""
     tree = ast.parse(path.read_text().replace("gym_craftingworld_tpu_torch",
                                               "gym_craftingworld_tpu"))
     for node in ast.walk(tree):
@@ -47,6 +48,13 @@ def code(path: Path, skip=()) -> str:
         if (isinstance(body, list) and body and isinstance(body[0], ast.Expr)
                 and isinstance(body[0].value, ast.Constant) and isinstance(body[0].value.value, str)):
             node.body = body[1:] or [ast.Pass()]
+    return tree
+
+
+def code(path: Path, skip=()) -> str:
+    """The module's code as an AST dump (``stripped``), module-level
+    assignments to the names in ``skip`` left out."""
+    tree = stripped(path)
     tree.body = [n for n in tree.body if not (
         isinstance(n, ast.Assign) and any(getattr(t, "id", None) in skip for t in n.targets))]
     return ast.dump(tree)
@@ -56,6 +64,39 @@ def code(path: Path, skip=()) -> str:
 def test_copy_equals_jax_source(rel):
     skip = MAY_DIFFER.get(rel, ())
     assert code(PORT / rel, skip) == code(JAX / rel, skip)
+
+
+# framework-free code copied out of JAX modules (which import JAX): the
+# snapshot dataset, its host extraction and the array expert of
+# ``train/demos.py``, the flat dataset helpers of ``train/bc.py`` and the
+# relabelling of ``train/dagger.py``
+COPIED_PARTS = {
+    "train/demos.py": ["_BITS9", "_DELTAS", "SnapDataset", "occupancy_from_grids",
+                       "init_keys_from_grids", "bits_to_mask", "mask_to_bits", "grids_from_snaps",
+                       "_ArrayView", "NumpyExpert", "label_snapshot"],
+    "train/bc.py": ["Demos", "augment_stacked_goals", "concat_demos"],
+    "train/dagger.py": ["_COL_FIELDS", "_LATCH_MASK", "expert_relabel"],
+}
+
+
+def parts(path: Path, names) -> dict:
+    """{name: AST dump} of the module's top-level definitions and assignments
+    named, read as ``stripped`` reads a module."""
+    out = {}
+    for n in stripped(path).body:
+        here = ([n.name] if isinstance(n, (ast.FunctionDef, ast.ClassDef))
+                else [getattr(t, "id", None) for t in getattr(n, "targets", [])])
+        out.update({name: ast.dump(n) for name in here if name in names})
+    return out
+
+
+@pytest.mark.parametrize("rel", list(COPIED_PARTS))
+def test_copied_parts_equal_jax_source(rel):
+    names = COPIED_PARTS[rel]
+    got, want = parts(PORT / rel, names), parts(JAX / rel, names)
+    assert sorted(got) == sorted(want) == sorted(names)
+    for name in names:
+        assert got[name] == want[name], name
 
 
 def test_shim_and_copies_are_whole():

@@ -73,7 +73,9 @@ def _imported_roots(path: Path) -> set:
 def test_import_pulls_in_no_jax():
     code = ("import sys, gym_craftingworld_tpu_torch, gym_craftingworld_tpu_torch.ops, "
             "gym_craftingworld_tpu_torch.interop, gym_craftingworld_tpu_torch.train.ppo, "
-            "gym_craftingworld_tpu_torch.train.evaluate, gym_craftingworld_tpu_torch.agents.expert\n"
+            "gym_craftingworld_tpu_torch.train.evaluate, gym_craftingworld_tpu_torch.agents.expert, "
+            "gym_craftingworld_tpu_torch.train.ppo_rnn, gym_craftingworld_tpu_torch.train.bc, "
+            "gym_craftingworld_tpu_torch.train.dagger, gym_craftingworld_tpu_torch.models.cpv\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'gym_craftingworld_tpu')]\n"
             "assert not bad, bad")
@@ -130,10 +132,26 @@ def test_interop_converters_default_to_the_card():
     from gym_craftingworld_tpu_torch import interop
 
     names = sorted(n for n in vars(interop) if n.endswith("_from_numpy"))
-    assert names == ["actor_critic_from_numpy", "adam_state_from_numpy", "conv_params_from_numpy",
+    assert names == ["actor_critic_from_numpy", "adam_state_from_numpy",
+                     "bc_train_state_from_numpy", "conv_params_from_numpy",
+                     "cpv_grid_policy_from_numpy", "cpv_policy_from_numpy",
                      "env_state_from_numpy", "grid_actor_critic_from_numpy",
-                     "mlp_params_from_numpy", "packed_state_from_numpy",
+                     "grid_policy_from_numpy", "mlp_params_from_numpy", "packed_state_from_numpy",
                      "pixel_actor_critic_from_numpy", "pixel_distill_student_from_numpy",
+                     "recurrent_actor_critic_from_numpy", "rnn_train_state_from_numpy",
                      "slot_state_from_numpy", "tslot_state_from_numpy"]
     for n in names:
         assert inspect.signature(getattr(interop, n)).parameters["device"].default == "cuda", n
+
+
+def test_imitation_entry_points_default_to_the_card():
+    """The imitation path's entry points that take no generator or model (on
+    its device) name a device, the card unless the caller names another; the
+    façade behind ``train/bc`` defaults to the card too."""
+    import inspect
+
+    from gym_craftingworld_tpu_torch.api.gym_env import CraftingWorldEnvRay
+    from gym_craftingworld_tpu_torch.train import dagger, demos
+
+    for fn in (demos.collect_expert_demos, dagger.device_columns, CraftingWorldEnvRay):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
