@@ -4,6 +4,7 @@
     python3 chip_smoke.py               # every phase
     python3 chip_smoke.py --gemm-core   # phases 1, 9a and 9 only
     python3 chip_smoke.py --imitation   # the card's name, then phases 19 and 20
+    python3 chip_smoke.py --multi-device  # phases 1 and 21 only
 
 Needs one CUDA card and ``nvcc`` (on PATH or under CUDA_HOME); imports
 nothing of JAX. Phases, each of which must pass:
@@ -113,7 +114,21 @@ nothing of JAX. Phases, each of which must pass:
    with and without the init view, on the card against the CPU; ``bc.py``'s
    small-data path through the façade (16 episodes, 3 epochs at hidden 256,
    16 greedy episodes). Phases 19-20 launch no hand-written kernel and no
-   plain version, and check so.
+   plain version, and check so;
+21. the multi-device paths (``parallel/``) at 16,384 envs on 21x21 against
+   the unsharded run in this process: the bench kernel (T=300), the actions
+   kernel on row 3's stream (T=300), one default fast-PPO update (counted,
+   with its collect and first minibatch's gradient) and one default pixel-PPO
+   update, over two ranks sharing the card under gloo (``torchrun``, this
+   script with ``--rank-worker``; a rank that fails fails the phase) and over
+   one rank under NCCL in this process: rows 1-2 and both trajectories bit
+   for bit, gradients and losses within ``MD_*_TOL``, per rank the pool,
+   actions and indexed-gradient kernels 1, 64 and at most 16 times and no
+   plain version; the sharded update's ms and its ``all_reduce`` share;
+   ``train/run.py`` under torchrun (4,096 envs, mlp hidden 512), 4 updates
+   with a checkpoint at 2, and a resume from it that repeats updates 2-3 bit
+   for bit; the cost of deterministic algorithms on its update;
+   ``dryrun_multichip(1)``; ``scaling_report``'s one-card rates.
 
 It prints one JSON line of per-kernel results, then, as its last line,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
@@ -645,6 +660,10 @@ def near_top(p, cfg):
 
 
 def main() -> int:
+    argv = sys.argv[1:]
+    if "--rank-worker" in argv:  # one rank of phase 21's world, started by torchrun
+        return rank_worker(Path(argv[argv.index("--rank-worker") + 1]),
+                           argv[argv.index("--device") + 1])
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
                          "this script needs an NVIDIA GPU")
@@ -703,6 +722,9 @@ def main() -> int:
     if "--gemm-core" in sys.argv[1:]:  # phase 9a alone: the first check of a new core
         gemm_core_phase(dev, tag)
         gradient_phase(cw, dev, tag)
+        return 0
+    if "--multi-device" in sys.argv[1:]:  # phase 21 alone
+        multi_device_phase(cw, dev, tag)
         return 0
 
     cfg = cw.ray_config()
@@ -947,6 +969,7 @@ def main() -> int:
     policy_families_phase(cw, dev, tag)
     imitation_phase(cw, dev, tag)
     recurrent_phase(cw, dev, tag)
+    multi_device_phase(cw, dev, tag)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2430,6 +2453,426 @@ def recurrent_phase(cw, dev, tag):
           f"(host clock)")
     no_kernel_ran(wrappers, plains, "phase 20: recurrent PPO and the flat families")
     print(f"{tag} phase 20 took {time.perf_counter() - t_phase:.1f} s")
+
+
+
+# ---------------------------------------------------------------------------
+# multi-device (phase 21)
+# ---------------------------------------------------------------------------
+
+MD_SEED, MD_STREAM_SEED = 21, 22  # the bench's and the action slab's Philox seeds
+MD_WORLD = 2  # ranks that share the one card under gloo
+RUN_ENVS, RUN_UPDATES = 4096, 4  # run.py's check: 4 updates, a checkpoint at 2
+# the sharded fast-PPO update against the unsharded one (only the order of the
+# sums over the ranks differs): each gradient's relative L2, the first
+# minibatch's loss terms and the update's metrics (rtol, atol)
+MD_GRAD_TOL = {"fast": 1e-4, "pixel": 1e-2}
+MD_LOSS_TOL = (1e-4, 1e-6)
+MD_METRIC_TOL = (1e-3, 1e-5)
+
+
+def to_host(x):
+    """A CPU copy of a tensor, or of the tensors of a state, tuple or dict."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu()
+    if dataclasses.is_dataclass(x):
+        return type(x)(**{f.name: to_host(getattr(x, f.name)) for f in dataclasses.fields(x)})
+    if isinstance(x, dict):
+        return {k: to_host(v) for k, v in x.items()}
+    if isinstance(x, tuple):
+        parts = [to_host(v) for v in x]
+        return type(x)(*parts) if hasattr(x, "_fields") else tuple(parts)
+    return x
+
+
+def md_work(cw, dev, mesh, timed: bool) -> dict:
+    """Phase 21's work over ``mesh`` (None: the unsharded run): the bench
+    kernel (T = 300), the actions kernel on row 3's stream (T = 300), one
+    default fast-PPO update, counted, with its collect and first minibatch's
+    gradient, and one default pixel-PPO update, at 16,384 envs on 21x21.
+    Returns CPU copies of the results, and with ``timed`` the ms of an update
+    and the share of it in ``all_reduce`` calls."""
+    import copy
+
+    from gym_craftingworld_tpu_torch.core import slots as sm
+    from gym_craftingworld_tpu_torch.ops import fused_reset as fr
+    from gym_craftingworld_tpu_torch.ops import packed_fused as pf
+    from gym_craftingworld_tpu_torch.parallel import mesh as pm
+    from gym_craftingworld_tpu_torch.parallel import sharded_engine as se
+    from gym_craftingworld_tpu_torch.train import fast_pixel_ppo as fx
+    from gym_craftingworld_tpu_torch.train import fast_ppo as fp
+
+    cfg, B = cw.ray_config(), B_MAIN
+    T = cfg.max_steps
+    gen = lambda seed: torch.Generator(device=dev).manual_seed(seed)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    out = {}
+
+    whole = sm.from_env_state(cw.reset_from_seed(cfg, 0, B, device=dev))
+    if mesh is None:
+        out["bench"] = pf.fused_rollout_packed_bench(cfg, whole, MD_SEED, T)
+        stream = pf.fused_action_stream(B, MD_STREAM_SEED, T, device=dev)
+        out["actions"] = pf.fused_rollout_packed(cfg, whole, stream, T)
+    else:
+        mine = se.shard_slots(whole, mesh)
+        out["bench"] = se.fused_rollout_packed_bench_sharded(cfg, mine, MD_SEED, T, mesh=mesh)
+        stream = pf.fused_action_stream(B, MD_STREAM_SEED, T, device=dev)
+        out["actions"] = se.fused_rollout_packed_sharded(cfg, mine, stream, T, mesh=mesh)
+    out = to_host(out)
+    del whole, stream
+
+    local = (lambda env: env) if mesh is None else (lambda env: se.shard_packed(env, mesh))
+    fppo = fp.FastPPOConfig()
+    env = local(fr.fresh_packed_fused(cfg, 11, B, device=dev))
+    ts0 = fp.init_fast_train_state(gen(7), cfg, fppo)
+    step = lambda ts, env_, g: fp.train_step_fast(cfg, fppo, ts, env_, g, mesh=mesh)
+    sync()
+    wrappers, plains = zero_counters()
+    ts1, env1, g1, m = step(copy.deepcopy(ts0), env, gen(8))
+    sync()
+    out["fast_launches"] = {k: w.launches for k, w in wrappers.items()}
+    out["fast_calls"] = {f.__name__: f.calls for f in plains}
+    out["fast_metrics"] = {k: float(v) for k, v in m.items()}
+    out["fast_env"] = to_host(env1)
+    _, r = fp.rollout_phase(cfg, fppo, copy.deepcopy(ts0), env, gen(8), mesh=mesh)
+    out["fast_traj"] = to_host(r.traj)
+    mb = next(fp.minibatches(fppo, r.traj, r.adv, r.ret, r.perms, mesh))
+    out["fast_first"] = to_host(fp.minibatch_grads(fppo, ts0.params, mb, None, mesh))
+    del r, mb
+    if timed:
+        state = {"ts": ts1, "env": env1}
+
+        def update():
+            state["ts"], state["env"], _, _ = step(state["ts"], state["env"], g1)
+
+        out["fast_ms"] = pm.time_ms(update, 3, dev)
+        # one more update with each all_reduce timed between syncs
+        spent, real = [], torch.distributed.all_reduce
+
+        def timed_all_reduce(*args, **kwargs):
+            sync()
+            t0 = time.perf_counter()
+            real(*args, **kwargs)
+            sync()
+            spent.append(time.perf_counter() - t0)
+
+        torch.distributed.all_reduce = timed_all_reduce
+        try:
+            sync()
+            t0 = time.perf_counter()
+            update()
+            sync()
+            total = time.perf_counter() - t0
+        finally:
+            torch.distributed.all_reduce = real
+        out["all_reduce"] = dict(calls=len(spent), ms=1e3 * sum(spent), update_ms=1e3 * total)
+        del state
+    del ts1, env1, env
+
+    px = fx.PixelPPOConfig()
+    envx = local(fr.fresh_packed_fused(cfg, 12, B, device=dev))
+    xts0 = fx.init_pixel_train_state(gen(9), cfg, px)
+    _, (traj, adv, ret, perms) = fx.rollout_phase(cfg, px, copy.deepcopy(xts0), envx, gen(10),
+                                                  mesh)
+    out["pixel_traj"] = to_host(traj)
+    out["pixel_first"] = to_host(fx.minibatch_grads(
+        px, xts0.params, cfg, *next(fx.minibatches(px, traj, adv, ret, perms, mesh)), mesh))
+    del traj, adv, ret, perms
+    _, envx2, _, xm = fx.train_step_pixel(cfg, px, xts0, envx, gen(10), mesh)
+    out["pixel_env"] = to_host(envx2)
+    out["pixel_metrics"] = {k: float(v) for k, v in xm.items()}
+    return out
+
+
+def rank_worker(out_dir: Path, device: str) -> int:
+    """One rank of phase 21's world of ``MD_WORLD`` under torchrun: its share
+    of ``md_work``, saved for the parent as ``rank<r>.pt``."""
+    import gym_craftingworld_tpu_torch as cw
+    from gym_craftingworld_tpu_torch.parallel.mesh import initialize_distributed, make_env_mesh
+
+    import traceback
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    initialize_distributed(device=device)
+    mesh = make_env_mesh(device=device)
+    t0 = time.perf_counter()
+    try:
+        res = md_work(cw, mesh.device, mesh, timed=True)
+    except Exception:  # the parent prints every rank's own failure, not only the last
+        (out_dir / f"rank{mesh.rank}.err").write_text(traceback.format_exc())
+        raise
+    res["seconds"] = time.perf_counter() - t0
+    res["backend"] = torch.distributed.get_backend()
+    torch.save(res, out_dir / f"rank{mesh.rank}.pt")
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def joined(parts, axis):
+    """The ranks' results put side by side on the batch axis ``axis``."""
+    x = parts[0]
+    if isinstance(x, torch.Tensor):
+        return torch.cat(parts, dim=axis)
+    if dataclasses.is_dataclass(x):
+        return type(x)(**{f.name: joined([getattr(p, f.name) for p in parts], axis)
+                          for f in dataclasses.fields(x)})
+    if hasattr(x, "_fields"):
+        return type(x)(*(joined(list(f), axis) for f in zip(*parts)))
+    return tuple(joined(list(f), axis) for f in zip(*parts))
+
+
+def differing(got, want) -> list:
+    """Where two results (tensors, states, tuples, dicts) differ in any bit,
+    as dotted field names ("" for a tensor)."""
+    if isinstance(want, torch.Tensor):
+        return [] if got.dtype == want.dtype and torch.equal(got, want) else [""]
+    if isinstance(want, dict):
+        pairs = [(k, got.get(k), v) for k, v in want.items()]
+        if set(got) != set(want):
+            return ["(keys)"]
+    elif dataclasses.is_dataclass(want) or hasattr(want, "_fields"):
+        names = ([f.name for f in dataclasses.fields(want)] if dataclasses.is_dataclass(want)
+                 else want._fields)
+        pairs = [(k, getattr(got, k), getattr(want, k)) for k in names]
+    else:
+        pairs = list(zip(range(len(want)), got, want, strict=True))
+    return [f"{k}{'.' + d if d else ''}" for k, g, w in pairs for d in differing(g, w)]
+
+
+def md_equal(got, want, what: str) -> None:
+    """Bit-for-bit equality of two results."""
+    diff = differing(got, want)
+    check(not diff, f"{what}: bit for bit" + (f" (differ in {diff})" if diff else ""))
+
+
+def md_compare(name: str, got: dict, ref: dict, tag: str) -> None:
+    """Hold one world's results (whole-batch columns) to the unsharded run's:
+    rows 1-2 and fast PPO's trajectory bit for bit, the gradients, losses and
+    metrics of both trainers within ``MD_*_TOL``. Pixel PPO's trajectory is
+    compared and reported: its convolutions are cuDNN's, whose algorithm may
+    differ with the batch's width."""
+    md_equal(got["bench"][0], ref["bench"][0], f"{name} bench final state")
+    check(int(got["bench"][1]) == int(ref["bench"][1]),
+          f"{name} bench checksum {int(got['bench'][1])} == {int(ref['bench'][1])}")
+    md_equal(got["actions"], ref["actions"], f"{name} actions kernel (state, rewards, dones)")
+    md_equal(got["fast_traj"], ref["fast_traj"], f"{name} fast-PPO trajectory")
+    md_equal(got["fast_env"], ref["fast_env"], f"{name} fast-PPO final env")
+    pixel_diff = differing(got["pixel_traj"], ref["pixel_traj"]) + [
+        f"env.{d}" for d in differing(got["pixel_env"], ref["pixel_env"])]
+    errs = {}
+    # pixel PPO is held to the tolerances when its trajectory is the unsharded one
+    for trainer in ("fast", "pixel") if not pixel_diff else ("fast",):
+        (g, aux), (wg, waux) = got[f"{trainer}_first"], ref[f"{trainer}_first"]
+        err_g = max(rel_l2(g[k], v) for k, v in wg.items())
+        err_l = max(abs(float(aux[k]) - float(v)) for k, v in waux.items())
+        check(err_g <= MD_GRAD_TOL[trainer], f"{name} {trainer} first-minibatch gradients within "
+              f"{MD_GRAD_TOL[trainer]:g} relative L2 ({err_g:.3e})")
+        check(all(math.isclose(float(aux[k]), float(v), rel_tol=MD_LOSS_TOL[0],
+                               abs_tol=MD_LOSS_TOL[1]) for k, v in waux.items()),
+              f"{name} {trainer} first-minibatch loss terms ({err_l:.3e})")
+        m, wm = got[f"{trainer}_metrics"], ref[f"{trainer}_metrics"]
+        err_m = max(abs(m[k] - v) for k, v in wm.items())
+        check(all(math.isfinite(v) for v in m.values()), f"{name} {trainer} finite metrics")
+        check(all(math.isclose(m[k], v, rel_tol=MD_METRIC_TOL[0], abs_tol=MD_METRIC_TOL[1])
+                  for k, v in wm.items()), f"{name} {trainer} update metrics ({err_m:.3e})")
+        errs[trainer] = (err_g, err_l, err_m)
+    if pixel_diff:
+        m, wm = got["pixel_metrics"], ref["pixel_metrics"]
+        check(all(math.isfinite(v) for v in m.values()), f"{name} pixel finite metrics")
+        errs["pixel (not held)"] = (
+            max(rel_l2(got["pixel_first"][0][k], v) for k, v in ref["pixel_first"][0].items()),
+            max(abs(float(got["pixel_first"][1][k]) - float(v))
+                for k, v in ref["pixel_first"][1].items()),
+            max(abs(m[k] - v) for k, v in wm.items()))
+    print(f"{tag} phase 21 {name}: bench (checksum {int(got['bench'][1])}, final state), "
+          f"actions kernel (state, rewards, dones) and the fast-PPO trajectory and final env bit "
+          f"for bit; pixel-PPO trajectory and final env "
+          + (f"differ in {pixel_diff}" if pixel_diff else "bit for bit")
+          + "; against the unsharded update, max gradient relative L2, first-minibatch "
+          "loss-term and update-metric abs errors: "
+          + "; ".join(f"{k} {a:.3e} {b:.3e} {c:.3e}" for k, (a, b, c) in errs.items()))
+
+
+def md_launches(name: str, per_rank: list, tag: str) -> None:
+    """The counted fast-PPO update: per rank the pool, actions and indexed
+    gradient kernels ran 1, 64 and at most 16 times, every minibatch ran on
+    some rank, and no plain version ran."""
+    for r, (launches, calls) in enumerate(per_rank):
+        check(launches["pool"] == 1 and launches["packed_actions"] == 64
+              and launches["ppo_grads_indexed"] <= 16,
+              f"{name} rank {r}: pool 1, actions 64, indexed gradient <= 16 launches ({launches})")
+        check(all(c == 0 for c in calls.values()), f"{name} rank {r}: no plain version ({calls})")
+    total = sum(l["ppo_grads_indexed"] for l, _ in per_rank)
+    check(total >= 16, f"{name}: the indexed gradient kernel ran for every minibatch ({total})")
+    print(f"{tag} phase 21 {name} fast-PPO update launches per rank: "
+          + "; ".join(f"rank {r} {l}" for r, (l, _) in enumerate(per_rank)))
+
+
+def run_group(cmd, timeout: float = 600):
+    """Run ``cmd`` (torchrun and its ranks) in a process group of its own and
+    return (code, stdout, stderr); past ``timeout`` s the whole group is
+    killed, so that no rank outlives the script."""
+    import signal
+
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            cwd=HERE, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        err += f"\nkilled after {timeout} s"
+    return proc.returncode, out, err
+
+
+def run_py(args):
+    """``run.py`` under torchrun with one rank; its JSON records."""
+    code, out, err = run_group([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                                "--nproc_per_node", "1", "-m",
+                                "gym_craftingworld_tpu_torch.train.run", *args])
+    check(code == 0, f"run.py exited {code}: {err[-3000:]}")
+    return [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+
+
+def multi_device_phase(cw, dev, tag):
+    """Phase 21: the multi-device paths at 16,384 envs on 21x21."""
+    import shutil
+
+    from gym_craftingworld_tpu_torch.parallel import mesh as pm
+    from gym_craftingworld_tpu_torch.parallel.dryrun import dryrun_multichip
+    from gym_craftingworld_tpu_torch.train import ppo as tppo
+
+    t_phase = time.perf_counter()
+    work = HERE / "build" / "multi_device"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+
+    # the unsharded run, in this process
+    t0 = time.perf_counter()
+    ref = md_work(cw, dev, None, timed=False)
+    print(f"{tag} phase 21 unsharded run in {time.perf_counter() - t0:.1f} s (host clock); "
+          f"launches of its counted fast-PPO update {ref['fast_launches']}")
+
+    # world 2 under gloo: two ranks on the one card, which this process's
+    # cache of earlier phases' blocks must not crowd
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info(dev)
+        print(f"{tag} phase 21 device memory before the ranks: {free / 2**30:.1f} GiB free of "
+              f"{total / 2**30:.1f} GiB")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           str(MD_WORLD), str(HERE / "chip_smoke.py"), "--rank-worker", str(work),
+           "--device", dev.type]
+    t0 = time.perf_counter()
+    code, out, err = run_group(cmd)
+    t_ranks = time.perf_counter() - t0
+    failures = "".join(f"\nrank {f.stem}: {f.read_text()}" for f in sorted(work.glob("*.err")))
+    check(code == 0, f"{MD_WORLD} ranks exited {code}:{failures}\n{out[-2000:]}\n{err[-3000:]}")
+    ranks = [torch.load(work / f"rank{r}.pt", weights_only=False) for r in range(MD_WORLD)]
+    check(all(r["backend"] == "gloo" for r in ranks), "two ranks on one card take gloo")
+    whole = {k: joined([r[k] for r in ranks], -1) for k in
+             ("fast_traj", "fast_env", "pixel_traj", "pixel_env")}
+    whole["bench"] = (joined([r["bench"][0] for r in ranks], 0), ranks[0]["bench"][1])
+    check(all(int(r["bench"][1]) == int(ranks[0]["bench"][1]) for r in ranks),
+          "every rank holds the whole checksum")
+    whole["actions"] = (joined([r["actions"][0] for r in ranks], 0),
+                        *(joined([r["actions"][i] for r in ranks], -1) for i in (1, 2)))
+    for k in ("fast_first", "pixel_first", "fast_metrics", "pixel_metrics"):
+        whole[k] = ranks[0][k]  # summed over the ranks: the same on each
+        for r in ranks[1:]:
+            if k.endswith("first"):
+                md_equal(r[k], ranks[0][k], f"world {MD_WORLD} {k} alike on every rank")
+            else:
+                check(r[k] == ranks[0][k], f"world {MD_WORLD} {k} alike on every rank")
+    md_compare(f"world {MD_WORLD} (gloo, two ranks sharing one card)", whole, ref, tag)
+    md_launches(f"world {MD_WORLD}", [(r["fast_launches"], r["fast_calls"]) for r in ranks], tag)
+    w2 = ranks[0]
+    print(f"{tag} phase 21 world {MD_WORLD} (gloo, two ranks sharing one card): {t_ranks:.1f} s "
+          f"of command, a rank's work {max(r['seconds'] for r in ranks):.1f} s; sharded fast-PPO "
+          f"update {max(r['fast_ms'] for r in ranks):.2f} ms (slowest rank, CUDA events, median "
+          f"of 3); all_reduce {w2['all_reduce']['calls']} calls, {w2['all_reduce']['ms']:.2f} ms "
+          f"of a {w2['all_reduce']['update_ms']:.2f} ms update timed between syncs "
+          f"({w2['all_reduce']['ms'] / w2['all_reduce']['update_ms']:.1%}, rank 0)")
+
+    # world 1 under NCCL, in this process
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    pm.initialize_distributed(init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1, rank=0,
+                              device=dev.type, backend=backend)
+    try:
+        mesh = pm.make_env_mesh(device=dev)
+        check(mesh.group is not None and torch.distributed.get_backend() == backend,
+              f"world 1 under {backend}")
+        w1 = md_work(cw, dev, mesh, timed=True)
+    finally:
+        torch.distributed.destroy_process_group()
+    md_compare(f"world 1 ({backend})", w1, ref, tag)
+    md_launches("world 1", [(w1["fast_launches"], w1["fast_calls"])], tag)
+    ar = w1["all_reduce"]
+    print(f"{tag} phase 21 world 1 ({backend}): sharded fast-PPO update {w1['fast_ms']:.2f} ms "
+          f"(CUDA events, median of 3); all_reduce {ar['calls']} calls, {ar['ms']:.2f} ms of a "
+          f"{ar['update_ms']:.2f} ms update timed between syncs ({ar['ms'] / ar['update_ms']:.1%})")
+    del ref, ranks, whole, w1
+
+    # run.py under torchrun: 4 updates with a checkpoint at 2, then a resume from it
+    args = ["--envs", str(RUN_ENVS), "--size", "21", "--hidden", "512", "--policy", "mlp",
+            "--log-every", "1", "--ckpt-every", "2", "--device", dev.type]
+    t0 = time.perf_counter()
+    full = run_py(args + ["--updates", str(RUN_UPDATES), "--ckpt-dir", str(work / "full")])
+    t_full = time.perf_counter() - t0
+    (work / "resume").mkdir()
+    shutil.copytree(work / "full" / "step_2", work / "resume" / "step_2")
+    resumed = run_py(args + ["--updates", str(RUN_UPDATES), "--ckpt-dir", str(work / "resume"),
+                             "--resume"])
+    volatile = ("env_steps_per_s", "wall_s")
+    metrics = lambda recs: {r["update"]: {k: v for k, v in r.items() if k not in volatile}
+                            for r in recs if "loss" in r}
+    mf, mr = metrics(full), metrics(resumed)
+    check(set(mf) == set(range(RUN_UPDATES)) and set(mr) == {2, 3}, f"run.py updates {mf}, {mr}")
+    for u in (2, 3):
+        check(mr[u] == mf[u], f"run.py update {u} after the resume equals the uninterrupted "
+                              f"run's: {mr[u]} vs {mf[u]}")
+    rates = [r["env_steps_per_s"] for r in full if "env_steps_per_s" in r]
+    print(f"{tag} phase 21 run.py ({RUN_ENVS} envs, 21x21, mlp hidden 512, T=64; torchrun, one "
+          f"rank, deterministic algorithms): {RUN_UPDATES} updates in {t_full:.1f} s of command; "
+          f"env-steps/s {rates} (host clock between log lines); the resume from step_2 repeats "
+          f"updates 2-3 bit for bit: {json.dumps(mr[3])}")
+
+    # the cost of deterministic algorithms, on train/ppo.py's mlp update
+    cfg = cw.ray_config(max_steps=100)
+    ppo = tppo.PPOConfig()
+    g = torch.Generator(device=dev).manual_seed(0)
+    st = {"ts": tppo.init_train_state(g, cfg, ppo),
+          "env": cw.reset_from_seed(cfg, 0, RUN_ENVS, device=dev)}
+
+    def update():
+        st["ts"], st["env"], _, _ = tppo.train_step(cfg, ppo, st["ts"], st["env"], g)
+
+    ms = {}
+    for mode in (False, True, True, False):
+        torch.use_deterministic_algorithms(mode)
+        ms.setdefault(mode, []).append(pm.time_ms(update, 2, dev))
+    torch.use_deterministic_algorithms(False)
+    print(f"{tag} phase 21 train/ppo.py mlp update at {RUN_ENVS} envs: {ms[False]} ms without, "
+          f"{ms[True]} ms with deterministic algorithms (CUDA events, median of 2, in turns)")
+    del st
+
+    print(f"{tag} phase 21 {dryrun_multichip(1, dev.type)}")
+    rep = pm.scaling_report(cw.ray_config(), B_MAIN, num_steps=64, engines=("grid", "packed_scan", "fused"),
+                            device=dev)
+    print(f"{tag} phase 21 scaling_report, one card (n1: env-steps/s at {B_MAIN} envs, 64 "
+          f"steps, CUDA events, median of 3): "
+          + "; ".join(f"{k} {v['n1']:.4e}" for k, v in rep.items()))
+    shutil.rmtree(work, ignore_errors=True)
+    print(f"{tag} phase 21 took {time.perf_counter() - t_phase:.1f} s")
+
+
+def free_port() -> int:
+    """A TCP port on 127.0.0.1 that was free a moment ago."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
 
 
 if __name__ == "__main__":

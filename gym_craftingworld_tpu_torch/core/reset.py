@@ -134,10 +134,13 @@ def _task_draws(cfg: EnvConfig, B: int, draw: dict):
 
 
 def reset(cfg: EnvConfig, batch_size: int, generator: torch.Generator,
-          device=None) -> EnvState:
+          device=None, cols: slice = slice(None)) -> EnvState:
     """Batched reset drawing every random choice from ``generator``.
 
     ``device`` defaults to the generator's device; the two must agree.
+    ``cols`` builds only those envs of the batch from the whole batch's
+    draws, as a rank of a mesh does (``parallel/mesh.py``): the result equals
+    the same envs of the whole batch's reset.
     """
     device = generator.device if device is None else torch.device(device)
     B, n = batch_size, cfg.n_cells
@@ -145,7 +148,7 @@ def reset(cfg: EnvConfig, batch_size: int, generator: torch.Generator,
     k, perm = _task_draws(cfg, B, draw)
     world_scores = torch.rand((B, n), **draw)
     goal_scores = torch.rand((B, N_GOAL_SCORE_ROWS, n), **draw)
-    return reset_from_draws(cfg, k, perm, world_scores, goal_scores)
+    return reset_from_draws(cfg, k[cols], perm[cols], world_scores[cols], goal_scores[cols])
 
 
 def generate_pool_from_scores(cfg: EnvConfig, scores: torch.Tensor):

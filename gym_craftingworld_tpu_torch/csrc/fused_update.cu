@@ -289,10 +289,12 @@ static bool covers(int k, int s, int kc) {
 //       which sized the work buffers; it is checked here, not remade
 // out:  gw1 f32 [h, f], gw2 f32 [h, h], ghead f32 [9h + 8] (gwlv [7, h],
 //       gblv [8], gb1 [h], gb2 [h]), pg_row, v_row, ent_row f32 [n]
+// inv_n: 1 / the rows of the whole minibatch, of which these n rows may be a
+//       shard (1 / n when they are all of it)
 extern "C" int cw_ppo_grads(const void* const* in, void* const* work, void* const* out,
                             int n, int f, int h, int blk, int nb, int ldt, int s_w1, int kc_w1,
                             int s_w2, int kc_w2, int s_head, float clip_eps, float vf_coef,
-                            float ent_coef, void* stream) {
+                            float ent_coef, float inv_n, void* stream) {
   cudaGetLastError();
   if (n <= 0 || h <= 0 || f <= 0 || f > CW_FPAD || h % 8 || ldt < n || ldt % 8 || nb <= 0 ||
       ldt - n >= 8 || !covers(ldt, s_w1, kc_w1) || !covers(ldt, s_w2, kc_w2) || s_head <= 0)
@@ -327,7 +329,7 @@ extern "C" int cw_ppo_grads(const void* const* in, void* const* work, void* cons
       h2, (const bf16*)in[11], (const float*)in[12], (const int32_t*)in[2],
       (const float*)in[3], (const float*)in[4], (const float*)in[5], (const float*)in[6],
       dheads, dz2, (float*)out[3], (float*)out[4], (float*)out[5], n, h, clip_eps,
-      vf_coef, ent_coef, (float)(1.0 / n));
+      vf_coef, ent_coef, inv_n);
   launch_transpose(dz2, n, h, dz2_t, ldt, st);
 
   // dz1 = mask(h1) * bf16(dz2 w2) and dz1^T

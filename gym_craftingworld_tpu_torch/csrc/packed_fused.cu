@@ -54,21 +54,24 @@ struct PackedIO {
 };
 
 // T steps with actions from the Philox stream; final state + reward sum.
+// Thread b draws the stream of env env0 + b, so that a shard of a batch (its
+// first env at env0) steps the same envs as the whole batch does.
 __global__ void __launch_bounds__(CW_BLOCK)
     cw_bench_kernel(PackedIO io, int32_t* __restrict__ checksum, int B, int T,
-                    CwCfg cfg, uint32_t seed) {
+                    CwCfg cfg, uint32_t seed, uint32_t env0) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
+  const uint32_t env = env0 + (uint32_t)b;
   PackedEnv s;
   packed_load(io.in, b, B, cfg, s);
   int acc = 0;
   bool done;
   // the next trip's draws are computed beside this trip's steps, which
   // leave most issue slots of a lone warp idle while they wait on each other
-  uint4 w = action_words(seed, 0u, (uint32_t)b);
+  uint4 w = action_words(seed, 0u, env);
   for (int t0 = 0; t0 < T; t0 += 4) {
     const uint32_t words[4] = {w.x, w.y, w.z, w.w};
-    w = action_words(seed, (uint32_t)(t0 >> 2) + 1u, (uint32_t)b);
+    w = action_words(seed, (uint32_t)(t0 >> 2) + 1u, env);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       if (t0 + j < T) acc += packed_step(s, (int)(words[j] % CW_N_ACTIONS), cfg, done);
@@ -132,16 +135,17 @@ static PackedIO make_io(const void* const* in, void* const* out) {
 
 static int grid_for(int B) { return (B + CW_BLOCK - 1) / CW_BLOCK; }
 
-// `in` and `out` are host arrays of CW_N_IN and CW_N_OUT device pointers.
+// `in` and `out` are host arrays of CW_N_IN and CW_N_OUT device pointers;
+// env0 is the batch index of the first env (0 unless the batch is a shard).
 extern "C" int cw_packed_bench(const void* const* in, void* const* out,
                                void* checksum, int B, int T, int height,
                                int width, int max_steps, int reward_equal,
-                               uint32_t seed, void* stream) {
+                               uint32_t seed, uint32_t env0, void* stream) {
   cudaGetLastError();  // clear an earlier, unrelated error
   const CwCfg cfg = {height, width, max_steps, reward_equal};
   if (B > 0)
     cw_bench_kernel<<<grid_for(B), CW_BLOCK, 0, (cudaStream_t)stream>>>(
-        make_io(in, out), (int32_t*)checksum, B, T, cfg, seed);
+        make_io(in, out), (int32_t*)checksum, B, T, cfg, seed, env0);
   return (int)cudaGetLastError();
 }
 

@@ -19,7 +19,8 @@ The flax families (``ActorCritic``, ``PixelActorCritic``,
 flax variable trees, ``{"params": {module: {param: array}}}`` nested as flax
 nests them. The port's modules hold their parameters under the same names and
 in the same layouts, so a tree loads by name; the widths are read from the
-tree. The trainers' states (``BCTrainState``, ``RnnTrainState``) cross with
+tree. The trainers' states (``BCTrainState``, ``RnnTrainState``, and
+``train/ppo.TrainState`` of the three PPO families) cross with
 optax's ``chain(clip_by_global_norm, adam)`` state: an empty clip state, then
 ``ScaleByAdamState`` with its moments over the flax tree.
 """
@@ -44,6 +45,7 @@ from gym_craftingworld_tpu_torch.ops.transposed_rollout import TSlotState
 from gym_craftingworld_tpu_torch.train.fast_pixel_ppo import CONV_NAMES, ConvParams
 from gym_craftingworld_tpu_torch.train.dagger import BCTrainState
 from gym_craftingworld_tpu_torch.train.fast_ppo import PARAM_NAMES, AdamState, MLPParams
+from gym_craftingworld_tpu_torch.train.ppo import TrainState
 from gym_craftingworld_tpu_torch.train.ppo_rnn import RnnTrainState
 
 
@@ -268,6 +270,20 @@ def bc_train_state_from_numpy(params: dict, opt_state, device="cuda") -> BCTrain
     from_numpy = (cpv_grid_policy_from_numpy if "task_embed" in params["params"]
                   else grid_policy_from_numpy)
     return BCTrainState(from_numpy(params, device), _chain_adam_state(opt_state, device))
+
+
+def ppo_train_state_from_numpy(params: dict, opt_state, update_idx=0,
+                               device="cuda") -> TrainState:
+    """A JAX ``train/ppo.TrainState`` (flax variables, optax chain state and
+    update index, as numpy) as the port's; the family (``GridActorCritic``
+    holds ``pos``, ``ActorCritic`` ``torso0``, else ``PixelActorCritic``) is
+    read from the tree."""
+    p = params["params"]
+    from_numpy = (grid_actor_critic_from_numpy if "pos" in p
+                  else actor_critic_from_numpy if "torso0" in p
+                  else pixel_actor_critic_from_numpy)
+    return TrainState(from_numpy(params, device), _chain_adam_state(opt_state, device),
+                      int(np.asarray(update_idx)))
 
 
 def rnn_train_state_from_numpy(d: dict, device="cuda") -> RnnTrainState:

@@ -36,8 +36,9 @@ _P, _I, _U32, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_floa
 # C signatures of the entry points in csrc/*.cu
 _SIGNATURES = {
     # packed_fused.cu
-    # in[13], out[9], checksum, B, T, height, width, max_steps, reward_equal, seed, stream
-    "cw_packed_bench": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _U32, _P),
+    # in[13], out[9], checksum, B, T, height, width, max_steps, reward_equal, seed,
+    # env0, stream
+    "cw_packed_bench": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _U32, _U32, _P),
     # in[13], out[9], actions, reward, done, B, T, height, width, max_steps, reward_equal, stream
     "cw_packed_actions": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # out, B, T, seed, stream
@@ -54,8 +55,8 @@ _SIGNATURES = {
     "cw_pool": (_P, _P, _I, _I, _U32, _I, _I, _I, _P),
     # fused_update.cu
     # in[13], work[15], out[6], n, f, h, blk, nb, ldt, s_w1, kc_w1, s_w2, kc_w2,
-    # s_head, clip_eps, vf_coef, ent_coef, stream
-    "cw_ppo_grads": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P),
+    # s_head, clip_eps, vf_coef, ent_coef, inv_n, stream
+    "cw_ppo_grads": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _P),
     # a, b, part, out, M, N, K, splits, kchunk, stream
     "cw_gemm_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }

@@ -88,11 +88,13 @@ def normalize_adv(adv: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 
-def ppo_grads_plain(fppo, w: Weights, x, action, old_lp, old_v, adv_n, ret):
+def ppo_grads_plain(fppo, w: Weights, x, action, old_lp, old_v, adv_n, ret,
+                    n_total: int | None = None):
     """Plain version of the kernel: (grads, pg_row, v_row, ent_row).
 
     The kernel's algebra in torch, at its rounding points: bf16 operands
-    multiplied in f32 (exact products, f32 sums).
+    multiplied in f32 (exact products, f32 sums). ``n_total``: the rows of
+    the whole minibatch when ``x`` holds a shard of it (default: its own).
     """
     ppo_grads_plain.calls += 1
     n = x.shape[0]
@@ -117,7 +119,7 @@ def ppo_grads_plain(fppo, w: Weights, x, action, old_lp, old_v, adv_n, ret):
     v_row = 0.5 * torch.maximum(e * e, ec * ec)
     ent_row = -(p * logsm).sum(dim=1)
 
-    inv_n = torch.tensor(1.0 / n, dtype=f32, device=x.device)
+    inv_n = torch.tensor(1.0 / (n_total or n), dtype=f32, device=x.device)
     dlogp = torch.where(un <= cl, -adv_n * ratio, 0.0) * inv_n
     dent = -fppo.ent_coef * inv_n
     dlogits = dlogp[:, None] * (onehot.to(f32) - p) + dent * (-p * (logsm + ent_row[:, None]))
@@ -236,12 +238,13 @@ def _check(name, t, dtype, shape, device, aligned=False):
 
 
 def ppo_grads_kernel(fppo, w: Weights, x, ids, blk: int, action, old_lp, old_v,
-                     adv_n, ret):
+                     adv_n, ret, n_total: int | None = None):
     """Launch ``cw_ppo_grads``: (grads, pg_row, v_row, ent_row).
 
     ``x`` bf16[rows, F]; minibatch row ``r`` reads ``x[r]``, or with ``ids``
     (int32[n / blk]) ``x[block_ids(ids)[r // blk] * blk + r % blk]``: the
-    kernel wraps and clamps each id itself, with no host sync.
+    kernel wraps and clamps each id itself, with no host sync. ``n_total``
+    as ``ppo_grads_plain`` takes it.
     """
     dev = x.device
     n = action.shape[0]
@@ -276,7 +279,7 @@ def ppo_grads_kernel(fppo, w: Weights, x, ids, blk: int, action, old_lp, old_v,
     code = _build.load().cw_ppo_grads(
         _pointers(ins), _pointers(work), _pointers([gw1, gw2, ghead, *rows]),
         n, F, H, blk, x.shape[0] // blk, p.ldt, p.s_w1, p.kc_w1, p.s_w2, p.kc_w2, p.s_head,
-        fppo.clip_eps, fppo.vf_coef, fppo.ent_coef,
+        fppo.clip_eps, fppo.vf_coef, fppo.ent_coef, 1.0 / (n_total or n),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check("cw_ppo_grads", code)
     gwlv = ghead[: 7 * H].view(7, H)
@@ -333,10 +336,10 @@ def _finish(fppo, n: int, grads, pg_row, v_row, ent_row):
     return grads, {"loss": loss, "pg_loss": pg, "v_loss": v_loss, "entropy": entropy}
 
 
-def _rest(action, old_lp, old_v, adv, ret):
+def _rest(action, old_lp, old_v, adv, ret, normalized: bool = False):
     c = lambda t, dtype: t.to(dtype).contiguous()
-    return (c(action, torch.int32), c(old_lp, f32), c(old_v, f32),
-            c(normalize_adv(adv.to(f32)), f32), c(ret, f32))
+    adv = adv.to(f32) if normalized else normalize_adv(adv.to(f32))
+    return (c(action, torch.int32), c(old_lp, f32), c(old_v, f32), c(adv, f32), c(ret, f32))
 
 
 def fused_minibatch_grads(fppo, params, batch):
@@ -356,7 +359,8 @@ def fused_minibatch_grads(fppo, params, batch):
     return _finish(fppo, n, *out)
 
 
-def fused_minibatch_grads_indexed(fppo, params, featb, ids, rest):
+def fused_minibatch_grads_indexed(fppo, params, featb, ids, rest, *,
+                                  normalized: bool = False, n_total: int | None = None):
     """``fused_minibatch_grads`` over the feature blocks ``featb[ids]``.
 
     featb: bf16[NB, BLK, F], the rollout's features block by block; ids:
@@ -367,18 +371,24 @@ def fused_minibatch_grads_indexed(fppo, params, featb, ids, rest):
     JAX takes it (``block_ids``: an out-of-range id wraps once, then clamps):
     the kernel reads block ``ids[i]`` in place of gathering it, and does the
     same arithmetic.
+
+    A shard of a minibatch (``train/fast_ppo.py`` under a mesh) passes its
+    advantages already normalized over the whole minibatch
+    (``normalized=True``) and the whole minibatch's rows ``n_total``: the
+    gradients and loss terms are then this shard's part of the minibatch's
+    means, and the shards' parts sum to them.
     """
     NB, BLK, F = featb.shape
     n = ids.shape[0] * BLK
     w = weights(params)
-    rest = _rest(*rest)
+    rest = _rest(*rest, normalized=normalized)
     if not _on_cuda(featb):
         x = featb[block_ids(ids, NB)].reshape(n, F)
-        return _finish(fppo, n, *ppo_grads_plain(fppo, w, x, *rest))
+        return _finish(fppo, n_total or n, *ppo_grads_plain(fppo, w, x, *rest, n_total))
     x = featb.to(bf16).contiguous().view(NB * BLK, F)
-    out = ppo_grads_kernel(fppo, w, x, ids.to(torch.int32).contiguous(), BLK, *rest)
+    out = ppo_grads_kernel(fppo, w, x, ids.to(torch.int32).contiguous(), BLK, *rest, n_total)
     fused_minibatch_grads_indexed.launches += 1
-    return _finish(fppo, n, *out)
+    return _finish(fppo, n_total or n, *out)
 
 
 fused_minibatch_grads.launches = 0

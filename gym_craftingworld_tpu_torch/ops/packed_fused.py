@@ -22,7 +22,10 @@ The public entry points keep the JAX signatures, minus ``interpret=`` and
 The action of env ``b`` at step ``t`` is word ``t % 4`` of Philox4x32-10
 (``ops/philox.py``) with counter ``(t // 4, b, 0, 0)`` and key
 ``(seed, ACTION_KEY)``, reduced ``% 6``: it depends on ``(seed, b, t)`` only,
-so the plain versions reproduce the kernels' draws exactly. It is not the
+so the plain versions reproduce the kernels' draws exactly. ``b`` is the
+env's index in the whole batch: a shard whose first env is ``env0`` of the
+batch passes ``env0`` and draws env ``env0 + b``'s stream for its column
+``b`` (``parallel/sharded_engine.py``). It is not the
 TPU kernels' stream, so the bench checksum is comparable to JAX ``rollout_p``
 fed this stream, not to the TPU's checksum.
 """
@@ -64,12 +67,13 @@ _OUT_FIELDS = tuple(f for f in PackedState._fields if f not in _CONST_FIELDS)
 
 
 def action_stream_plain(batch_size: int, seed: int, num_steps: int,
-                        device="cpu") -> torch.Tensor:
-    """The Philox action stream as int32[T, B], in plain torch."""
+                        device="cpu", env0: int = 0) -> torch.Tensor:
+    """The Philox action stream of envs ``env0 .. env0 + B - 1`` as
+    int32[T, B], in plain torch."""
     action_stream_plain.calls += 1
     n4 = (num_steps + 3) // 4
     t4 = torch.arange(n4, dtype=torch.int64, device=device)[:, None]
-    env = torch.arange(batch_size, dtype=torch.int64, device=device)[None, :]
+    env = torch.arange(env0, env0 + batch_size, dtype=torch.int64, device=device)[None, :]
     t4, env = torch.broadcast_tensors(t4, env)
     zero = torch.zeros_like(t4)
     words = philox4x32((t4, env, zero, zero), (seed & MASK32, ACTION_KEY))
@@ -86,11 +90,11 @@ def rollout_packed_actions_plain(cfg: EnvConfig, p: PackedState,
 
 
 def rollout_packed_bench_plain(cfg: EnvConfig, p: PackedState, seed: int,
-                               num_steps: int):
+                               num_steps: int, env0: int = 0):
     """Plain version of the bench kernel: (PackedState, int32[B] reward sums)."""
     rollout_packed_bench_plain.calls += 1
     B = p.agent_r.shape[0]
-    actions = action_stream_plain(B, seed, num_steps, p.agent_r.device)
+    actions = action_stream_plain(B, seed, num_steps, p.agent_r.device, env0)
     acc = torch.zeros((B,), dtype=torch.int32, device=p.agent_r.device)
     for t in range(num_steps):
         p, res = _step_p_unrolled(cfg, p, actions[t])
@@ -143,17 +147,22 @@ def _stream(device) -> int:
 
 
 def rollout_packed_bench(cfg: EnvConfig, p: PackedState, seed: int,
-                         num_steps: int):
-    """T Philox-action steps; (PackedState, int32[B] per-env reward sums)."""
+                         num_steps: int, env0: int = 0):
+    """T Philox-action steps; (PackedState, int32[B] per-env reward sums).
+
+    Column ``b`` draws the stream of env ``env0 + b`` of the whole batch.
+    """
     if not _on_cuda(p.agent_r):
-        return rollout_packed_bench_plain(cfg, p, seed, num_steps)
+        return rollout_packed_bench_plain(cfg, p, seed, num_steps, env0)
+    if not 0 <= env0 <= MASK32 - p.agent_r.shape[0]:
+        raise ValueError(f"env0 {env0} out of the stream's 32-bit env range")
     B = _check_packed(p)
     lib = _build.load()
     out, ins, outs = _kernel_io(p)
     checksum = torch.empty((B,), dtype=torch.int32, device=p.agent_r.device)
     code = lib.cw_packed_bench(
         ins, outs, checksum.data_ptr(), B, num_steps, cfg.height, cfg.width,
-        cfg.max_steps, int(cfg.reward_equal), seed & MASK32,
+        cfg.max_steps, int(cfg.reward_equal), seed & MASK32, env0,
         _stream(p.agent_r.device))
     _build.check("cw_packed_bench", code)
     rollout_packed_bench.launches += 1
@@ -211,15 +220,16 @@ fused_action_stream.launches = 0
 
 
 def fused_rollout_packed_bench(cfg: EnvConfig, slots: SlotState, seed: int,
-                               num_steps: int):
+                               num_steps: int, env0: int = 0):
     """T random steps; returns (SlotState, int64 reward checksum).
 
     The checksum is the sum over envs and steps of the rewards, taken in
-    int64 (the JAX version's int32 sum wraps at large B*T).
+    int64 (the JAX version's int32 sum wraps at large B*T). ``env0``: the
+    batch index of the first env, when ``slots`` is a shard of a batch.
     """
     ts = transpose_in(slots)
     p = pack(cfg, ts)
-    p, acc = rollout_packed_bench(cfg, p, seed, num_steps)
+    p, acc = rollout_packed_bench(cfg, p, seed, num_steps, env0)
     state = transpose_out(unpack(cfg, p, ts.desired, _init_rows(ts)), slots.rng)
     return state, acc.sum(dtype=torch.int64)
 

@@ -21,6 +21,11 @@ minibatch blocks); the collect steps through the fused actions kernel at
 T = 1 (``ops/packed_fused.rollout_packed_actions``: the kernel on the card,
 its plain version on the CPU); the optimizer is the hand-written clip + Adam
 on the ``ConvParams`` tensors; the gradient is autograd of ``_pixel_loss``.
+Under a ``mesh`` a rank steps its own columns and computes the unsharded
+step's function, as ``train/fast_ppo.py`` says: whole-batch draws, shuffle
+blocks of ``BLK`` rows that lie on one rank, advantages normalised over the
+whole minibatch, each rank's autograd of its rows' share of the means, and
+one ``all_reduce`` of the gradients and loss terms a minibatch.
 """
 
 from __future__ import annotations
@@ -37,18 +42,21 @@ from gym_craftingworld_tpu_torch.models.layers import conv_nhwc
 from gym_craftingworld_tpu_torch.ops.fused_update import normalize_adv
 from gym_craftingworld_tpu_torch.ops.packed_fused import rollout_packed_actions
 from gym_craftingworld_tpu_torch.ops.packed_rollout import PackedState
+from gym_craftingworld_tpu_torch.parallel.mesh import sum_over_ranks
 from gym_craftingworld_tpu_torch.train.fast_ppo import (
-    POOL_STRIDE,
     AdamState,
     FastPPOConfig,
     _autoreset,
     _gae,
-    _pool_slice,
     _sample_action,
+    _window,
     apply_updates,
+    check_blocks,
     fresh_packed_batch,
     gumbel_uniforms,
     make_optimizer,
+    rollout_metrics,
+    shard_mean,
 )
 
 bf16 = torch.bfloat16
@@ -229,8 +237,12 @@ def _policy_tb(p: ConvParams, cfg: EnvConfig, st: PackedState, stride1: int = 2)
 
 
 def _collect_pixel(cfg: EnvConfig, ppo: PixelPPOConfig, params: ConvParams,
-                   env: PackedState, pool: PackedState, u: torch.Tensor):
-    """T steps of the policy; ``u`` f32[T, 6, B] Gumbel uniforms. (env, _PTraj)."""
+                   env: PackedState, pool: PackedState, u: torch.Tensor, mesh=None):
+    """T steps of the policy; ``u`` f32[T, 6, B] Gumbel uniforms. (env, _PTraj).
+
+    Under a ``mesh``, ``env`` and ``u`` are this rank's columns and ``pool``
+    the whole batch's pool of 2B worlds.
+    """
     T, B = ppo.rollout_steps, env.agent_r.shape[-1]
     dev = env.agent_r.device
     buf = lambda dtype, *shape: torch.empty((T, *shape), dtype=dtype, device=dev)
@@ -245,8 +257,7 @@ def _collect_pixel(cfg: EnvConfig, ppo: PixelPPOConfig, params: ConvParams,
         for dst, src in zip(tr.state, st):
             dst[t] = src
         st, raw, done = rollout_packed_actions(cfg, st, action[None])
-        off = (t * POOL_STRIDE) % B
-        st = _autoreset(st, _pool_slice(pool, off, B), done[0])
+        st = _autoreset(st, _window(pool, t, B, mesh), done[0])
         for dst, src in zip(tr[1:], (action, log_prob, value,
                                      torch.where(raw[0] == cfg.max_steps, win, lose),
                                      done[0], raw[0])):
@@ -254,30 +265,36 @@ def _collect_pixel(cfg: EnvConfig, ppo: PixelPPOConfig, params: ConvParams,
     return st, tr
 
 
-def _pixel_loss(ppo: PixelPPOConfig, params: ConvParams, cfg: EnvConfig, batch):
-    """Clipped-surrogate loss on a minibatch of stored states; (loss, aux)."""
+def _pixel_loss(ppo: PixelPPOConfig, params: ConvParams, cfg: EnvConfig, batch,
+                normalized: bool = False, n_total: int | None = None):
+    """Clipped-surrogate loss on a minibatch of stored states; (loss, aux).
+
+    ``normalized`` and ``n_total`` as ``train/fast_ppo._ppo_loss`` takes them.
+    """
     st, action, old_log_prob, old_value, adv, ret = batch
+    mean = shard_mean(n_total)
     grid, bits = render_grid_obs(cfg, st)
     logits, value = apply_pixel_policy(params, grid, bits, ppo.stride1)  # [M, 6], [M]
     logsm = torch.log_softmax(logits, dim=-1)
     log_prob = logsm.gather(1, action.to(torch.int64)[:, None])[:, 0]
     ratio = torch.exp(log_prob - old_log_prob)
-    adv_n = normalize_adv(adv)
-    pg = -torch.minimum(
+    adv_n = adv if normalized else normalize_adv(adv)
+    pg = -mean(torch.minimum(
         ratio * adv_n,
         torch.clamp(ratio, 1 - ppo.clip_eps, 1 + ppo.clip_eps) * adv_n,
-    ).mean()
+    ))
     v_clipped = old_value + torch.clamp(value - old_value, -ppo.clip_eps, ppo.clip_eps)
-    v_loss = 0.5 * torch.maximum((value - ret) ** 2, (v_clipped - ret) ** 2).mean()
-    entropy = -(torch.exp(logsm) * logsm).sum(dim=-1).mean()
+    v_loss = 0.5 * mean(torch.maximum((value - ret) ** 2, (v_clipped - ret) ** 2))
+    entropy = -mean((torch.exp(logsm) * logsm).sum(dim=-1))
     loss = pg + ppo.vf_coef * v_loss - ppo.ent_coef * entropy
     return loss, {"pg_loss": pg, "v_loss": v_loss, "entropy": entropy}
 
 
-def _pixel_grads(ppo: PixelPPOConfig, params: ConvParams, cfg: EnvConfig, batch):
+def _pixel_grads(ppo: PixelPPOConfig, params: ConvParams, cfg: EnvConfig, batch,
+                 normalized: bool = False, n_total: int | None = None):
     """(grads by name, aux with "loss") by autograd of ``_pixel_loss``."""
     with torch.enable_grad():
-        loss, aux = _pixel_loss(ppo, params, cfg, batch)
+        loss, aux = _pixel_loss(ppo, params, cfg, batch, normalized, n_total)
         g = torch.autograd.grad(loss, [getattr(params, k) for k in CONV_NAMES])
     return dict(zip(CONV_NAMES, g)), {"loss": loss.detach(),
                                       **{k: v.detach() for k, v in aux.items()}}
@@ -295,32 +312,69 @@ def _blocks(traj: _PTraj, adv: torch.Tensor, ret: torch.Tensor):
     return state, rest
 
 
+def minibatches(ppo: PixelPPOConfig, traj: _PTraj, adv, ret, perms: torch.Tensor, mesh=None):
+    """The update phase's minibatches in order, as (batch, n_total): ``batch``
+    = (states, action, old_log_prob, old_value, adv_n, ret) of this rank's
+    rows, the advantages normalised over the whole minibatch; ``n_total``
+    the whole minibatch's rows under a mesh of several ranks, else None.
+
+    ``perms`` int[update_epochs, NB]: each epoch's permutation of the whole
+    batch's shuffle blocks. Ownership as in ``train/fast_ppo.minibatches``.
+    """
+    T, Bl = traj.action.shape
+    world = 1 if mesh is None else mesh.size
+    B = Bl * world
+    check_blocks(Bl, BLK, mesh)
+    ncb = B // BLK  # the batch's blocks of a step
+    blk_state, rest = _blocks(traj, adv, ret)
+    adv_b = (adv if mesh is None else mesh.gather(adv)).reshape(T * B // BLK, BLK)
+    nbm = T * B // BLK // ppo.num_minibatches
+    host = perms.cpu() if world > 1 else None
+    for e in range(ppo.update_epochs):
+        perm = perms[e].to(torch.int64)
+        for i in range(ppo.num_minibatches):
+            ids = perm[i * nbm: (i + 1) * nbm]
+            adv_n = normalize_adv(adv_b[ids].reshape(-1)).view(nbm, BLK)
+            if world > 1:
+                own, ids = mesh.own(host[e, i * nbm: (i + 1) * nbm].to(torch.int64), ncb)
+                ids, adv_n = ids.to(perm.device), adv_n[own.to(perm.device)]
+            st_mb = PackedState(*(x[..., ids, :].reshape(x.shape[:-2] + (-1,)) for x in blk_state))
+            action, old_lp, old_v, _, r = (x[ids].reshape(-1) for x in rest)
+            yield ((st_mb, action, old_lp, old_v, adv_n.reshape(-1), r),
+                   nbm * BLK if world > 1 else None)
+
+
+def minibatch_grads(ppo: PixelPPOConfig, params: ConvParams, cfg: EnvConfig, batch,
+                    n_total: int | None = None, mesh=None):
+    """(grads, aux with "loss") of one minibatch from ``minibatches``, summed
+    over the ranks; a rank with no rows of it contributes zeros."""
+    if batch[1].numel() == 0:
+        grads = {k: torch.zeros_like(getattr(params, k)) for k in CONV_NAMES}
+        aux = {k: torch.zeros((), device=batch[1].device)
+               for k in ("loss", "pg_loss", "v_loss", "entropy")}
+    else:
+        grads, aux = _pixel_grads(ppo, params, cfg, batch, True, n_total)
+    grads, aux = sum_over_ranks(mesh, grads, aux)
+    return grads, aux
+
+
 def _update_phase(cfg: EnvConfig, ppo: PixelPPOConfig, ts: PixelTrainState, traj: _PTraj,
-                  adv: torch.Tensor, ret: torch.Tensor, perms: torch.Tensor):
+                  adv: torch.Tensor, ret: torch.Tensor, perms: torch.Tensor, mesh=None):
     """GAE-to-optimizer tail of one PPO iteration.
 
     ``perms`` int[update_epochs, NB]: each epoch's permutation of the shuffle
     blocks. Returns (params, opt_state, losses [E, M], aux dict of [E, M]);
     params are updated in place.
     """
-    blk_state, rest = _blocks(traj, adv, ret)
-    NB = rest[0].shape[0]
-    nbm = NB // ppo.num_minibatches
-    mb = nbm * BLK
     optimizer = make_optimizer(ppo.as_fast)
     params, opt_state = ts.params, ts.opt_state
     losses, auxes = [], []
-    for e in range(ppo.update_epochs):
-        perm = perms[e].to(torch.int64)
-        for i in range(ppo.num_minibatches):
-            ids = perm[i * nbm: (i + 1) * nbm]
-            st_mb = PackedState(*(x[..., ids, :].reshape(x.shape[:-2] + (mb,)) for x in blk_state))
-            batch = (st_mb,) + tuple(x[ids].reshape(mb) for x in rest)
-            grads, aux = _pixel_grads(ppo, params, cfg, batch)
-            updates, opt_state = optimizer.update(grads, opt_state)
-            apply_updates(params, updates)
-            losses.append(aux.pop("loss"))
-            auxes.append(aux)
+    for batch, n_total in minibatches(ppo, traj, adv, ret, perms, mesh):
+        grads, aux = minibatch_grads(ppo, params, cfg, batch, n_total, mesh)
+        updates, opt_state = optimizer.update(grads, opt_state)
+        apply_updates(params, updates)
+        losses.append(aux.pop("loss"))
+        auxes.append(aux)
     shape = (ppo.update_epochs, ppo.num_minibatches)
     stack = lambda xs: torch.stack(xs).reshape(shape)
     return (params, opt_state, stack(losses),
@@ -328,35 +382,41 @@ def _update_phase(cfg: EnvConfig, ppo: PixelPPOConfig, ts: PixelTrainState, traj
 
 
 @torch.no_grad()
-def train_step_pixel(cfg: EnvConfig, ppo: PixelPPOConfig, ts: PixelTrainState,
-                     env: PackedState, generator: torch.Generator):
-    """One PPO iteration of the grid-observation CNN policy; (ts, env,
-    generator, metrics). Every draw comes from ``generator``, on the env's
-    device: the pool of 2B worlds, the Gumbel uniforms, the epoch
-    permutations."""
-    T, B = ppo.rollout_steps, env.agent_r.shape[-1]
+def rollout_phase(cfg: EnvConfig, ppo: PixelPPOConfig, ts: PixelTrainState, env: PackedState,
+                  generator: torch.Generator, mesh=None):
+    """The draws, the collect and GAE of one iteration; (env, (traj, adv,
+    ret, perms)). Draws as ``train/fast_ppo.rollout_phase`` takes them, the
+    pool from ``fresh_packed_batch``."""
+    T, Bl = ppo.rollout_steps, env.agent_r.shape[-1]
+    B = Bl if mesh is None else Bl * mesh.size
     if (T * B) % (BLK * ppo.num_minibatches):
         raise ValueError(f"rollout_steps*batch ({T}*{B}) must be a multiple of "
                          f"{BLK}*num_minibatches")
+    check_blocks(Bl, BLK, mesh)
     NB = T * B // BLK
     pool = fresh_packed_batch(cfg, generator, 2 * B)
     u = gumbel_uniforms(generator, (T, C.N_ACTIONS, B))
-    env, traj = _collect_pixel(cfg, ppo, ts.params, env, pool, u)
+    if mesh is not None:
+        u = u[..., mesh.cols(B)]
+    env, traj = _collect_pixel(cfg, ppo, ts.params, env, pool, u, mesh)
     _, last_value = _policy_tb(ts.params, cfg, env, ppo.stride1)
     adv, ret = _gae(ppo.as_fast, traj, last_value)
     perms = torch.stack([torch.randperm(NB, generator=generator, device=generator.device)
                          for _ in range(ppo.update_epochs)])
-    params, opt_state, losses, auxes = _update_phase(cfg, ppo, ts, traj, adv, ret, perms)
+    return env, (traj, adv, ret, perms)
 
-    successes = (traj.raw_reward == cfg.max_steps).sum()
-    metrics = {
-        "loss": losses.mean(),
-        "reward_mean": traj.reward.mean(),
-        "episode_done_frac": traj.done.to(f32).mean(),
-        "success_rate": successes / traj.done.sum().clamp_min(1),
-        "success_per_step": successes / (T * B),
-        **{k: v.mean() for k, v in auxes.items()},
-    }
+
+@torch.no_grad()
+def train_step_pixel(cfg: EnvConfig, ppo: PixelPPOConfig, ts: PixelTrainState,
+                     env: PackedState, generator: torch.Generator, mesh=None):
+    """One PPO iteration of the grid-observation CNN policy; (ts, env,
+    generator, metrics). Every draw comes from ``generator``, on the env's
+    device: the pool of 2B worlds, the Gumbel uniforms, the epoch
+    permutations. Under a ``mesh`` ``env`` is this rank's columns
+    (``parallel/sharded_engine.pixel_train_step_sharded``)."""
+    env, (traj, adv, ret, perms) = rollout_phase(cfg, ppo, ts, env, generator, mesh)
+    params, opt_state, losses, auxes = _update_phase(cfg, ppo, ts, traj, adv, ret, perms, mesh)
+    metrics = rollout_metrics(cfg, traj, losses, auxes, mesh)
     return PixelTrainState(params, opt_state, ts.update_idx + 1), env, generator, metrics
 
 

@@ -26,11 +26,22 @@ What the port does differently:
 * Parameters live in the ``MLPParams`` module under the JAX names and
   layouts and are updated in place; ``train_step_fast`` returns the same
   module it was given.
+* Under a ``mesh`` (``parallel/mesh.py``) each rank steps its own columns
+  of the env batch and computes the unsharded step's function: every rank
+  takes the draws at the whole batch's shapes from one generator (the pool
+  of 2B worlds, the Gumbel uniforms, the permutations) and keeps its
+  columns; a shuffle block lies on one rank; each minibatch's advantages
+  are normalised over the whole minibatch (gathered by ``all_reduce``); a
+  rank launches the gradient kernel on its own blocks with the whole
+  minibatch's ``1/n``, and the ranks sum the gradients and loss terms in one
+  ``all_reduce`` before the clip and Adam, which every rank runs alike. Only
+  the order of the gradient sums differs from the unsharded step.
 
 Matmuls that JAX runs with ``preferred_element_type=f32`` round their
 operands to bf16 and multiply in f32; TF32 is switched off for them
 (``torch.backends.cuda.matmul.allow_tf32 = False``, set on import of this
-module) so the f32 products are exact and the sums f32.
+module) so the f32 products are exact and the sums f32. On the card the policy's
+heads sum their products in f64 instead (``_mm_head``).
 """
 
 from __future__ import annotations
@@ -48,6 +59,7 @@ from gym_craftingworld_tpu_torch.ops import fused_update as fu
 from gym_craftingworld_tpu_torch.ops.fused_reset import assemble, fresh_packed_fused
 from gym_craftingworld_tpu_torch.ops.packed_fused import rollout_packed_actions
 from gym_craftingworld_tpu_torch.ops.packed_rollout import PackedState
+from gym_craftingworld_tpu_torch.parallel.mesh import sum_over_ranks
 
 # f32 matmuls must be f32 (JAX's preferred_element_type=f32), not TF32
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -205,12 +217,30 @@ def _mm(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return w.to(bf16).to(f32) @ x.to(bf16).to(f32)
 
 
+def _mm_head(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``_mm`` for a head's few-row product, whose column sums on the card do
+    not depend on the batch's width.
+
+    cuBLAS picks its kernel, and so the order of an f32 sum, by the
+    product's shape: on an H100 the one-row ``wv`` and a seven-row
+    ``[wl; wv]`` product of 8,192 columns sum differently from 16,384 (the
+    512-row trunk products and the six-row ``wl`` did not; ``chip_smoke.py``
+    phase 21 holds them), and a rank of a mesh, holding a part of the batch,
+    must give the whole batch's columns bit for bit. So on the card the sums
+    run in f64, where the products of bf16 operands (16 significant bits
+    each) add without rounding unless their magnitudes span more than 2**37,
+    and round to f32 once: no order changes them. The CPU keeps JAX's f32.
+    """
+    acc = torch.float64 if x.is_cuda else f32
+    return (w.to(bf16).to(acc) @ x.to(bf16).to(acc)).to(f32)
+
+
 def apply_policy(p: MLPParams, feat: torch.Tensor):
     """feat [F, B] -> (logits f32[6, B], value f32[B])."""
     h = torch.relu(_mm(p.w1, feat) + p.b1[:, None])
     h = torch.relu(_mm(p.w2, h) + p.b2[:, None])
-    logits = _mm(p.wl, h) + p.bl[:, None]
-    value = (_mm(p.wv, h) + p.bv[:, None])[0]
+    logits = _mm_head(p.wl, h) + p.bl[:, None]
+    value = (_mm_head(p.wv, h) + p.bv[:, None])[0]
     return logits, value
 
 
@@ -318,9 +348,23 @@ def _sample_action(u: torch.Tensor, logits: torch.Tensor):
     return action, log_prob
 
 
+def _window(pool: PackedState, t: int, B: int, mesh=None) -> PackedState:
+    """Step ``t``'s auto-reset worlds: the whole batch's pool window at
+    ``(t * POOL_STRIDE) % B``, or under a mesh this rank's columns of it."""
+    if mesh is None:
+        return _pool_slice(pool, (t * POOL_STRIDE) % B, B)
+    cols = mesh.cols(B * mesh.size)
+    off = (t * POOL_STRIDE) % (B * mesh.size)
+    return _pool_slice(pool, off + cols.start, B)
+
+
 def _collect(cfg: EnvConfig, fppo: FastPPOConfig, params: MLPParams,
-             env: PackedState, pool: PackedState, u: torch.Tensor):
-    """T steps of the policy; ``u`` f32[T, 6, B] Gumbel uniforms. (env, _Traj)."""
+             env: PackedState, pool: PackedState, u: torch.Tensor, mesh=None):
+    """T steps of the policy; ``u`` f32[T, 6, B] Gumbel uniforms. (env, _Traj).
+
+    Under a ``mesh``, ``env`` and ``u`` are this rank's columns and ``pool``
+    the whole batch's pool of 2B worlds.
+    """
     T, B = fppo.rollout_steps, env.agent_r.shape[-1]
     dev = env.agent_r.device
     buf = lambda dtype, *shape: torch.empty((T, *shape), dtype=dtype, device=dev)
@@ -334,8 +378,7 @@ def _collect(cfg: EnvConfig, fppo: FastPPOConfig, params: MLPParams,
         logits, value = apply_policy(params, feat)
         action, log_prob = _sample_action(u[t], logits)
         st, raw, done = rollout_packed_actions(cfg, st, action[None])
-        off = (t * POOL_STRIDE) % B
-        st = _autoreset(st, _pool_slice(pool, off, B), done[0])
+        st = _autoreset(st, _window(pool, t, B, mesh), done[0])
         for dst, src in zip(tr, (feat, action, log_prob, value,
                                  torch.where(raw[0] == cfg.max_steps, win, lose),
                                  done[0], raw[0])):
@@ -377,20 +420,32 @@ def apply_policy_bm(p: MLPParams, feat: torch.Tensor):
     return logits, value
 
 
-def _ppo_loss(fppo: FastPPOConfig, logits, value, batch):
+def shard_mean(n_total: int | None):
+    """The mean over a minibatch: ``Tensor.mean``, or for a shard of a
+    minibatch of ``n_total`` rows, the shard's part of the whole mean."""
+    if n_total is None:
+        return lambda x: x.mean()
+    return lambda x: x.sum() / n_total
+
+
+def _ppo_loss(fppo: FastPPOConfig, logits, value, batch, normalized: bool = False,
+              n_total: int | None = None):
+    """``normalized``: ``batch``'s advantages are normalised already (over
+    the whole minibatch); ``n_total`` as ``shard_mean`` takes it."""
     _, action, old_log_prob, old_value, adv, ret = batch
+    mean = shard_mean(n_total)
     logsm = torch.log_softmax(logits, dim=0)
     onehot = torch.arange(logits.shape[0], device=logits.device)[:, None] == action[None, :]
     log_prob = (onehot * logsm).sum(dim=0)
     ratio = torch.exp(log_prob - old_log_prob)
-    adv_n = fu.normalize_adv(adv)
-    pg = -torch.minimum(
+    adv_n = adv if normalized else fu.normalize_adv(adv)
+    pg = -mean(torch.minimum(
         ratio * adv_n,
         torch.clamp(ratio, 1 - fppo.clip_eps, 1 + fppo.clip_eps) * adv_n,
-    ).mean()
+    ))
     v_clipped = old_value + torch.clamp(value - old_value, -fppo.clip_eps, fppo.clip_eps)
-    v_loss = 0.5 * torch.maximum((value - ret) ** 2, (v_clipped - ret) ** 2).mean()
-    entropy = -(torch.exp(logsm) * logsm).sum(dim=0).mean()
+    v_loss = 0.5 * mean(torch.maximum((value - ret) ** 2, (v_clipped - ret) ** 2))
+    entropy = -mean((torch.exp(logsm) * logsm).sum(dim=0))
     loss = pg + fppo.vf_coef * v_loss - fppo.ent_coef * entropy
     return loss, {"pg_loss": pg, "v_loss": v_loss, "entropy": entropy}
 
@@ -401,10 +456,11 @@ def _loss(fppo: FastPPOConfig, params: MLPParams, batch):
     return _ppo_loss(fppo, logits, value, batch)
 
 
-def _loss_bm(fppo: FastPPOConfig, params: MLPParams, batch):
+def _loss_bm(fppo: FastPPOConfig, params: MLPParams, batch, normalized: bool = False,
+             n_total: int | None = None):
     """The same loss over batch-major ``feat [N, F]``; (loss, aux)."""
     logits, value = apply_policy_bm(params, batch[0])
-    return _ppo_loss(fppo, logits, value, batch)
+    return _ppo_loss(fppo, logits, value, batch, normalized, n_total)
 
 
 def shuffle_block(T: int, B: int, num_minibatches: int) -> int:
@@ -424,51 +480,111 @@ def shuffle_block(T: int, B: int, num_minibatches: int) -> int:
     return cands[-1]
 
 
-def _autograd_grads(fppo: FastPPOConfig, params: MLPParams, batch):
+def _autograd_grads(fppo: FastPPOConfig, params: MLPParams, batch, normalized: bool = False,
+                    n_total: int | None = None):
     """(grads, aux with "loss") by autograd of ``_loss_bm``."""
     with torch.enable_grad():
-        loss, aux = _loss_bm(fppo, params, batch)
+        loss, aux = _loss_bm(fppo, params, batch, normalized, n_total)
         names = list(PARAM_NAMES)
         g = torch.autograd.grad(loss, [getattr(params, k) for k in names])
     aux = {k: v.detach() for k, v in aux.items()}
     return dict(zip(names, g)), {"loss": loss.detach(), **aux}
 
 
-def _update_phase(fppo: FastPPOConfig, ts: FastTrainState, traj: _Traj, adv, ret,
-                  perms: torch.Tensor, use_fused_kernel: bool | None = None):
-    """GAE-to-optimizer tail of one PPO iteration.
+def check_blocks(Bl: int, BLK: int, mesh) -> None:
+    """Raise unless a rank's ``Bl`` envs are whole shuffle blocks of ``BLK``
+    rows (a block must lie on one rank; one process takes any blocks)."""
+    if mesh is not None and mesh.size > 1 and Bl % BLK:
+        raise ValueError(f"a rank's {Bl} envs must be whole shuffle blocks of {BLK} rows "
+                         f"(batch / ranks % {BLK} == 0)")
 
-    ``perms`` int[update_epochs, NB]: each epoch's permutation of the
-    shuffle blocks. ``use_fused_kernel`` None or True takes
-    ``fused_minibatch_grads_indexed`` (the kernel on CUDA, its plain version
-    on the CPU); False takes autograd of ``_loss_bm``. Returns (params,
-    opt_state, losses [E, M], aux dict of [E, M]); params are updated in place.
+
+class Minibatch(NamedTuple):
+    """One minibatch of the update phase, as this rank holds it."""
+
+    featb: torch.Tensor  # bf16[NB_rank, BLK, F]: the rank's trajectory, block by block
+    ids: torch.Tensor  # int64[k]: the rank's blocks of the minibatch, in minibatch order
+    rest: tuple  # (action, old_log_prob, old_value, adv_n, ret), each [k * BLK]
+    n_total: int | None  # the whole minibatch's rows under a mesh of ranks, else None
+
+
+def minibatches(fppo: FastPPOConfig, traj: _Traj, adv, ret, perms: torch.Tensor, mesh=None):
+    """The update phase's minibatches, epoch by epoch, in order.
+
+    ``perms`` int[update_epochs, NB]: each epoch's permutation of the whole
+    batch's shuffle blocks (block ``j`` holds rows ``j * BLK ..`` of the
+    t-major [T * B] rows). The advantages are normalised over the whole
+    minibatch (``adv_n``). Under a mesh of several ranks the rank keeps the
+    blocks in its columns (a block lies on one rank, or this raises), maps
+    them to its own block ids, gathers the whole batch's ``adv`` once, and
+    reads the permutations on the host once.
     """
-    T, B = traj.action.shape
+    T, Bl = traj.action.shape
     F = traj.feat.shape[1]
+    world = 1 if mesh is None else mesh.size
+    B = Bl * world
     BLK = shuffle_block(T, B, fppo.num_minibatches)
-    NB = (T * B) // BLK
-    featb = traj.feat.permute(0, 2, 1).reshape(NB, BLK, F)
-    vecs = tuple(x.reshape(NB, BLK) for x in
-                 (traj.action, traj.log_prob, traj.value, adv, ret))
-    optimizer = make_optimizer(fppo)
-    params, opt_state = ts.params, ts.opt_state
-    nbm = NB // fppo.num_minibatches
-    mb = nbm * BLK
-    losses, auxes = [], []
+    check_blocks(Bl, BLK, mesh)
+    ncb = B // BLK  # the batch's blocks of a step
+    featb = traj.feat.permute(0, 2, 1).reshape(T * Bl // BLK, BLK, F)
+    vecs = tuple(x.reshape(T * Bl // BLK, BLK) for x in (traj.action, traj.log_prob, traj.value, ret))
+    adv_b = (adv if mesh is None else mesh.gather(adv)).reshape(T * B // BLK, BLK)
+    nbm = T * B // BLK // fppo.num_minibatches
+    host = perms.cpu() if world > 1 else None
     for e in range(fppo.update_epochs):
         perm = perms[e].to(torch.int64)
         for i in range(fppo.num_minibatches):
             ids = perm[i * nbm: (i + 1) * nbm]
-            rest = tuple(x[ids].reshape(mb) for x in vecs)
-            if use_fused_kernel is False:
-                grads, aux = _autograd_grads(fppo, params, (featb[ids].reshape(mb, F),) + rest)
-            else:
-                grads, aux = fu.fused_minibatch_grads_indexed(fppo, params, featb, ids, rest)
-            updates, opt_state = optimizer.update(grads, opt_state)
-            apply_updates(params, updates)
-            losses.append(aux.pop("loss"))
-            auxes.append(aux)
+            adv_n = fu.normalize_adv(adv_b[ids].reshape(-1)).view(nbm, BLK)
+            if world > 1:
+                own, ids = mesh.own(host[e, i * nbm: (i + 1) * nbm].to(torch.int64), ncb)
+                ids, adv_n = ids.to(perm.device), adv_n[own.to(perm.device)]
+            action, old_lp, old_v, r = (x[ids].reshape(-1) for x in vecs)
+            yield Minibatch(featb, ids, (action, old_lp, old_v, adv_n.reshape(-1), r),
+                            nbm * BLK if world > 1 else None)
+
+
+def minibatch_grads(fppo: FastPPOConfig, params: MLPParams, mb: Minibatch,
+                    use_fused_kernel: bool | None = None, mesh=None):
+    """(grads, aux with "loss") of one minibatch, summed over the ranks.
+
+    ``use_fused_kernel`` None or True takes ``fused_minibatch_grads_indexed``
+    (the kernel on CUDA, its plain version on the CPU), False autograd of
+    ``_loss_bm``. A rank that holds no block of the minibatch contributes
+    zeros and launches nothing.
+    """
+    if mb.ids.numel() == 0:
+        grads = {k: torch.zeros_like(getattr(params, k)) for k in PARAM_NAMES}
+        aux = {k: torch.zeros((), device=mb.featb.device)
+               for k in ("loss", "pg_loss", "v_loss", "entropy")}
+    elif use_fused_kernel is False:
+        x = mb.featb[mb.ids].reshape(-1, mb.featb.shape[-1])
+        grads, aux = _autograd_grads(fppo, params, (x,) + mb.rest, True, mb.n_total)
+    else:
+        grads, aux = fu.fused_minibatch_grads_indexed(fppo, params, mb.featb, mb.ids, mb.rest,
+                                                      normalized=True, n_total=mb.n_total)
+    grads, aux = sum_over_ranks(mesh, grads, aux)
+    return grads, aux
+
+
+def _update_phase(fppo: FastPPOConfig, ts: FastTrainState, traj: _Traj, adv, ret,
+                  perms: torch.Tensor, use_fused_kernel: bool | None = None, mesh=None):
+    """GAE-to-optimizer tail of one PPO iteration.
+
+    ``perms`` int[update_epochs, NB]: each epoch's permutation of the shuffle
+    blocks (``minibatches``); ``use_fused_kernel`` as ``minibatch_grads``
+    takes it. Returns (params, opt_state, losses [E, M], aux dict of
+    [E, M]); params are updated in place.
+    """
+    optimizer = make_optimizer(fppo)
+    params, opt_state = ts.params, ts.opt_state
+    losses, auxes = [], []
+    for mb in minibatches(fppo, traj, adv, ret, perms, mesh):
+        grads, aux = minibatch_grads(fppo, params, mb, use_fused_kernel, mesh)
+        updates, opt_state = optimizer.update(grads, opt_state)
+        apply_updates(params, updates)
+        losses.append(aux.pop("loss"))
+        auxes.append(aux)
     shape = (fppo.update_epochs, fppo.num_minibatches)
     stack = lambda xs: torch.stack(xs).reshape(shape)
     return (params, opt_state, stack(losses),
@@ -487,37 +603,78 @@ def _fresh_pool(cfg: EnvConfig, generator: torch.Generator, n: int,
     return fresh_packed_fused(cfg, seeds[0], n, seed2=seeds[1])
 
 
-@torch.no_grad()
-def train_step_fast(cfg: EnvConfig, fppo: FastPPOConfig, ts: FastTrainState,
-                    env: PackedState, generator: torch.Generator, *,
-                    fused_pool: bool | None = None, fused_update: bool | None = None):
-    """One PPO iteration on the packed engine; (ts, env, generator, metrics).
+class Rollout(NamedTuple):
+    """What the update phase takes from one iteration's collect."""
 
-    Every draw comes from ``generator``, which must live on the env's
-    device. Metrics are 0-dim tensors on that device.
+    traj: _Traj
+    adv: torch.Tensor  # f32[T, B]
+    ret: torch.Tensor  # f32[T, B]
+    perms: torch.Tensor  # int64[update_epochs, NB], the whole batch's blocks
+
+
+@torch.no_grad()
+def rollout_phase(cfg: EnvConfig, fppo: FastPPOConfig, ts: FastTrainState, env: PackedState,
+                  generator: torch.Generator, *, fused_pool: bool | None = None, mesh=None):
+    """The draws, the collect and GAE of one PPO iteration; (env, Rollout).
+
+    Draws, in order: the pool of 2B worlds, the Gumbel uniforms [T, 6, B],
+    the epoch permutations, all at the whole batch's shapes (under a mesh
+    each rank keeps its columns of the uniforms and windows of the pool).
     """
-    B = env.agent_r.shape[-1]
+    Bl = env.agent_r.shape[-1]
+    B = Bl if mesh is None else Bl * mesh.size
     T = fppo.rollout_steps
-    NB = T * B // shuffle_block(T, B, fppo.num_minibatches)  # raises if shapes don't tile
+    BLK = shuffle_block(T, B, fppo.num_minibatches)  # raises if shapes don't tile
+    check_blocks(Bl, BLK, mesh)
+    NB = T * B // BLK
     pool = _fresh_pool(cfg, generator, 2 * B, fused=fused_pool)
     u = gumbel_uniforms(generator, (T, C.N_ACTIONS, B))
-    env, traj = _collect(cfg, fppo, ts.params, env, pool, u)
+    if mesh is not None:
+        u = u[..., mesh.cols(B)]
+    env, traj = _collect(cfg, fppo, ts.params, env, pool, u, mesh)
     _, last_value = apply_policy(ts.params, features(cfg, env))
     adv, ret = _gae(fppo, traj, last_value)
     perms = torch.stack([torch.randperm(NB, generator=generator, device=generator.device)
                          for _ in range(fppo.update_epochs)])
-    params, opt_state, losses, auxes = _update_phase(
-        fppo, ts, traj, adv, ret, perms, use_fused_kernel=fused_update)
+    return env, Rollout(traj, adv, ret, perms)
 
-    successes = (traj.raw_reward == cfg.max_steps).sum()
-    metrics = {
+
+def rollout_metrics(cfg: EnvConfig, traj, losses, auxes: dict, mesh=None) -> dict:
+    """An iteration's metrics (0-dim tensors): the loss terms' means and the
+    trajectory's rates, whose sums run over every rank's columns."""
+    T, Bl = traj.action.shape
+    n = T * Bl * (1 if mesh is None else mesh.size)
+    sums = torch.stack([traj.reward.sum(), traj.done.sum().to(f32),
+                        (traj.raw_reward == cfg.max_steps).sum().to(f32)])
+    if mesh is not None:
+        mesh.all_reduce(sums)
+    reward, dones, successes = sums
+    return {
         "loss": losses.mean(),
-        "reward_mean": traj.reward.mean(),
-        "episode_done_frac": traj.done.to(f32).mean(),
-        "success_rate": successes / traj.done.sum().clamp_min(1),
-        "success_per_step": successes / (T * B),
+        "reward_mean": reward / n,
+        "episode_done_frac": dones / n,
+        "success_rate": successes / dones.clamp_min(1),
+        "success_per_step": successes / n,
         **{k: v.mean() for k, v in auxes.items()},
     }
+
+
+@torch.no_grad()
+def train_step_fast(cfg: EnvConfig, fppo: FastPPOConfig, ts: FastTrainState,
+                    env: PackedState, generator: torch.Generator, *,
+                    fused_pool: bool | None = None, fused_update: bool | None = None,
+                    mesh=None):
+    """One PPO iteration on the packed engine; (ts, env, generator, metrics).
+
+    Every draw comes from ``generator``, which must live on the env's
+    device. Metrics are 0-dim tensors on that device. Under a ``mesh``
+    (``parallel/sharded_engine.fast_train_step_sharded``), ``env`` is this
+    rank's columns and every rank ends with the same parameters.
+    """
+    env, r = rollout_phase(cfg, fppo, ts, env, generator, fused_pool=fused_pool, mesh=mesh)
+    params, opt_state, losses, auxes = _update_phase(
+        fppo, ts, r.traj, r.adv, r.ret, r.perms, use_fused_kernel=fused_update, mesh=mesh)
+    metrics = rollout_metrics(cfg, r.traj, losses, auxes, mesh)
     return FastTrainState(params, opt_state, ts.update_idx + 1), env, generator, metrics
 
 

@@ -20,6 +20,14 @@ What the port does differently:
 * A policy is a ``torch.nn.Module`` holding its parameters (flax's names and
   layouts, ``models/layers.py``); the optimizer is the hand-written clip +
   Adam of ``train/fast_ppo.py`` on its named parameters, applied in place.
+* Under a ``mesh`` (``parallel/mesh.ppo_train_step_sharded``) a rank steps
+  its own columns of the batch and computes the unsharded step's function:
+  the noise, the fresh worlds of every step and the permutations are drawn
+  at the whole batch's shapes and the rank keeps its columns; minibatch row
+  ``t*B + b`` belongs to rank ``b // (B / world)``; each minibatch's
+  advantages are normalised over all its rows; each rank differentiates its
+  rows' share of the means, and one ``all_reduce`` a minibatch sums the
+  gradients and loss terms before the clip and Adam, run alike on every rank.
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ from gym_craftingworld_tpu_torch.core.rollout import _select
 from gym_craftingworld_tpu_torch.core.state import EnvState
 from gym_craftingworld_tpu_torch.core.step import step
 from gym_craftingworld_tpu_torch.ops.fused_update import normalize_adv
+from gym_craftingworld_tpu_torch.parallel.mesh import sum_over_ranks
 from gym_craftingworld_tpu_torch.render.raster import render_onehot, render_ray
 from gym_craftingworld_tpu_torch.train import fast_ppo
 
@@ -149,12 +158,15 @@ def gumbel(generator: torch.Generator, shape) -> torch.Tensor:
 
 
 def _collect(cfg: EnvConfig, ppo: PPOConfig, apply_fn, params: nn.Module,
-             env_state: EnvState, noise: torch.Tensor, generator: torch.Generator):
+             env_state: EnvState, noise: torch.Tensor, generator: torch.Generator, mesh=None):
     """``rollout_steps`` policy steps with auto-reset; ``noise`` f32[T, B, 6]
     Gumbel draws. Done envs restart from a fresh batch drawn from
-    ``generator`` every step. Returns (env_state, Transition)."""
+    ``generator`` every step. Returns (env_state, Transition). Under a
+    ``mesh``, ``env_state`` and ``noise`` are this rank's columns, and the
+    fresh batch is drawn whole and built for them."""
     T, B = ppo.rollout_steps, env_state.objects.shape[0]
     dev = env_state.objects.device
+    B_all, cols = (B, slice(None)) if mesh is None else (B * mesh.size, mesh.cols(B * mesh.size))
     buf = lambda x: torch.empty((T, *x.shape), dtype=x.dtype, device=dev)
     tr = Transition(Snapshot(*(buf(x) for x in snapshot(env_state))),
                     *(torch.empty((T, B), dtype=d, device=dev)
@@ -168,7 +180,7 @@ def _collect(cfg: EnvConfig, ppo: PPOConfig, apply_fn, params: nn.Module,
         action = torch.argmax(noise[t] + logits, dim=-1).to(torch.int32)
         log_prob = torch.log_softmax(logits, dim=-1).gather(1, action.long()[:, None])[:, 0]
         st, res = step(cfg, st, action)
-        st = _select(res.done, reset(cfg, B, generator, dev), st)
+        st = _select(res.done, reset(cfg, B_all, generator, dev, cols), st)
         for dst, src in zip(tr.obs, obs):
             dst[t] = src
         for dst, src in zip(tr[1:], (action, log_prob, value,
@@ -183,57 +195,99 @@ def _gae(ppo: PPOConfig, traj: Transition, last_value: torch.Tensor):
     return fast_ppo._gae(ppo, traj, last_value)
 
 
-def _ppo_loss(ppo: PPOConfig, apply_fn, params: nn.Module, batch):
+def _ppo_loss(ppo: PPOConfig, apply_fn, params: nn.Module, batch, normalized: bool = False,
+              n_total: int | None = None):
+    """``normalized`` and ``n_total`` as ``train/fast_ppo._ppo_loss`` takes them."""
     obs, action, old_log_prob, old_value, adv, ret = batch
+    mean = fast_ppo.shard_mean(n_total)
     logits, value = apply_fn(params, obs)
     log_probs = torch.log_softmax(logits, dim=-1)
     log_prob = log_probs.gather(1, action.long()[:, None])[:, 0]
     ratio = torch.exp(log_prob - old_log_prob)
-    adv_n = normalize_adv(adv)
-    pg = -torch.minimum(
+    adv_n = adv if normalized else normalize_adv(adv)
+    pg = -mean(torch.minimum(
         ratio * adv_n,
         torch.clamp(ratio, 1 - ppo.clip_eps, 1 + ppo.clip_eps) * adv_n,
-    ).mean()
+    ))
     v_clipped = old_value + torch.clamp(value - old_value, -ppo.clip_eps, ppo.clip_eps)
-    v_loss = 0.5 * torch.maximum((value - ret) ** 2, (v_clipped - ret) ** 2).mean()
-    entropy = -(torch.exp(log_probs) * log_probs).sum(-1).mean()
+    v_loss = 0.5 * mean(torch.maximum((value - ret) ** 2, (v_clipped - ret) ** 2))
+    entropy = -mean((torch.exp(log_probs) * log_probs).sum(-1))
     loss = pg + ppo.vf_coef * v_loss - ppo.ent_coef * entropy
     return loss, {"pg_loss": pg, "v_loss": v_loss, "entropy": entropy}
 
 
-def _grads(ppo: PPOConfig, apply_fn, params: nn.Module, batch):
+def _grads(ppo: PPOConfig, apply_fn, params: nn.Module, batch, normalized: bool = False,
+           n_total: int | None = None):
     """(grads by parameter name, aux with "loss") by autograd of ``_ppo_loss``."""
     named = dict(params.named_parameters())
     with torch.enable_grad():
-        loss, aux = _ppo_loss(ppo, apply_fn, params, batch)
+        loss, aux = _ppo_loss(ppo, apply_fn, params, batch, normalized, n_total)
         g = torch.autograd.grad(loss, list(named.values()))
     return dict(zip(named, g)), {"loss": loss.detach(),
                                  **{k: v.detach() for k, v in aux.items()}}
 
 
-def _update_phase(ppo: PPOConfig, apply_fn, ts: TrainState, traj: Transition, adv, ret,
-                  perms: torch.Tensor):
-    """The minibatched updates of one iteration. ``perms`` int[update_epochs,
-    T*B]: each epoch's permutation of the rows. Returns (params, opt_state,
-    losses [E, M], aux dict of [E, M]); params are updated in place."""
-    T, B = traj.action.shape
-    merge = lambda x: x.reshape((T * B,) + x.shape[2:])
+def minibatches(ppo: PPOConfig, traj: Transition, adv, ret, perms: torch.Tensor, mesh=None):
+    """The update phase's minibatches in order, as (batch, n_total).
+
+    ``perms`` int[update_epochs, T*B]: each epoch's permutation of the whole
+    batch's rows (row ``t*B + b``). ``batch`` = (snapshots, action,
+    old_log_prob, old_value, adv_n, ret) of this rank's rows of the
+    minibatch, in minibatch order, the advantages normalised over all of its
+    rows; ``n_total`` the minibatch's rows under a mesh of several ranks,
+    else None. Under such a mesh the whole batch's ``adv`` is gathered once
+    and the permutations read on the host once.
+    """
+    T, Bl = traj.action.shape
+    world = 1 if mesh is None else mesh.size
+    B = Bl * world
+    merge = lambda x: x.reshape((T * Bl,) + x.shape[2:])
     flat = (Snapshot(*(merge(x) for x in traj.obs)),) + tuple(
-        merge(x) for x in (traj.action, traj.log_prob, traj.value, adv, ret))
+        merge(x) for x in (traj.action, traj.log_prob, traj.value, ret))
+    adv_all = (adv if mesh is None else mesh.gather(adv)).reshape(T * B)
     mb_size = T * B // ppo.num_minibatches
-    optimizer = make_optimizer(ppo)
-    params, opt_state = ts.params, ts.opt_state
-    losses, auxes = [], []
+    host = perms.cpu() if world > 1 else None
     for e in range(ppo.update_epochs):
         perm = perms[e].to(torch.int64)
         for i in range(ppo.num_minibatches):
             idx = perm[i * mb_size: (i + 1) * mb_size]
-            batch = (Snapshot(*(x[idx] for x in flat[0])),) + tuple(x[idx] for x in flat[1:])
-            grads, aux = _grads(ppo, apply_fn, params, batch)
-            updates, opt_state = optimizer.update(grads, opt_state)
-            fast_ppo.apply_updates(params, updates)
-            losses.append(aux.pop("loss"))
-            auxes.append(aux)
+            adv_n = normalize_adv(adv_all[idx])
+            if world > 1:  # a row is a block of one
+                own, idx = mesh.own(host[e, i * mb_size: (i + 1) * mb_size].to(torch.int64), B)
+                idx, adv_n = idx.to(perm.device), adv_n[own.to(perm.device)]
+            obs, action, old_lp, old_v, r = flat
+            yield ((Snapshot(*(x[idx] for x in obs)), action[idx], old_lp[idx], old_v[idx],
+                    adv_n, r[idx]), mb_size if world > 1 else None)
+
+
+def minibatch_grads(ppo: PPOConfig, apply_fn, params: nn.Module, batch,
+                    n_total: int | None = None, mesh=None):
+    """(grads, aux with "loss") of one minibatch from ``minibatches``, summed
+    over the ranks; a rank with no rows of it contributes zeros."""
+    if batch[1].numel() == 0:
+        grads = {k: torch.zeros_like(p) for k, p in params.named_parameters()}
+        aux = {k: torch.zeros((), device=batch[1].device)
+               for k in ("loss", "pg_loss", "v_loss", "entropy")}
+    else:
+        grads, aux = _grads(ppo, apply_fn, params, batch, True, n_total)
+    grads, aux = sum_over_ranks(mesh, grads, aux)
+    return grads, aux
+
+
+def _update_phase(ppo: PPOConfig, apply_fn, ts: TrainState, traj: Transition, adv, ret,
+                  perms: torch.Tensor, mesh=None):
+    """The minibatched updates of one iteration. ``perms`` int[update_epochs,
+    T*B]: each epoch's permutation of the rows. Returns (params, opt_state,
+    losses [E, M], aux dict of [E, M]); params are updated in place."""
+    optimizer = make_optimizer(ppo)
+    params, opt_state = ts.params, ts.opt_state
+    losses, auxes = [], []
+    for batch, n_total in minibatches(ppo, traj, adv, ret, perms, mesh):
+        grads, aux = minibatch_grads(ppo, apply_fn, params, batch, n_total, mesh)
+        updates, opt_state = optimizer.update(grads, opt_state)
+        fast_ppo.apply_updates(params, updates)
+        losses.append(aux.pop("loss"))
+        auxes.append(aux)
     shape = (ppo.update_epochs, ppo.num_minibatches)
     stack = lambda xs: torch.stack(xs).reshape(shape)
     return (params, opt_state, stack(losses),
@@ -241,26 +295,48 @@ def _update_phase(ppo: PPOConfig, apply_fn, ts: TrainState, traj: Transition, ad
 
 
 @torch.no_grad()
-def train_step(cfg: EnvConfig, ppo: PPOConfig, ts: TrainState, env_state: EnvState,
-               generator: torch.Generator):
-    """One PPO iteration: rollout -> GAE -> minibatched clipped updates;
-    (ts, env_state, generator, metrics). Every draw comes from
-    ``generator``, on the env's device: the Gumbel noise, the auto-reset
-    worlds, the epoch permutations."""
+def rollout_phase(cfg: EnvConfig, ppo: PPOConfig, ts: TrainState, env_state: EnvState,
+                  generator: torch.Generator, mesh=None):
+    """The draws, the collect and GAE of one iteration; (env_state, (traj,
+    adv, ret, perms)). Draws, in order: the Gumbel noise [T, B, 6], each
+    step's fresh worlds, the epoch permutations, at the whole batch's shapes."""
     _, apply_fn = make_policy(ppo)
-    T, B = ppo.rollout_steps, env_state.objects.shape[0]
+    T, Bl = ppo.rollout_steps, env_state.objects.shape[0]
+    B = Bl if mesh is None else Bl * mesh.size
     noise = gumbel(generator, (T, B, C.N_ACTIONS))
-    env_state, traj = _collect(cfg, ppo, apply_fn, ts.params, env_state, noise, generator)
+    if mesh is not None:
+        noise = noise[:, mesh.cols(B)]
+    env_state, traj = _collect(cfg, ppo, apply_fn, ts.params, env_state, noise, generator, mesh)
     _, last_value = apply_fn(ts.params, snapshot(env_state))
     adv, ret = _gae(ppo, traj, last_value)
     perms = torch.stack([torch.randperm(T * B, generator=generator, device=generator.device)
                          for _ in range(ppo.update_epochs)])
-    params, opt_state, losses, auxes = _update_phase(ppo, apply_fn, ts, traj, adv, ret, perms)
+    return env_state, (traj, adv, ret, perms)
+
+
+@torch.no_grad()
+def train_step(cfg: EnvConfig, ppo: PPOConfig, ts: TrainState, env_state: EnvState,
+               generator: torch.Generator, mesh=None):
+    """One PPO iteration: rollout -> GAE -> minibatched clipped updates;
+    (ts, env_state, generator, metrics). Every draw comes from
+    ``generator``, on the env's device: the Gumbel noise, the auto-reset
+    worlds, the epoch permutations. Under a ``mesh`` ``env_state`` is this
+    rank's columns and the metrics' sums run over every rank."""
+    _, apply_fn = make_policy(ppo)
+    env_state, (traj, adv, ret, perms) = rollout_phase(cfg, ppo, ts, env_state, generator, mesh)
+    params, opt_state, losses, auxes = _update_phase(ppo, apply_fn, ts, traj, adv, ret, perms,
+                                                     mesh)
+    T, Bl = traj.action.shape
+    n = T * Bl * (1 if mesh is None else mesh.size)
+    sums = torch.stack([traj.reward.sum(), traj.done.sum().to(f32), (traj.reward > 0.5).sum().to(f32)])
+    if mesh is not None:
+        mesh.all_reduce(sums)
+    reward, dones, successes = sums
     metrics = {
         "loss": losses.mean(),
-        "reward_mean": traj.reward.mean(),
-        "episode_done_frac": traj.done.to(f32).mean(),
-        "success_rate": (traj.reward > 0.5).sum() / traj.done.sum().clamp_min(1),
+        "reward_mean": reward / n,
+        "episode_done_frac": dones / n,
+        "success_rate": successes / dones.clamp_min(1),
         **{k: v.mean() for k, v in auxes.items()},
     }
     return TrainState(params, opt_state, ts.update_idx + 1), env_state, generator, metrics

@@ -75,7 +75,11 @@ def test_import_pulls_in_no_jax():
             "gym_craftingworld_tpu_torch.interop, gym_craftingworld_tpu_torch.train.ppo, "
             "gym_craftingworld_tpu_torch.train.evaluate, gym_craftingworld_tpu_torch.agents.expert, "
             "gym_craftingworld_tpu_torch.train.ppo_rnn, gym_craftingworld_tpu_torch.train.bc, "
-            "gym_craftingworld_tpu_torch.train.dagger, gym_craftingworld_tpu_torch.models.cpv\n"
+            "gym_craftingworld_tpu_torch.train.dagger, gym_craftingworld_tpu_torch.models.cpv, "
+            "gym_craftingworld_tpu_torch.parallel.sharded_engine, "
+            "gym_craftingworld_tpu_torch.parallel.dryrun, gym_craftingworld_tpu_torch.train.run, "
+            "gym_craftingworld_tpu_torch.train.checkpoint, "
+            "gym_craftingworld_tpu_torch.utils.profiling\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'gym_craftingworld_tpu')]\n"
             "assert not bad, bad")
@@ -138,10 +142,26 @@ def test_interop_converters_default_to_the_card():
                      "env_state_from_numpy", "grid_actor_critic_from_numpy",
                      "grid_policy_from_numpy", "mlp_params_from_numpy", "packed_state_from_numpy",
                      "pixel_actor_critic_from_numpy", "pixel_distill_student_from_numpy",
+                     "ppo_train_state_from_numpy",
                      "recurrent_actor_critic_from_numpy", "rnn_train_state_from_numpy",
                      "slot_state_from_numpy", "tslot_state_from_numpy"]
     for n in names:
         assert inspect.signature(getattr(interop, n)).parameters["device"].default == "cuda", n
+
+
+def test_multi_device_entry_points_default_to_the_card():
+    """The mesh, the training command line and the dry run put their work on
+    the card unless the caller asks for the CPU."""
+    import inspect
+
+    from gym_craftingworld_tpu_torch.parallel import dryrun, mesh
+    from gym_craftingworld_tpu_torch.train import run
+
+    assert inspect.signature(mesh.make_env_mesh).parameters["device"].default is None
+    assert "torch.device(\"cuda\" if device is None else device)" in inspect.getsource(
+        mesh.make_env_mesh)
+    for module in (run, dryrun):
+        assert 'default="cuda"' in inspect.getsource(module.main), module
 
 
 def test_imitation_entry_points_default_to_the_card():
