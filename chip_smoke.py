@@ -5,6 +5,8 @@
     python3 chip_smoke.py --gemm-core   # phases 1, 9a and 9 only
     python3 chip_smoke.py --imitation   # the card's name, then phases 19 and 20
     python3 chip_smoke.py --multi-device  # phases 1 and 21 only
+    python3 chip_smoke.py --ladder      # phases 1 and 11-13 only (with
+                                        # --multi-device: 1, 11-13 and 21)
 
 Needs one CUDA card and ``nvcc`` (on PATH or under CUDA_HOME); imports
 nothing of JAX. Phases, each of which must pass:
@@ -62,7 +64,10 @@ nothing of JAX. Phases, each of which must pass:
    kernels must have run once each and no plain version at all;
 12. the three slot kernels against their plain versions (bit-exact) on 21x21
    at B=16,384, on 8x8 with pickups and drops, on a ragged batch, from the
-   ladder's final state, and from synthetic states no reset reaches;
+   ladder's final state, and from synthetic states no reset reaches; the
+   actions kernel also at the edges of its ring of actions loaded ahead
+   (T = 1, ``SLOT_AHEAD`` - 1, ``SLOT_AHEAD`` + 1 and 256) on 21x21 at
+   B=16,421, on 8x8 and on 181x181;
 13. ladder timings with CUDA events: each slot kernel against its plain
    version, with its device time at T=256 (as phase 5 takes it) and share of
    its bound, env-steps/s of the seeded slot kernels beside the packed bench
@@ -89,9 +94,14 @@ nothing of JAX. Phases, each of which must pass:
    minibatches) and at ``throughput()`` (conv 16/32, hidden 192, stride 3, 1
    epoch x 8); the actions kernel must have run 192 times, no other kernel
    and no plain version; then ``render_grid_obs`` on the card equal to the
-   CPU's byte for byte, ``apply_pixel_policy`` and one minibatch's loss and
-   gradient within the CPU tests' tolerances, and the times (CUDA events,
-   median of 5): ms per update, pool, collect, GAE, update phase, peak memory;
+   CPU's byte for byte, ``apply_pixel_policy`` (whole and in the collect's
+   chunks) and one minibatch's loss and gradient within the CPU tests'
+   tolerances, the collect's policy step from its CUDA graph equal to its
+   chunks called one by one, which layers' rows depend on the call's width,
+   and the times (CUDA events, median of 5): ms per update, pool, collect
+   (also with the chunks called one by one and in one call of the whole
+   batch), one policy step by kernel in each of those three ways, GAE,
+   update phase, peak memory;
 18. the policy families: ``ActorCritic``, ``PixelActorCritic``,
    ``PixelDistillStudent`` and ``GridActorCritic`` on the card against the
    CPU on the same parameters (carried by ``interop``); one ``train/ppo.py``
@@ -121,8 +131,9 @@ nothing of JAX. Phases, each of which must pass:
    with its collect and first minibatch's gradient) and one default pixel-PPO
    update, over two ranks sharing the card under gloo (``torchrun``, this
    script with ``--rank-worker``; a rank that fails fails the phase) and over
-   one rank under NCCL in this process: rows 1-2 and both trajectories bit
-   for bit, gradients and losses within ``MD_*_TOL``, per rank the pool,
+   one rank under NCCL in this process: rows 1-2, both trajectories and both
+   final envs bit for bit, both trainers' first-minibatch gradients, loss
+   terms and update metrics within ``MD_*_TOL``, per rank the pool,
    actions and indexed-gradient kernels 1, 64 and at most 16 times and no
    plain version; the sharded update's ms and its ``all_reduce`` share;
    ``train/run.py`` under torchrun (4,096 envs, mlp hidden 512), 4 updates
@@ -136,9 +147,11 @@ Each kernel's ``bound_ms`` is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its operations over the peak:
 989 TFLOP/s bf16 for the gradient, and for the integer kernels the two-rate
 issue bound of the SASS instructions a warp issues on the run's path
-(``parse_nvdisasm``: a branch on the data takes its shorter side) on each of
-132 x 4 schedulers at the max SM clock: one warp-instruction a clock, and one
-on the integer pipe every second clock (``pipe_bound_ms``). The single-rate
+(``parse_nvdisasm``: a branch on the data takes its shorter side), less the
+moves, compare and index of an actions kernel's ring of loads ahead (``AHEAD``:
+the function's work, not the ring's), on each of 132 x 4 schedulers at the
+max SM clock: one warp-instruction a clock, and one on the integer pipe every
+second clock (``pipe_bound_ms``). The single-rate
 bound (``instruction_bound_ms``) is printed beside it.
 """
 
@@ -318,6 +331,11 @@ SM_CLOCK_HZ = 0.0
 # tests and Philox-group test (at 21x21 every group of 32 lanes holds a cell).
 # A branch on any other source line depends on the data.
 ENTERED = re.compile(r"t0 \+ j < T|g < pg|lane [<>]=? 4|lane == p")
+# Source lines of an actions kernel's ring of actions loaded ahead. Their
+# moves, compare and index are how the kernel hides its load, not work of the
+# function it computes, so the bounds count only their loads: a deeper ring
+# does not raise the bound the kernel is held to.
+AHEAD = re.compile(r"\bring\[|const int ahead\b")
 
 
 # Pipe classes of the SASS a warp issues, after NVIDIA's Hopper white paper
@@ -354,7 +372,9 @@ class SassPaths:
     """One kernel's SASS instructions (NOPs left out), counted statically and
     on the path a warp issues: before its outermost loop, in one trip of the
     loop, and after it; ``pipes`` splits the path by ``PIPES`` class,
-    ``{class: (pro, body, epi)}``."""
+    ``{class: (pro, body, epi)}``, and counts under ``"ahead"`` (and
+    ``"ahead_int"``, those on the integer pipe) the instructions of ``AHEAD``
+    lines that the bounds leave out."""
 
     static: int
     static_body: int
@@ -446,8 +466,12 @@ def _paths(ins, labels, line_text) -> SassPaths:
         m = re.match(r"@(!?U?P\w+)\s+(.*)", op)
         cond, op = (m.group(1) not in ("PT", "UPT"), m.group(2)) if m else (False, op)
         mnem = op.split()[0]
-        # (all, int, fma, mem, other): one instruction of its class
-        unit.append((1,) + tuple(int(pipe_of(op) == p) for p in PIPES))
+        # (all, int, fma, mem, other, ahead, ahead_int): one instruction of
+        # its class, and whether the bounds leave it out
+        pipe = pipe_of(op)
+        ahead = bool(where and AHEAD.search(line_text(where))) and pipe != "mem"
+        unit.append((1,) + tuple(int(pipe == p) for p in PIPES)
+                    + (int(ahead), int(ahead and pipe == "int")))
         entered.append(bool(where and ENTERED.search(line_text(where))))
         if mnem.startswith(("EXIT", "RET")):
             succ.append([end, i + 1] if cond else [end])
@@ -463,7 +487,7 @@ def _paths(ins, labels, line_text) -> SassPaths:
             succ.append([i + 1])
 
     add = lambda a, b: tuple(x + y for x, y in zip(a, b))
-    zero = (0,) * (1 + len(PIPES))
+    zero = (0,) * (3 + len(PIPES))
 
     def walk(start, stop):
         """Counts (all, then by pipe) of the path from ``start`` to the exit,
@@ -488,7 +512,8 @@ def _paths(ins, labels, line_text) -> SassPaths:
         pro = tuple(x - u for x, u in zip(walk(0, head), unit[head])) if head else zero
         body, epi, static_body = walk(head, latch), walk(latch + 1, None), latch - head + 1
     return SassPaths(end, static_body, pro[0], body[0], epi[0],
-                     {p: (pro[k], body[k], epi[k]) for k, p in enumerate(PIPES, 1)})
+                     {p: (pro[k], body[k], epi[k])
+                      for k, p in enumerate(PIPES + ("ahead", "ahead_int"), 1)})
 
 
 def sass_of(kernel: str) -> SassPaths:
@@ -500,18 +525,21 @@ def sass_of(kernel: str) -> SassPaths:
 def instruction_bound_ms(kernel: str, warps: int, trips: int) -> float:
     """Least time at one warp-instruction a clock on every scheduler: ``warps``
     warps, each issuing the kernel's path (``parse_nvdisasm``) with ``trips``
-    trips of its outermost loop."""
+    trips of its outermost loop, less its ``AHEAD`` instructions."""
     p = sass_of(kernel)
-    return warps * (p.pro + p.body * trips + p.epi) / (SMS * SCHEDULERS * SM_CLOCK_HZ) * 1e3
+    issued = p.pro + p.body * trips + p.epi - p.on_pipe("ahead", trips)
+    return warps * issued / (SMS * SCHEDULERS * SM_CLOCK_HZ) * 1e3
 
 
 def pipe_bound_ms(kernel: str, warps: int, trips: int) -> float:
     """The two-rate issue bound: each scheduler issues at most one
     warp-instruction a clock, and one on the integer pipe every second clock
     (16 INT32 lanes a sub-partition), so a warp's path takes at least
-    max(all, 2 x integer-pipe) clocks of its scheduler."""
+    max(all, 2 x integer-pipe) clocks of its scheduler, its ``AHEAD``
+    instructions left out of both."""
     p = sass_of(kernel)
-    clocks = max(p.on_pipe("int", trips) * 2, p.pro + p.body * trips + p.epi)
+    clocks = max((p.on_pipe("int", trips) - p.on_pipe("ahead_int", trips)) * 2,
+                 p.pro + p.body * trips + p.epi - p.on_pipe("ahead", trips))
     return warps * clocks / (SMS * SCHEDULERS * SM_CLOCK_HZ) * 1e3
 
 
@@ -713,18 +741,24 @@ def main() -> int:
     for k in SASS:
         if any(n in k for n in integer):
             p = SASS[k]
-            trip_int = p.pipes["int"][1]
+            trip_int, ahead, ahead_int = p.pipes["int"][1], p.pipes["ahead"], p.pipes["ahead_int"]
             print(f"{tag} {k} path by pipe (before the loop, a trip, after): {pipe_line(k)}; "
                   f"a trip issues {p.body} at one a clock, {2 * trip_int} clocks of the integer "
-                  f"pipe at one every second clock")
+                  f"pipe at one every second clock" + (
+                      f"; left out of its bounds, its ring of actions loaded ahead (AHEAD lines) "
+                      f"{ahead}, {ahead_int} of them on the integer pipe" if any(ahead) else ""))
     pipe_probe(tag)
     torch.backends.cuda.matmul.allow_tf32 = False  # plain f32 products in full f32
     if "--gemm-core" in sys.argv[1:]:  # phase 9a alone: the first check of a new core
         gemm_core_phase(dev, tag)
         gradient_phase(cw, dev, tag)
         return 0
-    if "--multi-device" in sys.argv[1:]:  # phase 21 alone
-        multi_device_phase(cw, dev, tag)
+    alone = [a for a in ("--ladder", "--multi-device") if a in sys.argv[1:]]
+    if alone:  # phases 11-13 and/or 21 alone
+        if "--ladder" in alone:
+            ladder_phases(cw, dev, tag)
+        if "--multi-device" in alone:
+            multi_device_phase(cw, dev, tag)
         return 0
 
     cfg = cw.ray_config()
@@ -1540,6 +1574,29 @@ def ladder_phases(cw, dev, tag):
               f"{int((got[1] == cfg_.max_steps).sum())}, achieved bits {int(got[0].achieved.sum())}, "
               f"removed slots {int((got[0].slot_stat == sm.REMOVED).sum())}")
 
+    # the actions kernel where its ring of actions loaded ahead can go wrong:
+    # fewer steps than the ring, one either side of its depth, and long
+    ring_T = sorted({t for t in (1, fr.SLOT_AHEAD - 1, fr.SLOT_AHEAD + 1, 256) if t >= 1})
+    big = cw.ray_config(height=181, width=181)
+    for label, cfg_, B_, mix in (("21x21 ragged", cfg, B + 37, False),
+                                 ("8x8 mix", cw.flat_config(reward_equal=False), B_SMALL, True),
+                                 ("181x181 mix", big, B_SMALL, True)):
+        sl = sm.from_env_state(cw.reset_from_seed(cfg_, 32, B_, device=dev))
+        errs = {}
+        for T in ring_T:
+            gen.manual_seed(78 + T)
+            actions = torch.randint(0, 6, (T, B_), generator=gen, device=dev, dtype=torch.int32)
+            if mix:
+                t = torch.arange(T, device=dev)[:, None]
+                actions = torch.where(t % 7 == 6, 4, torch.where(t % 11 == 10, 5, actions % 4))
+                actions = actions.to(torch.int32).contiguous()
+            errs[T] = compare("fused_rollout_actions", fr.rollout_slots_actions(cfg_, sl, actions),
+                              fr.rollout_slots_actions_plain(cfg_, sl, actions))
+        check(all(e == 0 for e in errs.values()),
+              f"actions kernel bit-exact at the ring's edges, tolerance 0 ({label}: {errs})")
+        print(f"{tag} actions kernel == plain at the edges of its ring (SLOT_AHEAD "
+              f"{fr.SLOT_AHEAD}): {label} {cfg_.height}x{cfg_.width} B={B_}; max |err| by T {errs}")
+
     # ---- 13. ladder timings ----------------------------------------------------
     sl = sm.from_env_state(cw.reset_from_seed(cfg, 41, B, device=dev))
     ts = tr.transpose_in(sl)
@@ -1894,10 +1951,32 @@ def rel_l2(got, want) -> float:
     return float((got.float() - want.float()).norm() / want.float().norm())
 
 
+def width_dependence(p, grid, bits, stride1: int) -> dict:
+    """{layer: whether rows 0:2048 of its output at 8,192 and at 4,096 rows
+    equal those of one call on all of ``grid``'s rows}, each layer of
+    ``fast_pixel_ppo.apply_pixel_policy`` fed the full call's input."""
+    from gym_craftingworld_tpu_torch.models.layers import conv_nhwc
+
+    bf16 = torch.bfloat16
+    layers = (("conv1", lambda x: torch.relu(conv_nhwc(x, p.k1, (stride1, stride1)) + p.b1.to(bf16))),
+              ("conv2", lambda x: torch.relu(conv_nhwc(x, p.k2, (2, 2)) + p.b2.to(bf16))),
+              ("w1", lambda x: torch.relu(x.float() @ p.w1.to(bf16).float() + p.bd).to(bf16)),
+              ("wl", lambda h: h @ p.wl.to(bf16)), ("wv", lambda h: h @ p.wv.to(bf16)))
+    out, x = {}, grid
+    with torch.no_grad():
+        for name, f in layers:
+            if name == "w1":
+                x = torch.cat([x.reshape(x.shape[0], -1), bits], dim=-1)
+            whole = f(x)
+            out[name] = all(torch.equal(f(x[:w])[:2048], whole[:2048]) for w in (8192, 4096))
+            x = whole if name in ("conv1", "conv2", "w1") else x  # the heads read h
+    return out
+
+
 def kernel_breakdown(fn, top: int = 8):
     """Device time of one ``fn()`` call by kernel (``torch.profiler``, after a
-    warm-up call): (total ms, span ms by CUDA events, [(name, ms, launches)]
-    of the ``top`` kernels)."""
+    warm-up call): (total ms, span ms by CUDA events, launches, [(name, ms,
+    launches)] of the ``top`` kernels)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1910,7 +1989,7 @@ def kernel_breakdown(fn, top: int = 8):
         torch.cuda.synchronize()
     rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
                    if "CUDA" in str(e.device_type)), key=lambda r: -r[1])
-    return sum(r[1] for r in rows), start.elapsed_time(end), rows[:top]
+    return sum(r[1] for r in rows), start.elapsed_time(end), sum(r[2] for r in rows), rows[:top]
 
 
 def pixel_ppo_phases(cw, dev, tag):
@@ -1973,9 +2052,23 @@ def pixel_ppo_phases(cw, dev, tag):
         with torch.no_grad():
             card_out = fx.apply_pixel_policy(ts.params, *card_obs, ppo.stride1)
             host_out = fx.apply_pixel_policy(host_params, *host_obs, ppo.stride1)
+            card_tb = fx._policy_tb(ts.params, cfg, env, ppo.stride1)  # the collect's graph
+            card_chunks = fx._policy_tb(ts.params, cfg, env, ppo.stride1, chunk=fx.POLICY_CHUNK)
+        check(all(torch.equal(a, b) for a, b in zip(card_tb, card_chunks)),
+              f"the collect's policy step replayed from its CUDA graph == the same chunks "
+              f"called one by one, bit for bit ({preset})")
         err_fwd = max(float((a.cpu() - b).abs().max()) for a, b in zip(card_out, host_out))
         check(all(torch.allclose(a.cpu(), b, rtol=2e-2, atol=2e-2) for a, b in zip(card_out, host_out)),
               f"apply_pixel_policy card vs CPU within rtol 2e-2 / atol 2e-2 ({err_fwd:.3e})")
+        host_tb = (host_out[0].T, host_out[1])
+        err_chunk = max(float((a.cpu() - b).abs().max()) for a, b in zip(card_tb, host_tb))
+        check(all(torch.allclose(a.cpu(), b, rtol=2e-2, atol=2e-2) for a, b in zip(card_tb, host_tb)),
+              f"the collect's chunked policy ({fx.POLICY_CHUNK} rows a call) card vs CPU within "
+              f"rtol 2e-2 / atol 2e-2 ({err_chunk:.3e})")
+        print(f"{tag} pixel PPO {preset}: rows 0:2048 of each layer's output at B=8,192 / 4,096 "
+              f"equal to those of one call at B={B} (layer by layer, on one call's inputs): "
+              + ", ".join(f"{k} {v}" for k, v in width_dependence(ts.params, *card_obs,
+                                                                  ppo.stride1).items()))
         n = GRAD_ROWS
         rows = type(env)(*(x[..., :n] for x in env))
         draws = (torch.randint(0, 6, (n,), generator=gen, device=dev, dtype=torch.int32),
@@ -1991,7 +2084,8 @@ def pixel_ppo_phases(cw, dev, tag):
         err_grad = max(rel_l2(g_card[k].cpu(), g_host[k]) for k in g_host)
         check(err_grad <= 2e-2, f"each gradient card vs CPU within 2e-2 relative L2 ({err_grad:.3e})")
         print(f"{tag} pixel PPO {preset} card vs CPU: render_grid_obs byte for byte at B={B}; "
-              f"apply_pixel_policy max abs {err_fwd:.3e}; on {n} rows loss terms max abs "
+              f"apply_pixel_policy max abs {err_fwd:.3e}, in the collect's chunks "
+              f"{err_chunk:.3e}; on {n} rows loss terms max abs "
               f"{err_loss:.3e}, gradients max relative L2 {err_grad:.3e}")
         del card_obs, host_obs, host_env
 
@@ -2007,9 +2101,22 @@ def pixel_ppo_phases(cw, dev, tag):
         pool = fx.fresh_packed_batch(cfg, gen, 2 * B)
         u = fx.gumbel_uniforms(gen, (T, 6, B))
         with torch.no_grad():
-            ms_collect = time_ms(lambda: fx._collect_pixel(cfg, ppo, state["ts"].params, env0, pool, u))
+            # the collect's policy step: replayed from its CUDA graph (as
+            # training runs it), its chunks called one by one, one call of B
+            params = state["ts"].params
+            ms_collect, ms_collect_chunks, ms_collect_whole = (
+                time_ms(lambda: fx._collect_pixel(cfg, ppo, params, env0, pool, u, chunk=c))
+                for c in (None, fx.POLICY_CHUNK, B))
+            steps = {c: kernel_breakdown(lambda: fx._policy_tb(params, cfg, env0, ppo.stride1, c))
+                     for c in (None, fx.POLICY_CHUNK, B)}
+            print(f"{tag} pixel PPO {preset} B={B}, one policy step of the collect (render and "
+                  f"forward; torch.profiler device time in a CUDA-event span): " + "; ".join(
+                      f"{what} {steps[c][0]:.3f} ms of device time in {steps[c][1]:.3f} ms, idle "
+                      f"{1 - steps[c][0] / steps[c][1]:.1%}, {steps[c][2]} launches" for what, c in (
+                          ("graph", None), (f"chunks of {fx.POLICY_CHUNK}", fx.POLICY_CHUNK),
+                          (f"one call of {B}", B))))
             _, traj = fx._collect_pixel(cfg, ppo, state["ts"].params, env0, pool, u)
-            _, lv = fx._policy_tb(state["ts"].params, cfg, env0, ppo.stride1)
+            _, lv = fx._policy_tb(params, cfg, env0, ppo.stride1)
             ms_gae = time_ms(lambda: fx._gae(ppo.as_fast, traj, lv))
             adv, ret = fx._gae(ppo.as_fast, traj, lv)
         NB = T * B // fx.BLK
@@ -2024,17 +2131,19 @@ def pixel_ppo_phases(cw, dev, tag):
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated(dev)
         if preset == "default":
-            total, span, rows = kernel_breakdown(step)
+            total, span, _, rows = kernel_breakdown(step)
             print(f"{tag} pixel PPO default, one update by kernel (torch.profiler): device "
                   f"{total:.2f} ms in a {span:.2f} ms span (CUDA events), idle share "
                   f"{1 - total / span:.1%}; top kernels: " + "; ".join(
                       f"{name[:70]} {ms:.2f} ms x{n} ({ms / total:.1%})" for name, ms, n in rows))
         print(f"{tag} pixel PPO {preset} B={B}: {ms_update:.2f} ms per update "
               f"({B * T / (ms_update / 1e3):.4e} env-steps/s of the full loop; median of 5, CUDA "
-              f"events); stages: pool {ms_pool:.3f} ms, collect {ms_collect:.2f} ms, GAE "
+              f"events); stages: pool {ms_pool:.3f} ms, collect {ms_collect:.2f} ms (policy in "
+              f"chunks of {fx.POLICY_CHUNK} from a CUDA graph; {ms_collect_chunks:.2f} ms with the "
+              f"chunks called one by one, {ms_collect_whole:.2f} ms in one call of {B}), GAE "
               f"{ms_gae:.3f} ms, update phase {ms_upd:.2f} ms; peak device memory of one update "
               f"{peak / 2**30:.3f} GiB (torch.cuda.max_memory_allocated)")
-        del state, env, ts, env0, pool
+        del state, env, ts, env0, pool, params
 
 
 def policy_families_phase(cw, dev, tag):
@@ -2463,9 +2572,10 @@ def recurrent_phase(cw, dev, tag):
 MD_SEED, MD_STREAM_SEED = 21, 22  # the bench's and the action slab's Philox seeds
 MD_WORLD = 2  # ranks that share the one card under gloo
 RUN_ENVS, RUN_UPDATES = 4096, 4  # run.py's check: 4 updates, a checkpoint at 2
-# the sharded fast-PPO update against the unsharded one (only the order of the
-# sums over the ranks differs): each gradient's relative L2, the first
-# minibatch's loss terms and the update's metrics (rtol, atol)
+# the sharded fast- and pixel-PPO updates against the unsharded ones (only the
+# order of the sums over the ranks, and the update phase's per-rank widths,
+# differ): each gradient's relative L2, the first minibatch's loss terms and the
+# update's metrics (rtol, atol)
 MD_GRAD_TOL = {"fast": 1e-4, "pixel": 1e-2}
 MD_LOSS_TOL = (1e-4, 1e-6)
 MD_METRIC_TOL = (1e-3, 1e-5)
@@ -2647,21 +2757,17 @@ def md_equal(got, want, what: str) -> None:
 
 def md_compare(name: str, got: dict, ref: dict, tag: str) -> None:
     """Hold one world's results (whole-batch columns) to the unsharded run's:
-    rows 1-2 and fast PPO's trajectory bit for bit, the gradients, losses and
-    metrics of both trainers within ``MD_*_TOL``. Pixel PPO's trajectory is
-    compared and reported: its convolutions are cuDNN's, whose algorithm may
-    differ with the batch's width."""
+    rows 1-2 and both trainers' trajectories and final envs bit for bit, their
+    first-minibatch gradients, loss terms and update metrics within
+    ``MD_*_TOL``."""
     md_equal(got["bench"][0], ref["bench"][0], f"{name} bench final state")
     check(int(got["bench"][1]) == int(ref["bench"][1]),
           f"{name} bench checksum {int(got['bench'][1])} == {int(ref['bench'][1])}")
     md_equal(got["actions"], ref["actions"], f"{name} actions kernel (state, rewards, dones)")
-    md_equal(got["fast_traj"], ref["fast_traj"], f"{name} fast-PPO trajectory")
-    md_equal(got["fast_env"], ref["fast_env"], f"{name} fast-PPO final env")
-    pixel_diff = differing(got["pixel_traj"], ref["pixel_traj"]) + [
-        f"env.{d}" for d in differing(got["pixel_env"], ref["pixel_env"])]
     errs = {}
-    # pixel PPO is held to the tolerances when its trajectory is the unsharded one
-    for trainer in ("fast", "pixel") if not pixel_diff else ("fast",):
+    for trainer in ("fast", "pixel"):
+        md_equal(got[f"{trainer}_traj"], ref[f"{trainer}_traj"], f"{name} {trainer}-PPO trajectory")
+        md_equal(got[f"{trainer}_env"], ref[f"{trainer}_env"], f"{name} {trainer}-PPO final env")
         (g, aux), (wg, waux) = got[f"{trainer}_first"], ref[f"{trainer}_first"]
         err_g = max(rel_l2(g[k], v) for k, v in wg.items())
         err_l = max(abs(float(aux[k]) - float(v)) for k, v in waux.items())
@@ -2676,21 +2782,11 @@ def md_compare(name: str, got: dict, ref: dict, tag: str) -> None:
         check(all(math.isclose(m[k], v, rel_tol=MD_METRIC_TOL[0], abs_tol=MD_METRIC_TOL[1])
                   for k, v in wm.items()), f"{name} {trainer} update metrics ({err_m:.3e})")
         errs[trainer] = (err_g, err_l, err_m)
-    if pixel_diff:
-        m, wm = got["pixel_metrics"], ref["pixel_metrics"]
-        check(all(math.isfinite(v) for v in m.values()), f"{name} pixel finite metrics")
-        errs["pixel (not held)"] = (
-            max(rel_l2(got["pixel_first"][0][k], v) for k, v in ref["pixel_first"][0].items()),
-            max(abs(float(got["pixel_first"][1][k]) - float(v))
-                for k, v in ref["pixel_first"][1].items()),
-            max(abs(m[k] - v) for k, v in wm.items()))
     print(f"{tag} phase 21 {name}: bench (checksum {int(got['bench'][1])}, final state), "
-          f"actions kernel (state, rewards, dones) and the fast-PPO trajectory and final env bit "
-          f"for bit; pixel-PPO trajectory and final env "
-          + (f"differ in {pixel_diff}" if pixel_diff else "bit for bit")
-          + "; against the unsharded update, max gradient relative L2, first-minibatch "
-          "loss-term and update-metric abs errors: "
-          + "; ".join(f"{k} {a:.3e} {b:.3e} {c:.3e}" for k, (a, b, c) in errs.items()))
+          f"actions kernel (state, rewards, dones), and the fast- and pixel-PPO trajectories "
+          f"(log_prob and value included) and final envs bit for bit; against the unsharded "
+          f"update, max gradient relative L2, first-minibatch loss-term and update-metric abs "
+          f"errors: " + "; ".join(f"{k} {a:.3e} {b:.3e} {c:.3e}" for k, (a, b, c) in errs.items()))
 
 
 def md_launches(name: str, per_rank: list, tag: str) -> None:

@@ -41,6 +41,10 @@ _IN_FIELDS = ("slot_type", "slot_pos", "slot_stat", "agent", "desired", "achieve
 _OUT_FIELDS = ("slot_type", "slot_pos", "slot_stat", "agent", "achieved", "step_num")
 
 
+# how many steps ahead the actions kernel loads its actions (csrc/fused_rollout.cu
+# CW_SLOT_AHEAD): a ring's edges lie at T = SLOT_AHEAD - 1 and SLOT_AHEAD + 1
+SLOT_AHEAD = 2
+
 # byte alignment of the fields the kernel reads and writes as vectors
 _ALIGN = dict(slot_type=16, slot_pos=16, slot_stat=16, init_type=16, init_pos=16,
               agent=8, init_agent=8)

@@ -20,7 +20,10 @@ arguments (``u`` Gumbel uniforms, ``perms`` epoch permutations of the
 minibatch blocks); the collect steps through the fused actions kernel at
 T = 1 (``ops/packed_fused.rollout_packed_actions``: the kernel on the card,
 its plain version on the CPU); the optimizer is the hand-written clip + Adam
-on the ``ConvParams`` tensors; the gradient is autograd of ``_pixel_loss``.
+on the ``ConvParams`` tensors; the gradient is autograd of ``_pixel_loss``;
+on the card the collect's forward runs in chunks of ``POLICY_CHUNK`` rows,
+so that its columns do not depend on the batch's width, replayed from a CUDA
+graph so that the chunks cost the host one replay.
 Under a ``mesh`` a rank steps its own columns and computes the unsharded
 step's function, as ``train/fast_ppo.py`` says: whole-batch draws, shuffle
 blocks of ``BLK`` rows that lie on one rank, advantages normalised over the
@@ -64,6 +67,15 @@ f32 = torch.float32
 i32 = torch.int32
 CONV_NAMES = ("k1", "b1", "k2", "b2", "w1", "bd", "wl", "bl", "wv", "bv")
 BLK = 128  # rows per shuffle block of the update phase
+# Rows of one call of the collect's policy forward on the card. cuDNN and
+# cuBLAS pick their kernel, and with it the order of each sum, by the batch's
+# width (on an H100 the f32 product with w1 gives other bits at 8,192 rows
+# than at 16,384: chip_smoke.py phase 17), so a rank of a mesh would sum its
+# columns unlike the unsharded run. The forward runs in chunks of this one
+# width instead, the last zero-padded, and every convolution and product has
+# the same shape on every rank. 4,096 divides 16,384 / W for W = 1, 2 and 4
+# ranks, so no chunk of the default 16,384 envs is padded.
+POLICY_CHUNK = 4096
 
 
 class PixelPPOConfig(NamedTuple):
@@ -156,6 +168,7 @@ class ConvParams(nn.Module):
         self.w1, self.bd = z(flat + 22, hidden), z(hidden)
         self.wl, self.bl = z(hidden, C.N_ACTIONS), z(C.N_ACTIONS)
         self.wv, self.bv = z(hidden, 1), z(1)
+        self.policy_graph = None  # the collect's captured policy step (_policy_graphed)
 
     def tensors(self) -> dict:
         return {k: getattr(self, k) for k in CONV_NAMES}
@@ -202,6 +215,27 @@ def apply_pixel_policy(p: ConvParams, grid: torch.Tensor, bits: torch.Tensor,
     return logits, value
 
 
+def apply_pixel_policy_chunked(p: ConvParams, grid: torch.Tensor, bits: torch.Tensor,
+                               stride1: int, chunk: int):
+    """``apply_pixel_policy`` over chunks of ``chunk`` rows, the last zero-padded
+    to ``chunk``: every call has one shape, so a row's result does not depend
+    on how many rows the batch holds. The port leaves cuDNN's autotuner
+    (``torch.backends.cudnn.benchmark``, which would choose per process) at
+    its default, off."""
+    B = grid.shape[0]
+    logits, value = [], []
+    for i in range(0, B, chunk):
+        g, b = grid[i:i + chunk], bits[i:i + chunk]
+        n = g.shape[0]
+        if n < chunk:
+            g = torch.cat([g, g.new_zeros((chunk - n, *g.shape[1:]))])
+            b = torch.cat([b, b.new_zeros((chunk - n, *b.shape[1:]))])
+        lg, v = apply_pixel_policy(p, g, b, stride1)
+        logits.append(lg[:n])
+        value.append(v[:n])
+    return torch.cat(logits), torch.cat(value)
+
+
 # ---------------------------------------------------------------------------
 # the training step
 # ---------------------------------------------------------------------------
@@ -229,19 +263,72 @@ def init_pixel_train_state(generator: torch.Generator, cfg: EnvConfig,
     return PixelTrainState(params, make_optimizer(ppo.as_fast).init(params.tensors()), 0)
 
 
-def _policy_tb(p: ConvParams, cfg: EnvConfig, st: PackedState, stride1: int = 2):
-    """The policy on the lane-major packed state: logits [6, B], value [B]."""
+class _PolicyGraph(NamedTuple):
+    """A captured policy step: what it was captured for, the graph, its input
+    state and its outputs."""
+
+    key: tuple
+    graph: object  # torch.cuda.CUDAGraph
+    state: PackedState
+    out: tuple
+
+
+def _policy_graphed(p: ConvParams, cfg: EnvConfig, st: PackedState, stride1: int):
+    """``_policy_tb`` in chunks of ``POLICY_CHUNK`` rows on the card, replayed
+    from a CUDA graph: each chunk's forward makes some 30 launches, and at
+    ``throughput()`` widths the host, not the card, paces them. The params
+    hold the graph (``ConvParams.policy_graph``), captured on the first call
+    for their tensors (the optimizer updates them in place), this config and
+    these shapes; another call captures it anew. ``st`` is copied into its
+    input and the outputs out."""
+    key = (cfg, stride1, [(x.shape, x.dtype) for x in st],
+           [t.data_ptr() for t in p.tensors().values()])
+    if p.policy_graph is None or p.policy_graph.key != key:
+        p.policy_graph = None  # the old capture's memory goes first
+        state = PackedState(*(x.clone() for x in st))
+        run = lambda: _policy_tb(p, cfg, state, stride1, POLICY_CHUNK)
+        side = torch.cuda.Stream(device=st.agent_r.device)
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.no_grad():
+            with torch.cuda.stream(side):
+                run()  # cuDNN's and cuBLAS's set-up, outside the capture
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                out = run()
+        p.policy_graph = _PolicyGraph(key, graph, state, out)
+    g = p.policy_graph
+    for dst, src in zip(g.state, st):
+        dst.copy_(src)
+    g.graph.replay()
+    return tuple(x.clone() for x in g.out)
+
+
+def _policy_tb(p: ConvParams, cfg: EnvConfig, st: PackedState, stride1: int = 2,
+               chunk: int | None = None):
+    """The policy on the lane-major packed state: logits [6, B], value [B].
+
+    ``chunk`` rows a forward call (``apply_pixel_policy_chunked``); None takes
+    ``POLICY_CHUNK`` rows from a CUDA graph on the card (``_policy_graphed``)
+    and the whole batch, as JAX does, on the CPU.
+    """
+    if chunk is None and st.agent_r.is_cuda:
+        return _policy_graphed(p, cfg, st, stride1)
     grid, bits = render_grid_obs(cfg, st)
-    logits, value = apply_pixel_policy(p, grid, bits, stride1)
+    if chunk is None:
+        logits, value = apply_pixel_policy(p, grid, bits, stride1)
+    else:
+        logits, value = apply_pixel_policy_chunked(p, grid, bits, stride1, chunk)
     return logits.T, value
 
 
 def _collect_pixel(cfg: EnvConfig, ppo: PixelPPOConfig, params: ConvParams,
-                   env: PackedState, pool: PackedState, u: torch.Tensor, mesh=None):
+                   env: PackedState, pool: PackedState, u: torch.Tensor, mesh=None,
+                   chunk: int | None = None):
     """T steps of the policy; ``u`` f32[T, 6, B] Gumbel uniforms. (env, _PTraj).
 
     Under a ``mesh``, ``env`` and ``u`` are this rank's columns and ``pool``
-    the whole batch's pool of 2B worlds.
+    the whole batch's pool of 2B worlds. ``chunk`` as ``_policy_tb`` takes it.
     """
     T, B = ppo.rollout_steps, env.agent_r.shape[-1]
     dev = env.agent_r.device
@@ -252,7 +339,7 @@ def _collect_pixel(cfg: EnvConfig, ppo: PixelPPOConfig, params: ConvParams,
     lose = torch.tensor(-1.0 / cfg.max_steps, device=dev)
     st = env
     for t in range(T):
-        logits, value = _policy_tb(params, cfg, st, ppo.stride1)
+        logits, value = _policy_tb(params, cfg, st, ppo.stride1, chunk)
         action, log_prob = _sample_action(u[t], logits)
         for dst, src in zip(tr.state, st):
             dst[t] = src

@@ -188,7 +188,8 @@ def _c_functions():
 
 def test_kernel_sources_match_python():
     """The C entry points have the arity ``_SIGNATURES`` declares, the slot
-    status codes and the layouts' field counts are the Python ones."""
+    status codes, the layouts' field counts and the actions kernel's ring
+    depth are the Python ones."""
     fns = _c_functions()
     for name, argtypes in _build._SIGNATURES.items():
         assert fns.get(name) == len(argtypes), name
@@ -199,3 +200,6 @@ def test_kernel_sources_match_python():
     counts = [tuple(map(int, m)) for m in re.findall(r"N_IN = (\d+), N_OUT = (\d+)", text)]
     assert counts == [(len(fr._IN_FIELDS), len(fr._OUT_FIELDS)),
                       (len(ttr.TSlotState._fields), len(frt._OUT_FIELDS))]
+    ring = re.findall(r"^#define CW_SLOT_AHEAD (\d+)",
+                      (_build.CSRC / "fused_rollout.cu").read_text(), re.M)
+    assert [int(k) for k in ring] == [fr.SLOT_AHEAD]

@@ -176,3 +176,34 @@ def test_path_by_pipe_and_two_rate_bound(smoke, monkeypatch, body, pipes, binds)
 ])
 def test_pipe_classes(smoke, op, pipe):
     assert smoke.pipe_of(op) == pipe
+
+
+def test_ring_of_loads_ahead_is_left_out_of_the_bounds(smoke, monkeypatch):
+    """The moves, compare and index of an actions kernel's ring of actions
+    loaded ahead (``AHEAD`` lines) are counted apart and left out of both
+    bounds; the ring's load stays in. The bounds equal those of the same loop
+    without the ring's other instructions."""
+    step = ["IADD3 R1, R1, 0x1, RZ", "LOP3.LUT R2, R2, R1, RZ, 0x3c, !PT", "IMAD R3, R2, R2, RZ"]
+    ring = ["MOV R7, R8", "ISETP.GE.AND P1, PT, R9, R10, PT", "IADD3 R9, R9, 0x1, RZ",
+            "@!P1 LDG.E.CONSTANT R8, desc[UR4][R12.64]"]
+    text = listing(step + ring).replace(
+        f"/*{16 * (1 + len(step)):04x}*/",
+        '//## File "/src/pipe.cu", line 2\n        ' f"/*{16 * (1 + len(step)):04x}*/").replace(
+        f"/*{16 * (1 + len(step + ring)):04x}*/",
+        '//## File "/src/pipe.cu", line 1\n        ' f"/*{16 * (1 + len(step + ring)):04x}*/")
+    source = {1: "      reward[at] = slot_step(s, action, cfg, d);",
+              2: "      ring[CW_SLOT_AHEAD - 1] = ahead < T ? __ldg(actions + at) : 0;"}
+    (name, p), = smoke.parse_nvdisasm(text, lambda w: source[w[1]]).items()
+    assert p.body == len(step + ring) + 1
+    assert p.pipes["ahead"] == (0, 3, 0) and p.pipes["ahead_int"] == (0, 3, 0)
+    (bare_name, bare), = smoke.parse_nvdisasm(listing(step + ring[3:]), lambda w: "").items()
+    monkeypatch.setattr(smoke, "SM_CLOCK_HZ", 1.98e9)
+    warps, trips = 512, 256
+    bounds = []
+    for sass in ({name: p}, {bare_name: bare}):
+        monkeypatch.setattr(smoke, "SASS", sass)
+        bounds.append((smoke.instruction_bound_ms("pipe", warps, trips),
+                       smoke.pipe_bound_ms("pipe", warps, trips)))
+    assert bounds[0] == pytest.approx(bounds[1], rel=1e-12)
+    # the kernel's own path is still what the two-rate count would give unmasked
+    assert bounds[0][1] < warps * 2 * p.on_pipe("int", trips) / (132 * 4 * 1.98e9) * 1e3
