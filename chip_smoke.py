@@ -7,6 +7,7 @@
     python3 chip_smoke.py --multi-device  # phases 1 and 21 only
     python3 chip_smoke.py --ladder      # phases 1 and 11-13 only (with
                                         # --multi-device: 1, 11-13 and 21)
+    python3 chip_smoke.py --learning    # phases 1 and 22 only
 
 Needs one CUDA card and ``nvcc`` (on PATH or under CUDA_HOME); imports
 nothing of JAX. Phases, each of which must pass:
@@ -139,7 +140,17 @@ nothing of JAX. Phases, each of which must pass:
    ``train/run.py`` under torchrun (4,096 envs, mlp hidden 512), 4 updates
    with a checkpoint at 2, and a resume from it that repeats updates 2-3 bit
    for bit; the cost of deterministic algorithms on its update;
-   ``dryrun_multichip(1)``; ``scaling_report``'s one-card rates.
+   ``dryrun_multichip(1)``; ``scaling_report``'s one-card rates;
+22. learning: the default ``FastPPOConfig`` on single-task 8x8 at 4,096 envs
+   for 192 updates (``tools/fast_ppo_sweep.learning_curve``), seeds 0 and 1,
+   through the gradient kernel and through autograd, every counter set to 0
+   before each run: the pool, actions and indexed-gradient kernels must have
+   run 192, 12,288 and 3,072 times (0 through autograd), no plain version at
+   all. Each run's success per step over updates 160-191 must lie within
+   ``TAIL_BAND`` of the JAX record's seed mean (``docs/fast_ppo_sweep.json``,
+   read as data), over updates 32-63 within ``EARLY_BAND``; the two paths'
+   tails must agree within the JAX tool's noise rule
+   (``tools/fused_update_e2e.cross_path_summary``).
 
 It prints one JSON line of per-kernel results, then, as its last line,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
@@ -199,19 +210,11 @@ def max_abs_diff(pairs) -> int:
 
 
 def time_ms(fn, reps: int = 5) -> float:
-    """Median device time of ``fn()`` in ms over ``reps`` runs, after one warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    """Median device time of ``fn()`` in ms over ``reps`` runs, after one
+    warm-up (CUDA events, ``utils/profiling.timed_runs``)."""
+    from gym_craftingworld_tpu_torch.utils.profiling import timed_runs
+
+    return timed_runs(fn, DEVICE, reps)["median_ms"]
 
 
 TIMED = "chip_smoke timed calls"
@@ -753,12 +756,14 @@ def main() -> int:
         gemm_core_phase(dev, tag)
         gradient_phase(cw, dev, tag)
         return 0
-    alone = [a for a in ("--ladder", "--multi-device") if a in sys.argv[1:]]
-    if alone:  # phases 11-13 and/or 21 alone
+    alone = [a for a in ("--ladder", "--multi-device", "--learning") if a in sys.argv[1:]]
+    if alone:  # phases 11-13, 21 and/or 22 alone
         if "--ladder" in alone:
             ladder_phases(cw, dev, tag)
         if "--multi-device" in alone:
             multi_device_phase(cw, dev, tag)
+        if "--learning" in alone:
+            learning_phase(cw, dev, tag)
         return 0
 
     cfg = cw.ray_config()
@@ -1004,6 +1009,7 @@ def main() -> int:
     imitation_phase(cw, dev, tag)
     recurrent_phase(cw, dev, tag)
     multi_device_phase(cw, dev, tag)
+    learning_phase(cw, dev, tag)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2960,6 +2966,79 @@ def multi_device_phase(cw, dev, tag):
           + "; ".join(f"{k} {v['n1']:.4e}" for k, v in rep.items()))
     shutil.rmtree(work, ignore_errors=True)
     print(f"{tag} phase 21 took {time.perf_counter() - t_phase:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# learning (phase 22)
+# ---------------------------------------------------------------------------
+
+# Bounds of the port's learning against the JAX record, fixed before the first
+# run on the card: each run's mean success per step over updates 160-191
+# (``TAIL_BAND``) and 32-63 (``EARLY_BAND``) as a multiple of the JAX record's
+# mean over its two seeds. JAX's seeds differ by under 1% and 2% there; its
+# 1ep_8mb setting, a different update, reads 16% lower at the tail.
+TAIL_BAND = (0.90, 1.10)
+EARLY_BAND = (0.70, 1.30)
+LEARN_SEEDS = (0, 1)
+
+
+def learning_phase(cw, dev, tag):
+    """Phase 22: fast PPO's learning on the card against the JAX record."""
+    from gym_craftingworld_tpu_torch.tools import fast_ppo_sweep as sweep
+    from gym_craftingworld_tpu_torch.tools.fused_update_e2e import cross_path_summary
+    from gym_craftingworld_tpu_torch.train import fast_ppo as fp
+
+    t_phase = time.perf_counter()
+    fppo = fp.FastPPOConfig()
+    n, B, W = sweep.LEARN_UPDATES, sweep.B_LEARN, sweep.WINDOW
+    ref = sweep.jax_reference()["2ep_8mb (default)"]
+    jax_tail, jax_early = ref["tail_seed_mean"], ref["early_seed_mean"]
+    tails, failed = {}, []
+    for path, fused in (("fused", True), ("autograd", False)):
+        tails[path] = {}
+        for seed in LEARN_SEEDS:
+            wrappers, plains = zero_counters()
+            t0 = time.perf_counter()
+            curve = sweep.learning_curve(fppo, seed, n, B, dev, fused_update=fused)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = {k: w.launches for k, w in wrappers.items()}
+            calls = {f.__name__: f.calls for f in plains}
+            want = {k: 0 for k in launches}
+            want.update(pool=n, packed_actions=n * fppo.rollout_steps,
+                        ppo_grads_indexed=n * fppo.update_epochs * fppo.num_minibatches
+                        if fused else 0)
+            check(launches == want, f"phase 22 {path} seed {seed}: launches {launches}, "
+                  f"want {want}")
+            check(all(c == 0 for c in calls.values()), f"phase 22: no plain version ran: {calls}")
+            check(len(curve) == n and all(math.isfinite(x) for x in curve),
+                  f"phase 22 {path} seed {seed}: {n} finite success rates")
+            windows = sweep.window_means(curve, n, W)
+            tail, early = sweep.tail_mean(curve, n, W), windows[1]
+            tails[path][f"seed{seed}"] = tail
+            jax_w = ref["windows"][f"seed{seed}"]
+            print(f"{tag} phase 22 {path} seed {seed}: {n} updates at {B} envs in {seconds:.1f} s "
+                  f"(host clock); success per step by window of {W} updates, port against JAX "
+                  f"seed {seed}: " + ", ".join(f"{a:.6f} / {b:.6f}" for a, b in zip(windows, jax_w))
+                  + f"; half the tail first at update {sweep.half_tail_update(curve, n, W)} "
+                  f"(JAX {ref['half_tail_update'][f'seed{seed}']}); launches {launches}")
+            for what, got, jax, (lo, hi) in (("tail (updates 160-191)", tail, jax_tail, TAIL_BAND),
+                                             ("early (updates 32-63)", early, jax_early,
+                                              EARLY_BAND)):
+                ratio = got / jax
+                print(f"{tag} phase 22 {path} seed {seed} {what}: {got:.6f} = {ratio:.4f} x JAX's "
+                      f"seed mean {jax:.6f} (bound {lo}-{hi})")
+                if not lo <= ratio <= hi:
+                    failed.append(f"{path} seed {seed} {what} {ratio:.4f} x JAX, outside {lo}-{hi}")
+    summary = cross_path_summary(tails)
+    print(f"{tag} phase 22 fused against autograd: tails {json.dumps(tails)}; cross-path gap "
+          f"{summary['cross_path_gap']:.6f}, cross-seed noise {summary['cross_seed_noise']:.6f}, "
+          f"within noise {summary['within_noise']} (JAX's rule); phase 22 took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    if not summary["within_noise"]:
+        failed.append(f"cross-path gap {summary['cross_path_gap']:.6f} beyond max(2 x noise "
+                      f"{summary['cross_seed_noise']:.6f}, 0.1 x the largest tail)")
+    check(not failed, "phase 22 learning bounds: " + "; ".join(failed))
 
 
 def free_port() -> int:

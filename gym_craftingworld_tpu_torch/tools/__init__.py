@@ -1,0 +1,39 @@
+"""Command-line tools that drive the port's trainers and kernels on the card.
+
+Each runs as ``python -m gym_craftingworld_tpu_torch.tools.<name>``, on
+``cuda`` unless given ``--device cpu`` (for the tests), and imports torch,
+numpy and the port only. Every JSON it writes and every line of numbers it
+prints carries the card's name and power limit
+(``utils/profiling.card_identity``); times come from CUDA events
+(``utils/profiling.timed_runs``). JSON goes to ``--out``, by default under
+``runs/torch/``. The JAX package's records under ``docs/`` are read as JSON
+data, never imported.
+
+Tools and their counterparts in the JAX package's ``tools/``:
+
+* ``fast_ppo_sweep`` <- ``tools/fast_ppo_sweep.py``: five update settings,
+  full-loop throughput at 16,384 envs on 21x21 and learning curves on
+  single-task 8x8 at 4,096 envs; ``learning_curve`` is also
+  ``chip_smoke.py``'s phase 22.
+* ``fused_update_e2e`` <- ``tools/fused_update_e2e.py``: the same training
+  through the gradient kernel and through autograd, 384 updates, two seeds.
+* ``fast_ppo_bench`` <- ``tools/fast_ppo_bench.py``: fast-PPO ms/update,
+  env-steps/s and stages.
+* ``fast_pixel_bench`` <- ``tools/fast_pixel_bench.py``: the same for pixel
+  PPO.
+* ``fused_update_bench`` <- ``tools/fused_update_bench.py``: the indexed
+  gradient kernel at one minibatch's shape, beside five cuBLAS products.
+* ``fused_bench`` <- ``tools/fused_bench.py``: the plain packed rollout and
+  the fused bench kernel, env-steps/s.
+
+``records/`` holds the two learning runs made on an H100 with these tools.
+
+Still to port (the canonical-training tools and small gaps):
+``collect_canonical_demos``, ``train_canonical``, ``fast_pixel_canonical``,
+``cpv_canonical``, ``cpv_matrix``, ``finetune_canonical``, ``pixel_distill``,
+``targeted_dagger`` and ``scaling_artifact``; ``examples/record_episode.py``
+and a counterpart of ``__graft_entry__.entry``. The profiling probes
+(``collect_prof``, ``fast_ppo_prof``, ``ppo_prof``) and debug probes
+(``cpv_debug``, ``expert_probe``) are not ported: ``chip_smoke.py`` phases
+10 and 17 give the same breakdowns with ``torch.profiler``.
+"""

@@ -5,12 +5,19 @@ annotates a region for ``torch.profiler`` (the JAX package's
 ``TraceAnnotation``), ``capture_trace`` records a Chrome trace of the host
 and, where there is one, the card; ``Throughput`` is a copy of the JAX
 package's framework-free counter.
+
+The port adds what its tools (``gym_craftingworld_tpu_torch/tools/``) share:
+``card_identity`` names the card and its power limit, ``timed_runs`` times a
+function with CUDA events (median and spread of n runs after a warm-up), and
+``device_time_ms`` reads a call's device time from ``torch.profiler``.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import statistics
+import subprocess
 import time
 
 import torch
@@ -55,3 +62,83 @@ class Throughput:
             )
         self._t = now
         return self.rate
+
+
+def card_identity(device) -> str:
+    """The card's name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` gives them for
+    ``device``'s index; ``"cpu"`` for a CPU device. Raises if ``nvidia-smi``
+    fails on a CUDA device."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return "cpu"
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout
+    return out.strip().splitlines()[device.index or 0].strip()
+
+
+def timed_runs(fn, device, reps: int = 5, warmup: int = 1) -> dict:
+    """``fn()`` run ``warmup`` times, then timed ``reps`` times: the median,
+    least and most ms of a run, and every run's ms.
+
+    On a CUDA device each run lies between two CUDA events (the device span
+    of the work it enqueues, host pacing included); on the CPU, which only
+    the tests use, between two reads of the host clock.
+    """
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+    for _ in range(warmup):
+        fn()
+    if cuda:
+        torch.cuda.synchronize(device)
+    runs = []
+    for _ in range(reps):
+        if cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            runs.append(start.elapsed_time(end))
+        else:
+            t0 = time.perf_counter()
+            fn()
+            runs.append(1e3 * (time.perf_counter() - t0))
+    return {"median_ms": statistics.median(runs), "min_ms": min(runs), "max_ms": max(runs),
+            "runs_ms": runs}
+
+
+def device_time_ms(fn, reps: int = 10) -> dict:
+    """Device time of a call of ``fn()`` on the card (``torch.profiler``).
+
+    One warm-up call, then ``reps`` calls inside a ``record_function`` range;
+    the device records of the launches made inside that range, matched to
+    their host calls by correlation id, are summed by kernel name. Returns
+    ``{"ms": total per call, "kernels": {name: ms per call}, "launches":
+    launches per call, "lost": launches that left no device record}``.
+    """
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    window_name = "timed calls"
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function(window_name):
+            for _ in range(reps):
+                fn()
+        torch.cuda.synchronize()
+    recs = list(prof.profiler.kineto_results.events())
+    on_card = lambda e: "CUDA" in str(e.device_type())
+    (window,) = [e for e in recs if e.name() == window_name and not on_card(e)]
+    launches = [e for e in recs if not on_card(e) and "LaunchKernel" in e.name()
+                and window.start_ns() <= e.start_ns() <= window.end_ns()]
+    device = {e.correlation_id(): e for e in recs if on_card(e)}
+    kernels = {}
+    for c in launches:
+        d = device.get(c.correlation_id())
+        if d is not None:
+            kernels[d.name()] = kernels.get(d.name(), 0.0) + d.duration_ns() / 1e6 / reps
+    lost = sum(c.correlation_id() not in device for c in launches)
+    return {"ms": sum(kernels.values()), "kernels": kernels,
+            "launches": len(launches) / reps, "lost": lost}
