@@ -8,6 +8,7 @@
     python3 chip_smoke.py --ladder      # phases 1 and 11-13 only (with
                                         # --multi-device: 1, 11-13 and 21)
     python3 chip_smoke.py --learning    # phases 1 and 22 only
+    python3 chip_smoke.py --canonical   # phases 1 and 23 only
 
 Needs one CUDA card and ``nvcc`` (on PATH or under CUDA_HOME); imports
 nothing of JAX. Phases, each of which must pass:
@@ -150,7 +151,24 @@ nothing of JAX. Phases, each of which must pass:
    ``TAIL_BAND`` of the JAX record's seed mean (``docs/fast_ppo_sweep.json``,
    read as data), over updates 32-63 within ``EARLY_BAND``; the two paths'
    tails must agree within the JAX tool's noise rule
-   (``tools/fused_update_e2e.cross_path_summary``).
+   (``tools/fused_update_e2e.cross_path_summary``);
+23. the canonical-training tools (``gym_craftingworld_tpu_torch/tools/``):
+   (a) ``fast_pixel_canonical``'s curve at its ``throughput()`` preset,
+   16,384 envs on single-task 21x21, seed 0, 100 updates, every counter set
+   to 0 just before: the actions kernel must have run 6,400 times (64 an
+   update), no other kernel and no plain version; the mean success per step
+   over updates 0-49 must lie within ``PIXEL_FIRST_BAND`` of the JAX
+   record's (``docs/pixel_canonical.json``, read as data) and the ratio of
+   updates 50-99 to 0-49 within ``PIXEL_DIP_BAND`` (JAX's dip, 0.494);
+   (b) ``collect_canonical_demos``, ``train_canonical`` and
+   ``targeted_dagger`` end to end through their ``main`` at a small size
+   (384 demos; 300 BC steps, one DAgger round of 256 episodes and 100 steps;
+   one targeted round of 512 episodes and 100 steps from the BC + DAgger
+   parameters; evaluations of 256, 512 and 1,024 episodes) in a temporary
+   directory: every file written reloads, the artifact has the keys of
+   ``docs/canonical_policy.json`` and the card, its episodes by task count
+   sum to its episodes, the BC loss falls, each round's appended rows are
+   the rows its relabel returned, and no kernel and no plain version ran.
 
 It prints one JSON line of per-kernel results, then, as its last line,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
@@ -756,14 +774,17 @@ def main() -> int:
         gemm_core_phase(dev, tag)
         gradient_phase(cw, dev, tag)
         return 0
-    alone = [a for a in ("--ladder", "--multi-device", "--learning") if a in sys.argv[1:]]
-    if alone:  # phases 11-13, 21 and/or 22 alone
+    alone = [a for a in ("--ladder", "--multi-device", "--learning", "--canonical")
+             if a in sys.argv[1:]]
+    if alone:  # phases 11-13, 21, 22 and/or 23 alone
         if "--ladder" in alone:
             ladder_phases(cw, dev, tag)
         if "--multi-device" in alone:
             multi_device_phase(cw, dev, tag)
         if "--learning" in alone:
             learning_phase(cw, dev, tag)
+        if "--canonical" in alone:
+            canonical_phase(cw, dev, tag)
         return 0
 
     cfg = cw.ray_config()
@@ -1010,6 +1031,7 @@ def main() -> int:
     recurrent_phase(cw, dev, tag)
     multi_device_phase(cw, dev, tag)
     learning_phase(cw, dev, tag)
+    canonical_phase(cw, dev, tag)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3039,6 +3061,148 @@ def learning_phase(cw, dev, tag):
         failed.append(f"cross-path gap {summary['cross_path_gap']:.6f} beyond max(2 x noise "
                       f"{summary['cross_seed_noise']:.6f}, 0.1 x the largest tail)")
     check(not failed, "phase 22 learning bounds: " + "; ".join(failed))
+
+
+# ---------------------------------------------------------------------------
+# the canonical-training tools (phase 23)
+# ---------------------------------------------------------------------------
+
+# Bounds of 23a against the JAX record's throughput_preset curve, fixed before
+# the first run on the card (PERF.md §6): the mean success per step over
+# updates 0-49 as a multiple of JAX's 1.325e-4, and the ratio of updates 50-99
+# to 0-49 (JAX: 0.494, its early dip). A 50-update window of 16,384 envs x 64
+# steps holds about 3,000-7,000 successes: 1-2% counting noise.
+PIXEL_UPDATES = 100
+PIXEL_FIRST_BAND = (0.80, 1.25)
+PIXEL_DIP_BAND = (0.35, 0.70)
+# 23b's sizes: the tools' own code at the records' shapes, cut to a short run.
+# DAgger's states are capped at 10,000 (the tool's default 300,000): the host
+# relabels about 3,500 a second.
+CANON_DEMOS = ["--episodes", "384", "--batch", "192"]
+CANON_WIDTHS = (64, 1024)  # the tools' default GridPolicy
+CANON_TRAIN = ["--bc-steps", "300", "--chunk", "100", "--dagger-rounds", "1",
+               "--dagger-episodes", "256", "--dagger-max-states", "10000", "--dagger-steps", "100",
+               "--eval-episodes", "256", "--final-eval-episodes", "512", "--capacity", "1000000"]
+CANON_TARGETED = ["--rounds", "1", "--episodes", "512", "--steps", "100", "--eval-episodes", "512",
+                  "--final-eval-episodes", "1024", "--capacity", "1000000"]
+
+
+def canonical_phase(cw, dev, tag):
+    """Phase 23: the pixel tool's curve against the JAX record (23a), and the
+    three canonical tools end to end at a small size (23b)."""
+    import tempfile
+
+    import numpy as np
+
+    from gym_craftingworld_tpu_torch.tools import _canonical
+    from gym_craftingworld_tpu_torch.tools import collect_canonical_demos as demos_tool
+    from gym_craftingworld_tpu_torch.tools import fast_pixel_canonical as fpc
+    from gym_craftingworld_tpu_torch.tools import targeted_dagger as targeted_tool
+    from gym_craftingworld_tpu_torch.tools import train_canonical as train_tool
+    from gym_craftingworld_tpu_torch.models.grid_policy import init_grid_policy
+    from gym_craftingworld_tpu_torch.train.demos import SnapDataset
+
+    # ---- 23a. pixel PPO's curve, counted ---------------------------------------
+    t_phase = time.perf_counter()
+    _, preset = fpc.configs()
+    jax_curve = fpc.jax_record()["throughput_preset"]["single_task_curve"]
+    wrappers, plains = zero_counters()
+    t0 = time.perf_counter()
+    curve = fpc.run_curve(cw.ray_config(stacking=False), preset, 0, PIXEL_UPDATES, B_MAIN, dev,
+                          tag)
+    torch.cuda.synchronize()
+    t_pixel = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    calls = {f.__name__: f.calls for f in plains}
+    want = {k: 0 for k in launches}
+    want["packed_actions"] = PIXEL_UPDATES * preset.rollout_steps
+    check(launches == want, f"phase 23a launches {launches}, want {want}")
+    check(all(c == 0 for c in calls.values()), f"phase 23a: no plain version ran: {calls}")
+    check(len(curve) == PIXEL_UPDATES and all(math.isfinite(x) for x in curve),
+          f"phase 23a: {PIXEL_UPDATES} finite success rates")
+    windows = fpc.compare_windows(curve, jax_curve)
+    first = windows[0]["ratio"]
+    dip, jax_dip = windows[1]["port"] / windows[0]["port"], windows[1]["jax"] / windows[0]["jax"]
+    print(f"{tag} phase 23a pixel PPO throughput() preset, {B_MAIN} envs single-task 21x21, seed "
+          f"0: {PIXEL_UPDATES} updates in {t_pixel:.1f} s (host clock); success per step by "
+          f"window of {fpc.CHUNK} updates, port / JAX: "
+          + ", ".join(f"{w['port']:.4e} / {w['jax']:.4e}" for w in windows)
+          + f"; first window {first:.4f} x JAX's (bound {PIXEL_FIRST_BAND[0]}-"
+          f"{PIXEL_FIRST_BAND[1]}); dip {dip:.4f} (JAX {jax_dip:.4f}, bound {PIXEL_DIP_BAND[0]}-"
+          f"{PIXEL_DIP_BAND[1]}); launches {launches}")
+    failed = []
+    if not PIXEL_FIRST_BAND[0] <= first <= PIXEL_FIRST_BAND[1]:
+        failed.append(f"first window {first:.4f} x JAX, outside {PIXEL_FIRST_BAND}")
+    if not PIXEL_DIP_BAND[0] <= dip <= PIXEL_DIP_BAND[1]:
+        failed.append(f"dip {dip:.4f}, outside {PIXEL_DIP_BAND}")
+
+    # ---- 23b. the canonical tools end to end, small --------------------------------
+    wrappers, plains = zero_counters()
+    seconds = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        run, demos_path = tmp / "run", tmp / "demos.npz"
+        widths = ["--channels", str(CANON_WIDTHS[0]), "--hidden", str(CANON_WIDTHS[1])]
+        common = ["--device", dev.type]
+        t0 = time.perf_counter()
+        snaps = demos_tool.main(CANON_DEMOS + common + ["--out", str(demos_path)])
+        seconds["collect_canonical_demos"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        train_tool.main(CANON_TRAIN + widths + common + ["--demos", str(demos_path), "--out", str(run)])
+        seconds["train_canonical"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        result = targeted_tool.main(CANON_TARGETED + widths + common + [
+            "--demos", str(demos_path), "--out", str(run), "--init-params",
+            str(run / "params_final.pt"), "--policy-json", str(tmp / "canonical_policy.json")])
+        seconds["targeted_dagger"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        no_kernel_ran(wrappers, plains, "phase 23b's tools")
+
+        again = SnapDataset.load(str(demos_path))
+        check(all(np.array_equal(a, b) for a, b in zip(again, snaps)),
+              "phase 23b: the demos npz reloads equal")
+        records = [json.loads(l) for l in (run / "metrics.jsonl").read_text().splitlines()]
+        targeted = [json.loads(l)
+                    for l in (run / "targeted_metrics.jsonl").read_text().splitlines()]
+        curve = json.loads((run / "canonical_curve.json").read_text())
+        check([c["tag"] for c in curve] == [r["tag"] for r in records if r["phase"] == "eval"],
+              f"phase 23b: the curve lists every evaluation: {curve}")
+        bc = [r["loss"] for r in records if r["phase"] == "bc"]
+        check(len(bc) == 3 and bc[-1] < bc[0], f"phase 23b: the BC loss falls: {bc}")
+        (dg,) = [r for r in records if r["phase"] == "dagger_collect"]
+        (tg,) = [r for r in targeted if r["phase"] == "collect"]
+        dagger_rows = SnapDataset.load(str(run / "dagger0.npz")).num_rows
+        targeted_rows = SnapDataset.load(str(run / "targeted0.npz")).num_rows
+        check(dg["rows"] == dagger_rows and dg["n_valid"] == snaps.num_rows + dagger_rows,
+              f"phase 23b: DAgger appended its relabelled rows: {dg}, {dagger_rows}")
+        check(tg["rows"] == targeted_rows
+              and tg["n_valid"] == snaps.num_rows + dagger_rows + targeted_rows,
+              f"phase 23b: the targeted round appended its relabelled rows: {tg}, {targeted_rows}")
+        for name in ("bc", "dagger0", "final", "targeted0", "targeted_final"):
+            model = init_grid_policy(torch.Generator(device=dev), _canonical.CFG, *CANON_WIDTHS)
+            _canonical.load_params(model, run / f"params_{name}.pt")
+            check(all(bool(torch.isfinite(p).all()) for p in model.parameters()),
+                  f"phase 23b: params_{name}.pt reloads finite")
+        doc = json.loads(Path(result["path"]).read_text())
+        jax_keys = set(json.loads((HERE / "docs" / "canonical_policy.json").read_text()))
+        check(set(doc) == jax_keys | {"card"} and doc == result["artifact"],
+              f"phase 23b: the artifact holds the JAX record's keys and the card: {sorted(doc)}")
+        by_k = doc["success_by_num_tasks"]
+        check(doc["episodes"] == 1024 == sum(v["episodes"] for v in by_k.values()),
+              f"phase 23b: episodes by task count sum to the episodes: {by_k}")
+        check(0.0 <= doc["success_rate"] <= 1.0, "phase 23b: a success rate")
+    finals = {"train_canonical final": [r for r in records if r.get("tag") == "final"][0],
+              "targeted_dagger final": doc}
+    print(f"{tag} phase 23b: {snaps.num_rows} demo rows from {snaps.num_episodes} episodes; BC "
+          f"loss by chunk {', '.join(f'{x:.4f}' for x in bc)}; DAgger round {dg['states']} "
+          f"states, rollout success {dg['rollout_success']:.3f} (collect {dg['collect_s']:.1f} s, "
+          f"relabel {dg['relabel_s']:.1f} s); targeted round {tg['states']} states (collect "
+          f"{tg['collect_s']:.1f} s, relabel {tg['relabel_s']:.1f} s); success "
+          + ", ".join(f"{k} {v['success_rate']:.4f} over {v['episodes']}"
+                      for k, v in finals.items())
+          + f"; seconds by tool (host clock) {json.dumps({k: round(v, 1) for k, v in seconds.items()})}; "
+          f"phase 23 took {time.perf_counter() - t_phase:.1f} s")
+    check(not failed, "phase 23a pixel bounds: " + "; ".join(failed))
 
 
 def free_port() -> int:

@@ -25,13 +25,28 @@ Tools and their counterparts in the JAX package's ``tools/``:
   gradient kernel at one minibatch's shape, beside five cuBLAS products.
 * ``fused_bench`` <- ``tools/fused_bench.py``: the plain packed rollout and
   the fused bench kernel, env-steps/s.
+* ``fast_pixel_canonical`` <- ``tools/fast_pixel_canonical.py``: pixel
+  PPO at 16,384 envs on 21x21, its full-loop rate at both presets and
+  single-task learning curves at matched wall clock, by ``--part``
+  (``rate``, ``default``, ``preset``) merged into one JSON; its
+  ``run_curve`` and ``compare_windows`` are ``chip_smoke.py``'s phase 23a.
+* ``collect_canonical_demos`` <- ``tools/collect_canonical_demos.py``: the
+  expert's snapshot demos at the canonical setting (a ``SnapDataset`` npz).
+* ``train_canonical`` <- ``tools/train_canonical.py``: BC and DAgger rounds
+  of a GridPolicy, resumable (``--init-params``, ``--round-base``).
+* ``targeted_dagger`` <- ``tools/targeted_dagger.py``: failure-targeted
+  DAgger rounds and the ``docs/canonical_policy.json`` artifact.
+* ``_canonical``: what the three canonical tools share (the setting, the
+  device dataset of fixed capacity, row sampling, parameter files, the
+  metrics file and the evaluation curve).
 
-``records/`` holds the two learning runs made on an H100 with these tools.
+The canonical tools run ``docs/training.md``'s recipe in steps that resume
+from their files (README, "Tools"); phase 23b drives them end to end at a
+small size. ``records/`` holds the learning runs made on an H100 with these
+tools.
 
-Still to port (the canonical-training tools and small gaps):
-``collect_canonical_demos``, ``train_canonical``, ``fast_pixel_canonical``,
-``cpv_canonical``, ``cpv_matrix``, ``finetune_canonical``, ``pixel_distill``,
-``targeted_dagger`` and ``scaling_artifact``; ``examples/record_episode.py``
+Still to port: ``cpv_canonical``, ``cpv_matrix``, ``finetune_canonical``,
+``pixel_distill`` and ``scaling_artifact``; ``examples/record_episode.py``
 and a counterpart of ``__graft_entry__.entry``. The profiling probes
 (``collect_prof``, ``fast_ppo_prof``, ``ppo_prof``) and debug probes
 (``cpv_debug``, ``expert_probe``) are not ported: ``chip_smoke.py`` phases

@@ -1,0 +1,159 @@
+"""What the canonical-training tools share.
+
+The JAX package's ``tools/train_canonical.py`` and ``tools/targeted_dagger.py``
+each carry their own copy of these; the port keeps one:
+
+* ``CFG``, the canonical setting: 21x21, ``max_steps`` 300, stacked goals;
+* ``log``, a timestamped line;
+* ``pad_columns`` / ``fit`` / ``append_columns``: the device dataset in a
+  buffer of fixed capacity, so that every training chunk samples from one set
+  of tensors while DAgger grows it. A round that would overflow the buffer is
+  truncated to the room left (``fit``), as the JAX tools truncate it before
+  they append (``tools/train_canonical.py:190-192``);
+* ``train_chunk`` and ``mixed_rows``: the row ids a chunk of SGD steps trains
+  on, uniform below ``n_valid`` or with a share from the rows appended since
+  ``fail_lo``;
+* saving and loading a policy's parameters as a torch ``state_dict``
+  (``params_<tag>.pt``), where the JAX tools write a flax msgpack;
+* ``Metrics``, the tools' JSON-lines records, and ``write_curve``, their
+  evaluations in ``docs/canonical_curve.json``'s schema.
+"""
+
+from __future__ import annotations
+
+import json
+import time
+from pathlib import Path
+
+import torch
+
+from gym_craftingworld_tpu_torch.config import EnvConfig
+from gym_craftingworld_tpu_torch.train import dagger
+from gym_craftingworld_tpu_torch.train.demos import SnapDataset
+
+REPO = Path(__file__).resolve().parents[2]
+RUNS = REPO / "runs" / "torch"
+DEMOS = RUNS / "demos_canonical.npz"
+
+CFG = EnvConfig(height=21, width=21, max_steps=300, stacking=True)
+
+
+def log(msg: str) -> None:
+    print(f"[{time.strftime('%H:%M:%S')}] {msg}", flush=True)
+
+
+def pad_columns(snaps: SnapDataset, capacity: int, device) -> dict:
+    """The dataset's device columns (``dagger.device_columns``) in buffers of
+    ``capacity`` rows; rows past ``snaps.num_rows`` are zero."""
+    cols = dagger.device_columns(snaps, device)
+    n = snaps.num_rows
+    assert n <= capacity, (n, capacity)
+    data = {}
+    for k, v in cols.items():
+        data[k] = torch.zeros((capacity,) + tuple(v.shape[1:]), dtype=v.dtype, device=v.device)
+        data[k][:n] = v
+    return data
+
+
+def fit(labeled: SnapDataset, capacity: int, n_valid: int) -> SnapDataset:
+    """``labeled`` cut to the ``capacity - n_valid`` rows the buffer has left."""
+    if n_valid + labeled.num_rows > capacity:
+        labeled = SnapDataset(*[a[: capacity - n_valid] for a in labeled])
+    return labeled
+
+
+def append_columns(data: dict, labeled: SnapDataset, n_valid: int) -> int:
+    """Write ``labeled``'s rows after the ``n_valid`` in use; the new count.
+    The rows must fit (``fit``)."""
+    m = labeled.num_rows
+    capacity = next(iter(data.values())).shape[0]
+    if n_valid + m > capacity:
+        raise ValueError(f"{m} rows after {n_valid} overflow the capacity {capacity}; fit() first")
+    new = dagger.device_columns(labeled, next(iter(data.values())).device)
+    for k in data:
+        data[k][n_valid:n_valid + m] = new[k].to(data[k].dtype)
+    return n_valid + m
+
+
+def train_chunk(cfg: EnvConfig, ts: dagger.BCTrainState, data: dict, n_valid: int, steps: int,
+                batch: int, lr: float, generator: torch.Generator):
+    """``steps`` SGD steps on rows drawn uniformly below ``n_valid``; (ts,
+    {"loss", "accuracy"} as floats)."""
+    idx = torch.randint(0, n_valid, (steps * batch,), generator=generator,
+                        device=generator.device)
+    ts, stats = dagger._bc_epoch(cfg, lr, ts, data, idx, batch)
+    return ts, {k: float(v) for k, v in stats.items()}
+
+
+def mixed_rows(n: int, n_valid: int, fail_lo: int, frac_fail: float,
+               generator: torch.Generator) -> torch.Tensor:
+    """``n`` row ids: each from the rows ``[fail_lo, n_valid)`` with chance
+    ``frac_fail``, else uniform below ``n_valid`` (uniform when no row lies
+    past ``fail_lo`` or ``frac_fail`` is 0). Three draws, in JAX's order."""
+    dev = generator.device
+    uni = torch.randint(0, n_valid, (n,), generator=generator, device=dev)
+    if fail_lo < n_valid and frac_fail > 0:
+        fail = torch.randint(fail_lo, n_valid, (n,), generator=generator, device=dev)
+        pick = torch.rand((n,), generator=generator, device=dev) < frac_fail
+        return torch.where(pick, fail, uni)
+    return uni
+
+
+def mixed_train_chunk(cfg: EnvConfig, ts: dagger.BCTrainState, data: dict, n_valid: int,
+                      fail_lo: int, steps: int, batch: int, lr: float, frac_fail: float,
+                      generator: torch.Generator):
+    """SGD steps with ``frac_fail`` of each batch from the failure rows."""
+    idx = mixed_rows(steps * batch, n_valid, fail_lo, frac_fail, generator)
+    ts, stats = dagger._bc_epoch(cfg, lr, ts, data, idx, batch)
+    return ts, {k: float(v) for k, v in stats.items()}
+
+
+def save_params(model: torch.nn.Module, out: Path, tag: str) -> Path:
+    path = Path(out) / f"params_{tag}.pt"
+    torch.save(model.state_dict(), path)
+    return path
+
+
+def load_params(model: torch.nn.Module, path) -> torch.nn.Module:
+    """``model`` with the parameters saved at ``path``, on its own device."""
+    device = next(model.parameters()).device
+    model.load_state_dict(torch.load(path, map_location=device, weights_only=True))
+    return model
+
+
+class Metrics:
+    """A JSON-lines file opened for appending; every record gets ``t`` (host
+    clock) and the card."""
+
+    def __init__(self, path: Path, card: str):
+        self.card = card
+        self.file = open(path, "a")
+
+    def emit(self, rec: dict) -> None:
+        rec["t"] = time.time()
+        rec["card"] = self.card
+        self.file.write(json.dumps(rec) + "\n")
+        self.file.flush()
+
+    def close(self) -> None:
+        self.file.close()
+
+
+CURVE_KEYS = ("tag", "success_rate", "episodes", "mean_episode_steps")
+
+
+def write_curve(metrics: Path, out: Path) -> list:
+    """Every evaluation record of ``metrics`` (a ``metrics.jsonl``, all the runs
+    appended to it), in ``docs/canonical_curve.json``'s schema, each with its
+    card; written to ``out``."""
+    recs = [json.loads(line) for line in Path(metrics).read_text().splitlines()]
+    curve = [{k: r[k] for k in CURVE_KEYS + ("card",)} for r in recs if r["phase"] == "eval"]
+    Path(out).write_text(json.dumps(curve, indent=1) + "\n")
+    return curve
+
+
+def seconds_since(t0: float, device) -> float:
+    """Host seconds since ``t0``, after the card has finished its queue."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+    return time.perf_counter() - t0
