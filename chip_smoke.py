@@ -9,6 +9,7 @@
                                         # --multi-device: 1, 11-13 and 21)
     python3 chip_smoke.py --learning    # phases 1 and 22 only
     python3 chip_smoke.py --canonical   # phases 1 and 23 only
+    python3 chip_smoke.py --cpv         # phases 1 and 24 only
 
 Needs one CUDA card and ``nvcc`` (on PATH or under CUDA_HOME); imports
 nothing of JAX. Phases, each of which must pass:
@@ -168,7 +169,25 @@ nothing of JAX. Phases, each of which must pass:
    directory: every file written reloads, the artifact has the keys of
    ``docs/canonical_policy.json`` and the card, its episodes by task count
    sum to its episodes, the BC loss falls, each round's appended rows are
-   the rows its relabel returned, and no kernel and no plain version ran.
+   the rows its relabel returned, and no kernel and no plain version ran;
+24. the CPV compositional matrix and the scaling artifact
+   (``gym_craftingworld_tpu_torch/tools/``): (a) ``scaling_artifact``'s
+   ``gpu_single_chip`` section (16,384 envs on 21x21, a 1-rank mesh; the
+   bench kernel at T = 131,072 against 65,536 and the plain packed scan at
+   T = 128, each delta-timed over 3 runs after a warm-up), every counter set
+   to 0 just before: the bench kernel must have run (1 + 3) x 2 = 8 times,
+   nothing else; its sharded rate within ``RATE_BAND`` of phase 6's long-T
+   rate at 16,384 envs (under ``--cpv``, of the unsharded entry point
+   delta-timed the same way after the counters are read); (b)
+   ``cpv_canonical``'s ``main`` on 21x21 at ``CPVGridPolicy(96, 1024)``, small
+   (``CPV_ARGS``: pool 32, 4 singles a task, 32 handoffs, 1 BC epoch, two
+   DAgger rounds of 32 episodes, cells of 16 episodes over the 9 singles, 4
+   pairs (``CPV_PAIRS``) and one triple), then ``--matrix-only`` of the 9
+   singles from its ``params.pt``: the JSON has the keys of
+   ``docs/cpv_matrix.json`` and the card, ``phase1.npz`` reloads equal, each
+   round appended its relabelled rows and their ``augment_pending`` copies,
+   the two runs give the same argmax singles, and no kernel and no plain
+   version ran.
 
 It prints one JSON line of per-kernel results, then, as its last line,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
@@ -774,9 +793,9 @@ def main() -> int:
         gemm_core_phase(dev, tag)
         gradient_phase(cw, dev, tag)
         return 0
-    alone = [a for a in ("--ladder", "--multi-device", "--learning", "--canonical")
+    alone = [a for a in ("--ladder", "--multi-device", "--learning", "--canonical", "--cpv")
              if a in sys.argv[1:]]
-    if alone:  # phases 11-13, 21, 22 and/or 23 alone
+    if alone:  # phases 11-13, 21, 22, 23 and/or 24 alone
         if "--ladder" in alone:
             ladder_phases(cw, dev, tag)
         if "--multi-device" in alone:
@@ -785,6 +804,8 @@ def main() -> int:
             learning_phase(cw, dev, tag)
         if "--canonical" in alone:
             canonical_phase(cw, dev, tag)
+        if "--cpv" in alone:
+            cpv_phase(cw, dev, tag)
         return 0
 
     cfg = cw.ray_config()
@@ -974,6 +995,7 @@ def main() -> int:
         # one run >= 0.2 s, capped so that a broken timer cannot run away
         T = min(4 * math.ceil(0.25 / (probe / 1e3 / 4096) / 4), 1 << 22)
         ms = time_ms(lambda: pf.rollout_packed_bench(cfg, p, 7, T))
+        LONG_T_RATE[B_] = B_ * T / (ms / 1e3)
         print(f"{tag} bench kernel B={B_} T={T}: {ms:.2f} ms/run, "
               f"{B_ * T / (ms / 1e3):.4e} env-steps/s (median of 5), "
               f"{shares('cw_bench_kernel', -(-B_ // 32), T // 4, ms)}")
@@ -1032,6 +1054,7 @@ def main() -> int:
     multi_device_phase(cw, dev, tag)
     learning_phase(cw, dev, tag)
     canonical_phase(cw, dev, tag)
+    cpv_phase(cw, dev, tag)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3203,6 +3226,120 @@ def canonical_phase(cw, dev, tag):
           + f"; seconds by tool (host clock) {json.dumps({k: round(v, 1) for k, v in seconds.items()})}; "
           f"phase 23 took {time.perf_counter() - t_phase:.1f} s")
     check(not failed, "phase 23a pixel bounds: " + "; ".join(failed))
+
+
+# ---------------------------------------------------------------------------
+# the CPV matrix and the scaling artifact (phase 24)
+# ---------------------------------------------------------------------------
+
+LONG_T_RATE = {}  # envs -> phase 6's long-T env-steps/s of the bench kernel
+SCALING_ITERS, SCALING_SCAN_STEPS = 3, 128
+RATE_BAND = (0.95, 1.05)  # sharded over unsharded: the same kernel
+# the untrained policy runs every cell's 300 steps, host-paced: ~3 ms a step
+# with phases 1 and 24 alone, ~5 ms at the end of the whole script (after the
+# profiler's sessions). With all 36 pairs 24b took 200.7 s, and with 4 pairs
+# and 64-episode rounds, the matrix rerun whole, phase 24 took 102.4 s at the
+# end of the script, against a budget of 90 s
+CPV_ARGS = ["--pool", "32", "--singles-per-task", "4", "--handoff-episodes", "32",
+            "--bc-epochs", "1", "--dagger-rounds", "2", "--dagger-episodes", "32",
+            "--dagger-epochs", "1", "--cell-episodes", "16", "--channels", "96",
+            "--hidden", "1024", "--batch", "4096"]
+CPV_TRIPLES = [(0, 1, 2)]  # the one triple, as the tool's --smoke takes it
+CPV_PAIRS = [(0, 1), (5, 6), (5, 7), (5, 8)]  # JAX's weak families
+
+
+def cpv_phase(cw, dev, tag):
+    """Phase 24: the scaling artifact's card section, counted (24a), and the
+    CPV protocol end to end at 21x21, small, then its matrix alone (24b)."""
+    import tempfile
+
+    import numpy as np
+
+    from gym_craftingworld_tpu_torch.core import slots as sm
+    from gym_craftingworld_tpu_torch.ops import packed_fused as pf
+    from gym_craftingworld_tpu_torch.tools import cpv_canonical as cc
+    from gym_craftingworld_tpu_torch.tools import scaling_artifact as sa
+
+    t_phase = time.perf_counter()
+    # ---- 24a. the scaling artifact's card section, counted ------------------------
+    wrappers, plains = zero_counters()
+    t0 = time.perf_counter()
+    section = sa.run_gpu(None, iters=SCALING_ITERS, scan_steps=SCALING_SCAN_STEPS, device=dev)
+    torch.cuda.synchronize()
+    t_scaling = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    calls = {f.__name__: f.calls for f in plains}
+    want = {k: 0 for k in launches}
+    want["packed_bench"] = (1 + SCALING_ITERS) * 2
+    check(launches == want, f"phase 24a launches {launches}, want {want}")
+    check(all(c == 0 for c in calls.values()), f"phase 24a: no plain version ran: {calls}")
+    sharded = section["fused_bench_env_steps_per_s"]
+    B = section["config"]["envs"]
+    if B in LONG_T_RATE:
+        unsharded, how = LONG_T_RATE[B], "phase 6's long-T rate"
+    else:
+        cfg = cw.ray_config()
+        slots = sm.from_env_state(cw.reset_from_seed(cfg, 0, B, device=dev))
+        unsharded = sa._delta_rate(lambda T: pf.fused_rollout_packed_bench(cfg, slots, 3, T), B,
+                                   section["config"]["fused_steps"], SCALING_ITERS, dev)
+        how = "the unsharded entry point, delta-timed alike"
+    ratio = sharded / unsharded
+    print(f"{tag} phase 24a scaling_artifact gpu_single_chip, {B} envs on 21x21, 1-rank mesh: "
+          f"bench kernel {sharded:.5e} env-steps/s (T = {section['config']['fused_steps']} "
+          f"against half, median of {SCALING_ITERS}, CUDA events), {ratio:.4f} x {how} "
+          f"{unsharded:.5e} (bound {RATE_BAND[0]}-{RATE_BAND[1]}); plain packed scan "
+          f"{section['packed_scan_env_steps_per_s']:.5e} at T = {SCALING_SCAN_STEPS}; "
+          f"launches {launches}; {t_scaling:.1f} s")
+    check(RATE_BAND[0] <= ratio <= RATE_BAND[1],
+          f"phase 24a: the sharded bench rate is {ratio:.4f} x the unsharded one")
+
+    # ---- 24b. the CPV protocol end to end, small, then the matrix alone -----------
+    wrappers, plains = zero_counters()
+    seconds = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        common = CPV_ARGS + ["--device", dev.type, "--save-params", str(tmp / "run")]
+        t0 = time.perf_counter()
+        full = cc.main(common + ["--out", str(tmp / "full.json")], CPV_PAIRS, CPV_TRIPLES)
+        seconds["full"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        alone = cc.main(common + ["--matrix-only", "--out", str(tmp / "matrix.json")], [], [])
+        seconds["matrix_only"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        no_kernel_ran(wrappers, plains, "phase 24b's tool")
+        doc = json.loads((tmp / "full.json").read_text())
+        jax_doc = json.loads((HERE / "docs" / "cpv_matrix.json").read_text())
+        check(set(doc) == set(jax_doc) | {"card"} and set(doc["config"]) == set(jax_doc["config"])
+              and doc == full["results"],
+              f"phase 24b: the JSON holds the JAX record's keys and the card: {sorted(doc)}")
+        data, tasks = full["phase1"]
+        cached, cached_tasks = cc.load_phase1(tmp / "run" / "phase1.npz")
+        check(all(a.dtype == b.dtype and np.array_equal(a, b) for a, b in zip(cached, data))
+              and np.array_equal(cached_tasks, tasks), "phase 24b: phase1.npz reloads equal")
+    rounds = full["rounds"]
+    check([r["mode"] for r in rounds] == ["argmax_eps", "sample"], f"phase 24b rounds {rounds}")
+    for r in rounds:
+        check(r["rows_after"] == r["rows_before"] + r["relabelled"] + r["augmented"]
+              and r["augmented"] <= r["relabelled"],
+              f"phase 24b: round {r['round']} appended its relabelled rows and their copies: {r}")
+    counts = {k: len(doc[k]) for k in ("singles", "pairs", "triples")}
+    check(counts == {"singles": 9, "pairs": len(CPV_PAIRS), "triples": 1}, f"phase 24b cells {counts}")
+    rates = [v for k in ("singles", "pairs", "triples") for s in ("", "_argmax")
+             for v in doc[k + s].values()]
+    check(all(0.0 <= v <= 1.0 for v in rates), "phase 24b: every cell a success rate")
+    same = {k: doc[k] == alone["results"][k] for k in ("singles", "singles_argmax")}
+    check(same["singles_argmax"],
+          f"phase 24b: --matrix-only gives the full run's argmax singles: {same}")
+    print(f"{tag} phase 24b cpv_canonical {' '.join(CPV_ARGS)} on 21x21: {data.num_rows} expert "
+          f"rows from {data.num_episodes} episodes; DAgger rounds "
+          + "; ".join(f"{r['mode']} policy sr {r['policy_sr']:.3f}, +{r['relabelled']} relabelled "
+                      f"+{r['augmented']} copies (collect {r['collect_s']:.1f} s, train "
+                      f"{r['train_s']:.1f} s)" for r in rounds)
+          + f"; cells {counts}, pair mean {doc['pair_mean']:.4f} sampled / "
+          f"{doc['pair_mean_argmax']:.4f} argmax; --matrix-only (singles) equal {same}; seconds "
+          f"(host clock) full run {json.dumps({k: round(v, 1) for k, v in full['seconds'].items()})}"
+          f" in {seconds['full']:.1f}, matrix alone {seconds['matrix_only']:.1f}; phase 24 took "
+          f"{time.perf_counter() - t_phase:.1f} s")
 
 
 def free_port() -> int:

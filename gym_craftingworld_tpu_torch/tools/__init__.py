@@ -39,14 +39,25 @@ Tools and their counterparts in the JAX package's ``tools/``:
 * ``_canonical``: what the three canonical tools share (the setting, the
   device dataset of fixed capacity, row sampling, parameter files, the
   metrics file and the evaluation curve).
+* ``cpv_canonical`` <- ``tools/cpv_canonical.py``: the CPV compositional
+  matrix at 21x21 (``docs/cpv_matrix.json``'s schema), with resume points
+  (``--resume``, ``--matrix-only``); ``chip_smoke.py``'s phase 24b.
+* ``cpv_matrix`` <- ``tools/cpv_matrix.py``: the round-4 CPV protocol on
+  8x8 through the Gym façade.
+* ``_cpv``: what the two CPV tools share (the expert's task order and the
+  handoff world edit).
+* ``scaling_artifact`` <- ``tools/scaling_artifact.py``: the sharded
+  engines' env-steps/s over the host's gloo ranks (``--cpu``, under
+  ``torchrun``) and on one card (``--gpu``, the bench kernel and the packed
+  scan, delta-timed); ``chip_smoke.py``'s phase 24a.
 
 The canonical tools run ``docs/training.md``'s recipe in steps that resume
 from their files (README, "Tools"); phase 23b drives them end to end at a
 small size. ``records/`` holds the learning runs made on an H100 with these
 tools.
 
-Still to port: ``cpv_canonical``, ``cpv_matrix``, ``finetune_canonical``,
-``pixel_distill`` and ``scaling_artifact``; ``examples/record_episode.py``
+Still to port: ``finetune_canonical`` and ``pixel_distill``;
+``examples/record_episode.py``
 and a counterpart of ``__graft_entry__.entry``. The profiling probes
 (``collect_prof``, ``fast_ppo_prof``, ``ppo_prof``) and debug probes
 (``cpv_debug``, ``expert_probe``) are not ported: ``chip_smoke.py`` phases

@@ -14,7 +14,8 @@ each carry their own copy of these; the port keeps one:
   on, uniform below ``n_valid`` or with a share from the rows appended since
   ``fail_lo``;
 * saving and loading a policy's parameters as a torch ``state_dict``
-  (``params_<tag>.pt``), where the JAX tools write a flax msgpack;
+  (``params_<tag>.pt``), where the JAX tools write a flax msgpack (and
+  ``cpv_canonical`` an npz);
 * ``Metrics``, the tools' JSON-lines records, and ``write_curve``, their
   evaluations in ``docs/canonical_curve.json``'s schema.
 """
@@ -108,8 +109,10 @@ def mixed_train_chunk(cfg: EnvConfig, ts: dagger.BCTrainState, data: dict, n_val
     return ts, {k: float(v) for k, v in stats.items()}
 
 
-def save_params(model: torch.nn.Module, out: Path, tag: str) -> Path:
-    path = Path(out) / f"params_{tag}.pt"
+def save_params(model: torch.nn.Module, out: Path, tag: str | None) -> Path:
+    """``model``'s ``state_dict`` as ``params_<tag>.pt`` under ``out``
+    (``params.pt`` with no tag)."""
+    path = Path(out) / (f"params_{tag}.pt" if tag else "params.pt")
     torch.save(model.state_dict(), path)
     return path
 

@@ -171,20 +171,36 @@ def bc_train_snaps(cfg: EnvConfig, snaps: SnapDataset, generator: torch.Generato
 # ---------------------------------------------------------------------------
 
 
-def _greedy(cfg: EnvConfig, model: torch.nn.Module, st: EnvState) -> torch.Tensor:
+def _greedy(cfg: EnvConfig, model: torch.nn.Module, st: EnvState,
+            noise: torch.Tensor | None = None) -> torch.Tensor:
+    """The argmax of the policy's logits, plus ``noise`` f32[B, A] if given
+    (Gumbel noise makes it a draw from the softmax, as ``jax.random.categorical``)."""
     logits, _ = model(*planes_from_state(cfg, st))
+    if noise is not None:
+        logits = logits + noise
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
+def gumbel(shape, generator: torch.Generator) -> torch.Tensor:
+    """Standard Gumbel noise f32 of ``shape`` from ``generator``, on its device
+    (``jax.random.gumbel``: uniforms from the smallest normal f32 up)."""
+    u = torch.rand(shape, generator=generator, device=generator.device)
+    return -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
+
+
 @torch.no_grad()
-def _eval_batch_grid(cfg: EnvConfig, model: torch.nn.Module, state: EnvState) -> dict:
-    """One greedy episode per env from ``state``; terminal stats as tensors."""
+def _eval_batch_grid(cfg: EnvConfig, model: torch.nn.Module, state: EnvState,
+                     noise: torch.Tensor | None = None) -> dict:
+    """One greedy episode per env from ``state``; terminal stats as tensors.
+    With ``noise`` f32[T, B, A] (``gumbel``), step t samples from the
+    policy's softmax instead."""
     B = state.objects.shape[0]
     dev = state.objects.device
     done = torch.zeros(B, dtype=torch.bool, device=dev)
     reward = torch.full((B,), -1, dtype=torch.int32, device=dev)
     for t in range(cfg.max_steps):
-        st2, res = step(cfg, state, _greedy(cfg, model, state))
+        action = _greedy(cfg, model, state, None if noise is None else noise[t])
+        st2, res = step(cfg, state, action)
         state = _select(done, state, st2)  # freeze finished episodes
         reward = torch.where(done, reward, res.reward)
         done = done | res.done
@@ -211,12 +227,15 @@ def evaluate_grid_policy(cfg: EnvConfig, model: torch.nn.Module, num_episodes: i
 
 @torch.no_grad()
 def _rollout_states(cfg: EnvConfig, model: torch.nn.Module, state: EnvState,
-                    explore_u: torch.Tensor, explore_a: torch.Tensor, explore_eps: float):
+                    explore_u: torch.Tensor, explore_a: torch.Tensor, explore_eps: float,
+                    noise: torch.Tensor | None = None):
     """Roll the policy greedily (+eps random moves); record snapshot columns.
 
     ``explore_u`` f32[T, B] uniforms and ``explore_a`` int[T, B] moves in
     0..3, T = ``max_steps``: step t takes ``explore_a[t]`` where
-    ``explore_u[t] < explore_eps``. Returns ([T, B] column dict, live [T, B],
+    ``explore_u[t] < explore_eps``. With ``noise`` f32[T, B, A]
+    (``gumbel``), the policy's action is a draw from its softmax instead of
+    its argmax. Returns ([T, B] column dict, live [T, B],
     success [B]); once every episode is done the remaining steps are not run,
     and their rows are zero and not live.
     """
@@ -233,7 +252,7 @@ def _rollout_states(cfg: EnvConfig, model: torch.nn.Module, state: EnvState,
             cols = {k: torch.zeros((T, *v.shape), dtype=v.dtype, device=dev) for k, v in now.items()}
         for k, v in now.items():
             cols[k][t] = v
-        action = _greedy(cfg, model, state)
+        action = _greedy(cfg, model, state, None if noise is None else noise[t])
         # eps-mix random moves for coverage (eps == 0.0 -> uniform < 0, no-op)
         action = torch.where(explore_u[t] < explore_eps, explore_a[t].to(torch.int32), action)
         st2, res = step(cfg, state, action)

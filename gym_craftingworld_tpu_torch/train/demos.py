@@ -230,6 +230,91 @@ def _host(x: torch.Tensor) -> np.ndarray:
     return x.cpu().numpy()
 
 
+def collect_batch(cfg: EnvConfig, state, wrng: np.random.RandomState, experts: list,
+                  noise_eps: float = 0.05, only_successful: bool = True):
+    """One lockstep batch of expert episodes from ``state`` (B envs) on its
+    device; each state field crosses to the host once a step, and the
+    ``experts`` (one ``NumpyExpert`` an env, at least B) label on the host.
+    The noise draws come from ``wrng``. Returns ``(SnapDataset, env of each
+    row int[N], success bool[B])``; the dataset's episodes count from 0."""
+    B = state.objects.shape[0]
+    init_objects_np = _host(state.init_objects)
+    init_key, init_agent_key = init_keys_from_grids(init_objects_np.reshape(B, -1))
+    desired_bits = _host(state.desired)
+    desired_mask = bits_to_mask(desired_bits)
+
+    done = np.zeros(B, bool)
+    success = np.zeros(B, bool)
+    rec = {k: [] for k in ("occ_key", "occ_code", "agent_key", "holding",
+                           "achieved", "action", "live")}
+
+    for _t in range(cfg.max_steps):
+        objects = _host(state.objects)
+        agent = _host(state.agent)
+        holding = _host(state.holding)
+        achieved_bits = _host(state.achieved)
+        flat = objects.reshape(B, -1)
+        occ_key, occ_code = occupancy_from_grids(flat, cfg.n_cells)
+        agent_key = (agent[:, 0] * cfg.width + agent[:, 1]).astype(np.int16)
+
+        actions = np.zeros(B, np.int32)
+        labels = np.zeros(B, np.int8)
+        for b in np.nonzero(~done)[0]:
+            lab = label_snapshot(
+                experts[b], objects[b], agent[b], holding[b],
+                init_objects_np[b], desired_bits[b], achieved_bits[b],
+            )
+            labels[b] = lab
+            actions[b] = lab
+            if noise_eps and wrng.rand() < noise_eps:
+                d = wrng.randint(4)
+                nr = min(max(agent[b, 0] + _DELTAS[d, 0], 0), cfg.height - 1)
+                nc = min(max(agent[b, 1] + _DELTAS[d, 1], 0), cfg.width - 1)
+                if (nr, nc) != (agent[b, 0], agent[b, 1]) and objects[
+                    b, nr, nc
+                ] == C.EMPTY:
+                    actions[b] = d
+
+        rec["occ_key"].append(occ_key)
+        rec["occ_code"].append(occ_code)
+        rec["agent_key"].append(agent_key)
+        rec["holding"].append(holding.astype(np.int8))
+        rec["achieved"].append(bits_to_mask(achieved_bits))
+        rec["action"].append(labels)
+        rec["live"].append(~done)
+
+        state, res = core_step(cfg, state, torch.from_numpy(actions).to(state.objects.device))
+        res_done = _host(res.done)
+        res_rew = _host(res.reward)
+        newly = res_done & ~done
+        success |= newly & (res_rew == cfg.max_steps)
+        done |= res_done
+        if done.all():
+            break
+
+    live = np.stack(rec["live"])  # [T, B]
+    keep_env = success if only_successful else np.ones(B, bool)
+    sel = live & keep_env[None, :]
+    ep_ids = np.cumsum(keep_env) - 1  # [B]; SnapDataset.concat re-bases
+    take = lambda k: np.concatenate(
+        [rec[k][t][sel[t]] for t in range(sel.shape[0])]
+    )
+    t_idx, b_idx = np.nonzero(sel)
+    snaps = SnapDataset(
+        occ_key=take("occ_key"),
+        occ_code=take("occ_code"),
+        init_key=init_key[b_idx],
+        init_agent_key=init_agent_key[b_idx],
+        agent_key=take("agent_key"),
+        holding=take("holding"),
+        desired=desired_mask[b_idx],
+        achieved=take("achieved"),
+        action=take("action"),
+        episode=ep_ids[b_idx].astype(np.int32),
+    )
+    return snaps, b_idx, success
+
+
 def collect_expert_demos(
     cfg: EnvConfig,
     num_episodes: int,
@@ -262,83 +347,9 @@ def collect_expert_demos(
             state = core_reset(cfg, B, gen)
         else:
             state = resets[bi]
-        init_objects_np = _host(state.init_objects)
-        init_key, init_agent_key = init_keys_from_grids(init_objects_np.reshape(B, -1))
-        desired_bits = _host(state.desired)
-        desired_mask = bits_to_mask(desired_bits)
-
-        done = np.zeros(B, bool)
-        success = np.zeros(B, bool)
-        rec = {k: [] for k in ("occ_key", "occ_code", "agent_key", "holding",
-                               "achieved", "action", "live")}
-
-        for _t in range(cfg.max_steps):
-            objects = _host(state.objects)
-            agent = _host(state.agent)
-            holding = _host(state.holding)
-            achieved_bits = _host(state.achieved)
-            flat = objects.reshape(B, -1)
-            occ_key, occ_code = occupancy_from_grids(flat, cfg.n_cells)
-            agent_key = (agent[:, 0] * cfg.width + agent[:, 1]).astype(np.int16)
-
-            actions = np.zeros(B, np.int32)
-            labels = np.zeros(B, np.int8)
-            for b in np.nonzero(~done)[0]:
-                lab = label_snapshot(
-                    experts[b], objects[b], agent[b], holding[b],
-                    init_objects_np[b], desired_bits[b], achieved_bits[b],
-                )
-                labels[b] = lab
-                actions[b] = lab
-                if noise_eps and wrng.rand() < noise_eps:
-                    d = wrng.randint(4)
-                    nr = min(max(agent[b, 0] + _DELTAS[d, 0], 0), cfg.height - 1)
-                    nc = min(max(agent[b, 1] + _DELTAS[d, 1], 0), cfg.width - 1)
-                    if (nr, nc) != (agent[b, 0], agent[b, 1]) and objects[
-                        b, nr, nc
-                    ] == C.EMPTY:
-                        actions[b] = d
-
-            rec["occ_key"].append(occ_key)
-            rec["occ_code"].append(occ_code)
-            rec["agent_key"].append(agent_key)
-            rec["holding"].append(holding.astype(np.int8))
-            rec["achieved"].append(bits_to_mask(achieved_bits))
-            rec["action"].append(labels)
-            rec["live"].append(~done)
-
-            state, res = core_step(cfg, state, torch.from_numpy(actions).to(state.objects.device))
-            res_done = _host(res.done)
-            res_rew = _host(res.reward)
-            newly = res_done & ~done
-            success |= newly & (res_rew == cfg.max_steps)
-            done |= res_done
-            if done.all():
-                break
-
-        live = np.stack(rec["live"])  # [T, B]
-        keep_env = success if only_successful else np.ones(B, bool)
-        sel = live & keep_env[None, :]
-        ep_ids = np.cumsum(keep_env) - 1  # [B]; SnapDataset.concat re-bases
-        take = lambda k: np.concatenate(
-            [rec[k][t][sel[t]] for t in range(sel.shape[0])]
-        )
-        t_idx, b_idx = np.nonzero(sel)
-        parts.append(
-            SnapDataset(
-                occ_key=take("occ_key"),
-                occ_code=take("occ_code"),
-                init_key=init_key[b_idx],
-                init_agent_key=init_agent_key[b_idx],
-                agent_key=take("agent_key"),
-                holding=take("holding"),
-                desired=desired_mask[b_idx],
-                achieved=take("achieved"),
-                action=take("action"),
-                episode=ep_ids[b_idx].astype(np.int32),
-            )
-        )
-        base_ep += int(keep_env.sum())
+        snaps, _, success = collect_batch(cfg, state, wrng, experts, noise_eps, only_successful)
+        parts.append(snaps)
+        base_ep += int(success.sum()) if only_successful else B
         if progress is not None:
             progress(bi + 1, n_batches, base_ep)
     out = SnapDataset.concat(*parts) if len(parts) > 1 else parts[0]

@@ -227,3 +227,11 @@ def dryrun_checks(out) -> None:
     from gym_craftingworld_tpu_torch.parallel.dryrun import dryrun_multichip
 
     _save(out, {"line": dryrun_multichip(_rank()[1], "cpu")})
+
+
+def scaling_cpu(out) -> None:
+    """``scaling_artifact``'s ``cpu_virtual8`` section at a tiny size; rank 0
+    writes ``scaling.json`` under ``out``."""
+    from gym_craftingworld_tpu_torch.tools import scaling_artifact as sa
+
+    sa.run_cpu(Path(out) / "scaling.json", batch_per_device=8, num_steps=4, iters=1)
