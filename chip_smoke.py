@@ -10,6 +10,7 @@
     python3 chip_smoke.py --learning    # phases 1 and 22 only
     python3 chip_smoke.py --canonical   # phases 1 and 23 only
     python3 chip_smoke.py --cpv         # phases 1 and 24 only
+    python3 chip_smoke.py --distill     # phases 1 and 25 only
 
 Needs one CUDA card and ``nvcc`` (on PATH or under CUDA_HOME); imports
 nothing of JAX. Phases, each of which must pass:
@@ -187,7 +188,25 @@ nothing of JAX. Phases, each of which must pass:
    ``docs/cpv_matrix.json`` and the card, ``phase1.npz`` reloads equal, each
    round appended its relabelled rows and their ``augment_pending`` copies,
    the two runs give the same argmax singles, and no kernel and no plain
-   version ran.
+   version ran;
+25. the last tools and entry points, each with every counter set to 0 just
+   before and no kernel and no plain version run after: (a)
+   ``finetune_canonical``'s ``main`` on 21x21 at a narrow GridPolicy
+   (``FT_ARGS``: 256 envs, one value-only update and two joint ones,
+   evaluations of 256 episodes): the JSON has the keys of
+   ``docs/canonical_finetune.json`` and the card, the value-only update left
+   the policy head's parameters bit-identical, and the policy shipped is the
+   best evaluation's (the start's parameters, bit for bit, when nothing beat
+   them); (b) ``pixel_distill``'s ``main`` on 21x21 at a narrow student and
+   teacher (``DISTILL_ARGS``: 2 rounds of 256 episodes): the section has the
+   keys of ``docs/pixel_canonical.json``'s ``distilled_student`` and the
+   card, round 1 appended exactly its relabelled rows,
+   ``images_from_cols`` of a live batch's columns (256 worlds after 48
+   random steps) equals ``models/cnn.student_images`` of the same states,
+   byte for byte, and ``GRAPH_STEPS`` student minibatch updates replayed
+   from the epoch's CUDA graph equal them launched one by one, bit for bit; (c) ``entry()``'s forward on the card against the same
+   forward on the CPU (``card_vs_cpu``); (d) ``examples/record_episode``
+   writes a GIF into a temporary directory.
 
 It prints one JSON line of per-kernel results, then, as its last line,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
@@ -793,9 +812,9 @@ def main() -> int:
         gemm_core_phase(dev, tag)
         gradient_phase(cw, dev, tag)
         return 0
-    alone = [a for a in ("--ladder", "--multi-device", "--learning", "--canonical", "--cpv")
-             if a in sys.argv[1:]]
-    if alone:  # phases 11-13, 21, 22, 23 and/or 24 alone
+    alone = [a for a in ("--ladder", "--multi-device", "--learning", "--canonical", "--cpv",
+                         "--distill") if a in sys.argv[1:]]
+    if alone:  # phases 11-13, 21, 22, 23, 24 and/or 25 alone
         if "--ladder" in alone:
             ladder_phases(cw, dev, tag)
         if "--multi-device" in alone:
@@ -806,6 +825,8 @@ def main() -> int:
             canonical_phase(cw, dev, tag)
         if "--cpv" in alone:
             cpv_phase(cw, dev, tag)
+        if "--distill" in alone:
+            distill_phase(cw, dev, tag)
         return 0
 
     cfg = cw.ray_config()
@@ -1055,6 +1076,7 @@ def main() -> int:
     learning_phase(cw, dev, tag)
     canonical_phase(cw, dev, tag)
     cpv_phase(cw, dev, tag)
+    distill_phase(cw, dev, tag)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3340,6 +3362,169 @@ def cpv_phase(cw, dev, tag):
           f"(host clock) full run {json.dumps({k: round(v, 1) for k, v in full['seconds'].items()})}"
           f" in {seconds['full']:.1f}, matrix alone {seconds['matrix_only']:.1f}; phase 24 took "
           f"{time.perf_counter() - t_phase:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# the last tools and entry points (phase 25)
+# ---------------------------------------------------------------------------
+
+FT_ARGS = ["--init-params", "", "--channels", "16", "--hidden", "64", "--envs", "256",
+           "--updates", "3", "--warmup", "1", "--eval-every", "1", "--eval-episodes", "256",
+           "--final-eval-episodes", "256"]
+DISTILL_ARGS = ["--teacher", "", "--teacher-channels", "16", "--teacher-hidden", "64",
+                "--stem", "8", "--channels", "16", "--hidden", "64", "--rounds", "2",
+                "--episodes0", "256", "--episodes", "256", "--epochs0", "1", "--epochs", "1",
+                "--eval-episodes", "256", "--final-eval-episodes", "256"]
+GRAPH_STEPS = 12  # student minibatches of 25b's graph-against-eager check
+
+
+def distill_phase(cw, dev, tag):
+    """Phase 25: ``finetune_canonical`` (25a) and ``pixel_distill`` (25b)
+    end to end at a small size, ``entry()`` on the card against the CPU (25c)
+    and the ``record_episode`` example (25d)."""
+    import copy
+    import tempfile
+
+    from gym_craftingworld_tpu_torch import entry as entry_mod
+    from gym_craftingworld_tpu_torch.examples import record_episode
+    from gym_craftingworld_tpu_torch.models.cnn import student_images
+    from gym_craftingworld_tpu_torch.models.grid_policy import (init_grid_policy,
+                                                                snap_columns_from_state)
+    from gym_craftingworld_tpu_torch.tools import finetune_canonical as ftc
+    from gym_craftingworld_tpu_torch.tools import pixel_distill as pd
+
+    t_phase = time.perf_counter()
+    seconds = {}
+    cfg = cw.ray_config()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # ---- 25a. the fine-tune, small ----------------------------------------------
+        wrappers, plains = zero_counters()
+        t0 = time.perf_counter()
+        ft = ftc.main(FT_ARGS + ["--device", dev.type, "--out", str(tmp / "ft.json"),
+                                 "--save", str(tmp / "ft")])
+        torch.cuda.synchronize()
+        seconds["finetune_canonical"] = time.perf_counter() - t0
+        no_kernel_ran(wrappers, plains, "phase 25a's fine-tune")
+        doc = json.loads((tmp / "ft.json").read_text())
+        jax_keys = set(json.loads((HERE / "docs" / "canonical_finetune.json").read_text()))
+        check(set(doc) == jax_keys | {"card"} and doc == ft["doc"],
+              f"phase 25a: the JSON holds the JAX record's keys and the card: {sorted(doc)}")
+        check(ft["policy_head_after_warmup"] is True,
+              "phase 25a: the value-only update leaves the policy head bit-identical")
+        curve = doc["curve"]
+        beat = [c for c in curve[1:] if c["eval"] > max([curve[0]["eval"]] + [
+            d["eval"] for d in curve[1:curve.index(c)]])]
+        want = f"u{beat[-1]['update']}" if beat else "start"
+        check(doc["best_checkpoint"] == want,
+              f"phase 25a: the best checkpoint is {doc['best_checkpoint']}, want {want}: {curve}")
+        if want == "start":
+            start = init_grid_policy(torch.Generator(device=dev).manual_seed(0), cfg,
+                                     int(FT_ARGS[3]), int(FT_ARGS[5]))
+            got = ft["model"].state_dict()
+            check(all(torch.equal(v, got[k]) for k, v in start.state_dict().items()),
+                  "phase 25a: nothing beat the start, so the start's parameters ship")
+
+        # ---- 25b. the distillation, small, and the frames from columns ------------------
+        wrappers, plains = zero_counters()
+        t0 = time.perf_counter()
+        dist = pd.main(DISTILL_ARGS + ["--device", dev.type, "--out", str(tmp / "px.json"),
+                                       "--save", str(tmp / "px")])
+        torch.cuda.synchronize()
+        seconds["pixel_distill"] = time.perf_counter() - t0
+        section = json.loads((tmp / "px.json").read_text())["distilled_student"]
+        jax_section = json.loads((HERE / "docs" / "pixel_canonical.json").read_text())[
+            "distilled_student"]
+        check(set(section) == set(jax_section) | {"card"} and section == dist["section"],
+              f"phase 25b: the section holds the JAX record's keys and the card: "
+              f"{sorted(section)}")
+        r0, r1 = dist["rounds"]
+        check(r0["core_rows"] == r0["collected"] > 0
+              and r1["appended"] == r1["relabelled"] == r1["collected"] == r1["student_rows"]
+              and r1["mixture_rows"] == r1["core_rows"] * max(1, round(
+                  r1["student_rows"] / r1["core_rows"])) + r1["student_rows"],
+              f"phase 25b: round 1 appended its relabelled rows: {dist['rounds']}")
+        gen = torch.Generator(device=dev).manual_seed(5)
+        state = cw.reset_from_seed(cfg, 5, 256, device=dev)
+        for _ in range(48):
+            state, _ = cw.step(cfg, state, torch.randint(0, 6, (256,), generator=gen,
+                                                         device=dev))
+        cols = {**snap_columns_from_state(cfg, state), **pd.goal_columns_from_state(cfg, state)}
+        init = torch.where(state.init_objects == 9, 0, state.init_objects)
+        want_img = student_images(cfg, state.objects, state.agent, state.holding,
+                                  state.goal_objects, state.goal_agent, init, state.init_agent)
+        got_img = pd.images_from_cols(cfg, cols)
+        check(got_img.dtype == torch.uint8 and torch.equal(got_img, want_img),
+              "phase 25b: images_from_cols equals student_images on a live batch, byte for byte")
+        holding = int((state.holding > 0).sum())
+        # the student's epoch from its CUDA graph against the same epoch launched
+        # minibatch by minibatch: the same kernels, so the same bits
+        data = {k: v for k, v in cols.items() if k in pd._IMG_COLS}
+        data["label"] = torch.randint(0, 6, (256,), generator=gen, device=dev).to(torch.int8)
+        data["tlogits"] = torch.randn((256, 6), generator=gen, device=dev).to(torch.float16)
+        data["soft"] = (torch.rand(256, generator=gen, device=dev) < 0.5).to(torch.float16)
+        perm = torch.randint(0, 256, (GRAPH_STEPS * 64,), generator=gen, device=dev)
+        fh, fw = pd.flip_bits(GRAPH_STEPS, 64, gen)
+        runs = []
+        for graph in (False, True):
+            student = pd.init_student(torch.Generator(device=dev).manual_seed(9), cfg, 16, 64, 8)
+            opt, loss, acc = pd.student_epoch(cfg, student, pd.init_opt(student), data, perm, 64,
+                                              fh, fw, graph=graph)
+            runs.append((student, opt, float(loss), float(acc)))
+        (s0, o0, l0, a0), (s1, o1, l1, a1) = runs
+        check((l0, a0) == (l1, a1) and int(o0.count) == int(o1.count) == GRAPH_STEPS
+              and all(torch.equal(p, q) for p, q in zip(s0.parameters(), s1.parameters()))
+              and all(torch.equal(p, q) for p, q in zip(o0.mu + o0.nu, o1.mu + o1.nu)),
+              f"phase 25b: {GRAPH_STEPS} student minibatches from the CUDA graph equal them "
+              f"launched one by one, bit for bit (loss {l1:.6f} / {l0:.6f})")
+        no_kernel_ran(wrappers, plains, "phase 25b's distillation")
+
+        # ---- 25c. entry() on the card against the CPU --------------------------------------
+        wrappers, plains = zero_counters()
+        fn, (model, st) = entry_mod.entry(dev.type)
+        with torch.no_grad():
+            card = fn(model, st)
+            host = fn(copy.deepcopy(model).cpu(), dataclasses.replace(
+                st, **{f.name: getattr(st, f.name).cpu() for f in dataclasses.fields(st)}))
+        check([tuple(x.shape) for x in card] == [(64, 6), (64,)],
+              f"phase 25c: entry() gives logits [64, 6] and values [64]")
+        entry_err = card_vs_cpu("phase 25c entry() forward", card, host)
+        no_kernel_ran(wrappers, plains, "phase 25c's entry()")
+
+        # ---- 25d. the record_episode example ---------------------------------------------------
+        wrappers, plains = zero_counters()
+        here = os.getcwd()
+        t0 = time.perf_counter()
+        try:
+            os.chdir(tmp)
+            where = Path(record_episode.main(["--device", dev.type]))
+            gifs = sorted((tmp / where).glob("*.gif"))
+        finally:
+            os.chdir(here)
+        seconds["record_episode"] = time.perf_counter() - t0
+        check(len(gifs) == 1 and gifs[0].stat().st_size > 0,
+              f"phase 25d: record_episode wrote one GIF: {gifs}")
+        gif = f"{gifs[0].name} ({gifs[0].stat().st_size} bytes)"
+        no_kernel_ran(wrappers, plains, "phase 25d's example")
+    ft_first = [c for c in curve if c["update"] > 1]
+    print(f"{tag} phase 25a finetune_canonical {' '.join(FT_ARGS)} on 21x21: updates "
+          + "; ".join(f"{u['update']}{' (value-only)' if u['value_only'] else ''} loss "
+                      f"{u['loss']:.4f} v_loss {u['v_loss']:.4f} entropy {u['entropy']:.4f} "
+                      f"train sr {u['success_rate']:.4f}" for u in ft["updates"])
+          + f"; evals {[c['eval'] for c in curve]}, shipped {doc['best_checkpoint']}; policy "
+          f"head kept through the value-only update: {ft['policy_head_after_warmup']}; "
+          f"joint evals {len(ft_first)}")
+    print(f"{tag} phase 25b pixel_distill {' '.join(DISTILL_ARGS)} on 21x21: rounds "
+          + "; ".join(json.dumps({k: (round(v, 1) if isinstance(v, float) else v)
+                                  for k, v in r.items()}) for r in dist["rounds"])
+          + f"; final {section['final_eval']['success_rate']:.4f} argmax / "
+          f"{section['final_eval_sampled']['success_rate']:.4f} sampled; images_from_cols = "
+          f"student_images over 256 live worlds ({holding} holding); {GRAPH_STEPS} student "
+          f"minibatches from the CUDA graph = launched one by one, bit for bit")
+    print(f"{tag} phase 25c entry() forward on the card vs the CPU: max |diff| {entry_err:.3e}; "
+          f"phase 25d record_episode wrote {gif}; "
+          f"seconds (host clock) {json.dumps({k: round(v, 1) for k, v in seconds.items()})}; "
+          f"phase 25 took {time.perf_counter() - t_phase:.1f} s")
 
 
 def free_port() -> int:

@@ -17,15 +17,19 @@ each carry their own copy of these; the port keeps one:
   (``params_<tag>.pt``), where the JAX tools write a flax msgpack (and
   ``cpv_canonical`` an npz);
 * ``Metrics``, the tools' JSON-lines records, and ``write_curve``, their
-  evaluations in ``docs/canonical_curve.json``'s schema.
+  evaluations in ``docs/canonical_curve.json``'s schema;
+* ``relabel``: the scripted expert's labels of a DAgger round's rows, in
+  several host processes once the rows are many.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from gym_craftingworld_tpu_torch.config import EnvConfig
@@ -37,6 +41,7 @@ RUNS = REPO / "runs" / "torch"
 DEMOS = RUNS / "demos_canonical.npz"
 
 CFG = EnvConfig(height=21, width=21, max_steps=300, stacking=True)
+RELABEL_WORKERS, RELABEL_SPLIT = 4, 20_000  # host processes of a large relabel
 
 
 def log(msg: str) -> None:
@@ -155,8 +160,35 @@ def write_curve(metrics: Path, out: Path) -> list:
     return curve
 
 
+def shown(path) -> str:
+    """``path`` as a record names it: relative to the checkout when inside it."""
+    p = Path(path).resolve()
+    return str(p.relative_to(REPO)) if p.is_relative_to(REPO) else str(path)
+
+
 def seconds_since(t0: float, device) -> float:
     """Host seconds since ``t0``, after the card has finished its queue."""
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
     return time.perf_counter() - t0
+
+
+def relabel(cfg: EnvConfig, host: dict, workers: int | None = None) -> SnapDataset:
+    """``dagger.expert_relabel`` of the rows ``host``, in ``workers`` host
+    processes, a contiguous chunk each (by default ``RELABEL_WORKERS``, at
+    most the host's cores, once there are ``RELABEL_SPLIT`` rows, else one).
+    They are spawned, not forked, so none inherits the card's context, and
+    label with numpy only. The expert's action depends only on the row it
+    labels, so the labels are the same."""
+    n = len(host["agent_key"])
+    if workers is None:
+        workers = min(RELABEL_WORKERS, os.cpu_count() or 1) if n >= RELABEL_SPLIT else 1
+    if workers <= 1 or n < 2:
+        return dagger.expert_relabel(cfg, host)
+    import multiprocessing
+
+    cuts = np.linspace(0, n, workers + 1).astype(int)
+    chunks = [(cfg, {k: v[lo:hi] for k, v in host.items()}) for lo, hi in zip(cuts[:-1], cuts[1:])]
+    with multiprocessing.get_context("spawn").Pool(workers) as pool:
+        parts = pool.starmap(dagger.expert_relabel, chunks)
+    return SnapDataset(*[np.concatenate(cols) for cols in zip(*parts)])

@@ -18,7 +18,8 @@ Protocol, as in JAX:
     completes more than one task.
 
 What differs from JAX: the pool comes from ``core/reset.generate_pool`` on a
-``torch.Generator`` seeded ``--seed``, so its worlds differ from JAX's; the
+``torch.Generator`` seeded ``--seed``, so its worlds differ from JAX's, unless
+``--pool-npz`` gives JAX's own (``load_pool``); the
 rollouts are eager loops that freeze finished episodes
 (``train/dagger._rollout_states``, ``_eval_batch_grid``), whose ``sample``
 draws are Gumbel noise and ``argmax_eps`` draws uniforms and moves from a
@@ -40,6 +41,8 @@ run; ``--matrix-only`` evaluates ``params.pt`` (phase 4 alone).
     python -m gym_craftingworld_tpu_torch.tools.cpv_canonical --smoke       # tiny, CPU
     python -m gym_craftingworld_tpu_torch.tools.cpv_canonical --resume      # after a cut
     python -m gym_craftingworld_tpu_torch.tools.cpv_canonical --matrix-only
+    python -m gym_craftingworld_tpu_torch.tools.cpv_canonical \
+        --pool-npz gym_craftingworld_tpu_torch/tools/records/cpv_pool_jax_seed7.npz  # JAX's worlds
 """
 
 from __future__ import annotations
@@ -61,7 +64,7 @@ from gym_craftingworld_tpu_torch.config import EnvConfig, ray_config
 from gym_craftingworld_tpu_torch.core.reset import generate_pool
 from gym_craftingworld_tpu_torch.core.state import EnvState
 from gym_craftingworld_tpu_torch.models.cpv import init_cpv_grid
-from gym_craftingworld_tpu_torch.tools._canonical import (REPO, RUNS, load_params, log,
+from gym_craftingworld_tpu_torch.tools._canonical import (REPO, RUNS, load_params, log, relabel,
                                                           save_params, seconds_since)
 from gym_craftingworld_tpu_torch.tools._cpv import RANK, apply_predecessors_np
 from gym_craftingworld_tpu_torch.train import dagger
@@ -74,7 +77,6 @@ SAVE = RUNS / "cpv_canonical"
 PAIRS = list(itertools.combinations(range(C.N_TASKS), 2))
 TRIPLES = list(itertools.combinations(range(C.N_TASKS), 3))
 SMOKE_TRIPLES = [(0, 1, 2)]  # --smoke evaluates one triple
-RELABEL_WORKERS, RELABEL_SPLIT = 4, 20_000  # host processes of a large relabel
 SMOKE = ["--pool", "8", "--singles-per-task", "2", "--handoff-episodes", "8", "--bc-epochs", "1",
          "--dagger-rounds", "1", "--dagger-episodes", "4", "--dagger-epochs", "1",
          "--cell-episodes", "4", "--channels", "8", "--hidden", "32", "--batch", "64",
@@ -92,6 +94,17 @@ def make_pool(cfg: EnvConfig, seed: int, n: int, device="cuda"):
     numpy (objects int8[n, H, W], agent int32[n, 2])."""
     objects, agent = generate_pool(cfg, torch.Generator(device=device).manual_seed(seed), n)
     return objects.cpu().numpy(), agent.cpu().numpy().astype(np.int32)
+
+
+def load_pool(path, n: int):
+    """A pool saved as npz (``objects`` int8[n, H, W], ``agent`` int32[n, 2]),
+    such as ``tools/records/cpv_pool_jax_seed7.npz``, the JAX tool's
+    ``make_pool(ray_config(), 7, 256)``; it must hold ``n`` worlds."""
+    with np.load(path) as z:
+        objects, agent = z["objects"], z["agent"]
+    if len(objects) != n or len(agent) != n:
+        raise ValueError(f"{path} holds {len(objects)} worlds, not --pool {n}")
+    return objects.astype(np.int8), agent.astype(np.int32)
 
 
 def build_start_states(cfg: EnvConfig, pool_objects, pool_agent, widx, pending, preds, rng,
@@ -270,37 +283,18 @@ def salvageable(cols: dict, live: np.ndarray, tasks):
     return host, task_rows
 
 
-def relabel(cfg: EnvConfig, host: dict, workers: int = 1) -> SnapDataset:
-    """``dagger.expert_relabel`` of the rows ``host``, in ``workers`` host
-    processes, a contiguous chunk each; they are spawned, not forked, so
-    none inherits the card's context, and label with numpy only. The
-    expert's action depends only on the row it labels, so the labels are the
-    same."""
-    n = len(host["agent_key"])
-    if workers <= 1 or n < 2:
-        return dagger.expert_relabel(cfg, host)
-    import multiprocessing
-
-    cuts = np.linspace(0, n, workers + 1).astype(int)
-    chunks = [(cfg, {k: v[lo:hi] for k, v in host.items()}) for lo, hi in zip(cuts[:-1], cuts[1:])]
-    with multiprocessing.get_context("spawn").Pool(workers) as pool:
-        parts = pool.starmap(dagger.expert_relabel, chunks)
-    return SnapDataset(*[np.concatenate(cols) for cols in zip(*parts)])
-
-
 def dagger_collect(cfg: EnvConfig, model, state: EnvState, tasks, seed, mode="argmax_eps"):
     """Policy rollout from handoff starts (draws from a generator seeded
     ``seed``); expert labels on every salvageable live state, in
-    ``RELABEL_WORKERS`` host processes once there are ``RELABEL_SPLIT`` rows
-    (``relabel``). Returns (labelled SnapDataset, task per row, policy
+    ``_canonical.RELABEL_WORKERS`` host processes once there are
+    ``RELABEL_SPLIT`` rows (``relabel``). Returns (labelled SnapDataset, task per row, policy
     success rate)."""
     gen = torch.Generator(device=state.objects.device).manual_seed(seed)
     cols, live, success = dagger._rollout_states(
         cfg, model, state, *mode_draws(mode, cfg.max_steps, state.objects.shape[0], gen))
     host, task_rows = salvageable({k: v.cpu().numpy() for k, v in cols.items()},
                                   live.cpu().numpy(), tasks)
-    workers = min(RELABEL_WORKERS, os.cpu_count() or 1) if len(task_rows) >= RELABEL_SPLIT else 1
-    return relabel(cfg, host, workers), task_rows, float(success.float().mean())
+    return relabel(cfg, host), task_rows, float(success.float().mean())
 
 
 # ---------------------------------------------------------------------------
@@ -552,6 +546,8 @@ def main(argv=None, pairs=None, triples=None) -> dict:
     ap.add_argument("--hidden", type=int, default=1024)
     ap.add_argument("--batch", type=int, default=4096)
     ap.add_argument("--seed", type=int, default=7)
+    ap.add_argument("--pool-npz", default=None, metavar="NPZ",
+                    help="the world pool from this file (load_pool) in place of make_pool's")
     ap.add_argument("--smoke", action="store_true", help="tiny 8x8 end-to-end check on the CPU")
     ap.add_argument("--out", default=str(OUT))
     ap.add_argument("--save-params", default=str(SAVE))
@@ -589,8 +585,12 @@ def main(argv=None, pairs=None, triples=None) -> dict:
     names = list(C.TASK_LIST)
     seconds, rounds, phase1 = {}, [], None
     rng = np.random.RandomState(args.seed)
-    pool_objects, pool_agent = make_pool(cfg, args.seed, args.pool, dev)
-    log(f"pool: {args.pool} worlds at {cfg.height}x{cfg.width} on {card}")
+    if args.pool_npz:
+        pool_objects, pool_agent = load_pool(args.pool_npz, args.pool)
+    else:
+        pool_objects, pool_agent = make_pool(cfg, args.seed, args.pool, dev)
+    log(f"pool: {args.pool} worlds at {cfg.height}x{cfg.width} "
+        f"({args.pool_npz or 'make_pool'}) on {card}")
     model = init_cpv_grid(torch.Generator(device=dev).manual_seed(args.seed + 1), cfg,
                           channels=args.channels, hidden=args.hidden)
     ts = dagger.init_bc_state(model)
