@@ -50,16 +50,23 @@ Tools and their counterparts in the JAX package's ``tools/``:
   engines' env-steps/s over the host's gloo ranks (``--cpu``, under
   ``torchrun``) and on one card (``--gpu``, the bench kernel and the packed
   scan, delta-timed); ``chip_smoke.py``'s phase 24a.
+* ``finetune_canonical`` <- ``tools/finetune_canonical.py`` and
+  ``pixel_distill`` <- ``tools/pixel_distill.py``: PPO of the canonical
+  GridPolicy under the exact-match reward, and its distillation into a pixel
+  student; ``relabel`` in ``_canonical`` labels their rows in host processes.
+* ``bench`` <- the root ``bench.py``: the headline env-steps/s, its
+  environment variables, layouts and JSON keys, timed with CUDA events.
+* ``fast_ppo_prof`` <- ``tools/fast_ppo_prof.py`` and ``collect_prof`` <-
+  ``tools/collect_prof.py``: one fast-PPO update by phase, and its collect
+  with pieces knocked out (CUDA-event and device ms, kernels launched).
+* ``ppo_prof`` <- ``tools/ppo_prof.py``: ``train/ppo.py`` by stage.
+* ``cpv_debug`` <- ``tools/cpv_debug.py``: the 8x8 CPV model's failures on
+  chosen pairs, classed by ``_cpv.failure_kind``.
+* ``expert_probe`` <- ``tools/expert_probe.py``: the scripted expert's
+  failures over the JAX tool's seeds and modes.
 
 The canonical tools run ``docs/training.md``'s recipe in steps that resume
 from their files (README, "Tools"); phase 23b drives them end to end at a
-small size. ``records/`` holds the learning runs made on an H100 with these
-tools.
-
-Still to port: ``finetune_canonical`` and ``pixel_distill``;
-``examples/record_episode.py``
-and a counterpart of ``__graft_entry__.entry``. The profiling probes
-(``collect_prof``, ``fast_ppo_prof``, ``ppo_prof``) and debug probes
-(``cpv_debug``, ``expert_probe``) are not ported: ``chip_smoke.py`` phases
-10 and 17 give the same breakdowns with ``torch.profiler``.
+small size, and phase 26 runs the last six small. ``records/`` holds the
+runs made on an H100 with these tools.
 """

@@ -42,6 +42,9 @@ DEMOS = RUNS / "demos_canonical.npz"
 
 CFG = EnvConfig(height=21, width=21, max_steps=300, stacking=True)
 RELABEL_WORKERS, RELABEL_SPLIT = 4, 20_000  # host processes of a large relabel
+# a relabel in host processes raises past 120 s + 1 ms a row: a state takes
+# 0.14-0.25 ms in one process, so a pool that overruns this has stalled
+RELABEL_BASE_S, RELABEL_ROW_S = 120.0, 1e-3
 
 
 def log(msg: str) -> None:
@@ -179,7 +182,9 @@ def relabel(cfg: EnvConfig, host: dict, workers: int | None = None) -> SnapDatas
     most the host's cores, once there are ``RELABEL_SPLIT`` rows, else one).
     They are spawned, not forked, so none inherits the card's context, and
     label with numpy only. The expert's action depends only on the row it
-    labels, so the labels are the same."""
+    labels, so the labels are the same. A pool that has not returned within
+    ``RELABEL_BASE_S`` + ``RELABEL_ROW_S`` a row is stopped and raises
+    ``multiprocessing.TimeoutError``."""
     n = len(host["agent_key"])
     if workers is None:
         workers = min(RELABEL_WORKERS, os.cpu_count() or 1) if n >= RELABEL_SPLIT else 1
@@ -190,5 +195,6 @@ def relabel(cfg: EnvConfig, host: dict, workers: int | None = None) -> SnapDatas
     cuts = np.linspace(0, n, workers + 1).astype(int)
     chunks = [(cfg, {k: v[lo:hi] for k, v in host.items()}) for lo, hi in zip(cuts[:-1], cuts[1:])]
     with multiprocessing.get_context("spawn").Pool(workers) as pool:
-        parts = pool.starmap(dagger.expert_relabel, chunks)
+        parts = pool.starmap_async(dagger.expert_relabel, chunks).get(
+            RELABEL_BASE_S + RELABEL_ROW_S * n)
     return SnapDataset(*[np.concatenate(cols) for cols in zip(*parts)])

@@ -9,7 +9,10 @@ carry their own copy; the port keeps one:
   lower rank, so handoff states are the ones a stacked run visits;
 * ``EFFECT``, ``MOVE_ITEM``, ``TOOL_OF``, ``MOVE_BIT``: the crafting effect
   table (craftingworld_ray.py:416-438) as world edits;
-* ``apply_predecessors_np``: the edit itself on bare numpy arrays.
+* ``apply_predecessors_np``: the edit itself on bare numpy arrays;
+* ``failure_kind``: the class of a failed episode, as JAX's
+  ``tools/cpv_debug.py`` names it (``cpv_canonical --trace`` and
+  ``cpv_debug``).
 
 All of it is numpy: drawn from the same ``np.random.RandomState`` in the
 same order, it edits a world bit for bit as the JAX tools do.
@@ -42,6 +45,7 @@ TOOL_OF = {C.T_MAKE_BREAD: C.AXE, C.T_CHOP_TREE: C.AXE,
            **MOVE_ITEM}
 MOVE_BIT = {C.STICKS: C.T_MOVE_STICKS, C.AXE: C.T_MOVE_AXE,
             C.HAMMER: C.T_MOVE_HAMMER}
+STALL_TAIL, STALL_DISTINCT = 12, 4  # a stall: the last 12 states take <= 4 values
 
 
 def apply_predecessors_np(objects, achieved, agent, holding, S, rng):
@@ -88,3 +92,14 @@ def apply_predecessors_np(objects, achieved, agent, holding, S, rng):
                 holding = tool  # object codes 1..3 == holding codes
                 achieved[MOVE_BIT[tool]] = 1
     return True, agent, holding
+
+
+def failure_kind(wrong_latch: bool, states) -> str:
+    """A failed episode's class: ``wrong_latch`` if an undesired latching bit
+    got set (unrecoverable), else ``stall`` if the last ``STALL_TAIL`` of its
+    ``states`` (hashable, in step order) take at most ``STALL_DISTINCT``
+    values (a limit cycle until the timeout), else ``timeout`` (distinct
+    states until the step cap)."""
+    if wrong_latch:
+        return "wrong_latch"
+    return "stall" if len(set(list(states)[-STALL_TAIL:])) <= STALL_DISTINCT else "timeout"

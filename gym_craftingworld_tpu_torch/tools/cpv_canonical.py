@@ -66,7 +66,7 @@ from gym_craftingworld_tpu_torch.core.state import EnvState
 from gym_craftingworld_tpu_torch.models.cpv import init_cpv_grid
 from gym_craftingworld_tpu_torch.tools._canonical import (REPO, RUNS, load_params, log, relabel,
                                                           save_params, seconds_since)
-from gym_craftingworld_tpu_torch.tools._cpv import RANK, apply_predecessors_np
+from gym_craftingworld_tpu_torch.tools._cpv import RANK, apply_predecessors_np, failure_kind
 from gym_craftingworld_tpu_torch.train import dagger
 from gym_craftingworld_tpu_torch.train.demos import NumpyExpert, SnapDataset, collect_batch
 from gym_craftingworld_tpu_torch.train.fast_ppo import AdamState
@@ -342,11 +342,11 @@ def trace_cell(cfg: EnvConfig, model, pool_objects, pool_agent, task_set, seed, 
     """Why a cell's episodes fail, in the classes of JAX's
     ``tools/cpv_debug.py``: the cell's episodes replayed as ``eval_cell``
     rolls them (the same start states and draws, so the same successes),
-    each failure counted as ``wrong_latch`` (an undesired latching bit set:
-    unrecoverable), else ``stall`` (its last 12 states take at most 4
-    distinct values: a limit cycle until timeout), else ``timeout``; and, by
-    task, the desired bits missing and the undesired bits set at its last
-    state. Returns {mode: counts}."""
+    each failure counted by ``_cpv.failure_kind`` as ``wrong_latch`` (an
+    undesired latching bit set: unrecoverable), else ``stall`` (its last 12
+    states take at most 4 distinct values: a limit cycle until timeout),
+    else ``timeout``; and, by task, the desired bits missing and the
+    undesired bits set at its last state. Returns {mode: counts}."""
     dev = next(model.parameters()).device
     state = cell_state(cfg, pool_objects, pool_agent, task_set, seed, episodes, dev)
     names = list(C.TASK_LIST)
@@ -365,12 +365,8 @@ def trace_cell(cfg: EnvConfig, model, pool_objects, pool_agent, task_set, seed, 
                "missing": {}, "undesired": {}}
         for b in np.flatnonzero(~success):
             n = int(live[:, b].sum())
-            if ((ach[:n, b] & ~des[:n, b] & dagger._LATCH_MASK) != 0).any():
-                kind = "wrong_latch"
-            elif len({r.tobytes() for r in rows[max(n - 12, 0):n, b]}) <= 4:
-                kind = "stall"
-            else:
-                kind = "timeout"
+            kind = failure_kind(((ach[:n, b] & ~des[:n, b] & dagger._LATCH_MASK) != 0).any(),
+                                (r.tobytes() for r in rows[:n, b]))
             rec[kind] += 1
             for key, bits in (("missing", des[n - 1, b] & ~ach[n - 1, b]),
                               ("undesired", ach[n - 1, b] & ~des[n - 1, b])):

@@ -236,6 +236,37 @@ def augment_pending(demos: bc.Demos, tasks, rank, seed, grid_dim):
     return bc.Demos(feats[keep], demos.actions[keep], demos.episode[keep])
 
 
+def training_demos(episodes_per_task, seed, pool, device) -> bc.Demos:
+    """The behaviour-cloning set before DAgger: ``episodes_per_task``
+    single-task expert episodes of each skill, as many handoff episodes as
+    all of those together, and the pending-bit relabels of both."""
+    base = dict(size=(8, 8), max_steps=60, stacking=False, fixed_init_state=pool, device=device)
+    t0 = time.time()
+    grid_dim = 8 * 8 * C.N_CHANNELS
+    singles, single_tasks = [], []
+    for k, task in enumerate(C.TASK_LIST):
+        d = bc.collect_demos(episodes_per_task, seed=seed, selected_tasks=[task],
+                             random_warmup=25, feature_fn=obs_features_init, **base)
+        singles.append(d)
+        single_tasks.append(np.full(len(d.actions), k, np.int32))
+        log(f"demos[{task}]: {d.num_episodes} eps, {len(d.actions)} rows")
+    demos_s = bc.concat_demos(*singles)
+    tasks_s = np.concatenate(single_tasks)
+
+    n_ctx = episodes_per_task * C.N_TASKS
+    demos_c, tasks_c = collect_context_demos(n_ctx, seed, pool, RANK, device)
+    log(f"handoff demos: {demos_c.num_episodes} eps, {len(demos_c.actions)} rows")
+
+    demos_base = bc.concat_demos(demos_s, demos_c)
+    tasks_base = np.concatenate([tasks_s, tasks_c])
+    demos_p = augment_pending(demos_base, tasks_base, RANK, seed + 99, grid_dim)
+    demos_aug = bc.concat_demos(demos_base, demos_p)
+    log(f"dataset: {len(demos_aug.actions)} rows "
+        f"(singles {len(demos_s.actions)}, handoff {len(demos_c.actions)}, "
+        f"pending-relabel {len(demos_p.actions)}) in {time.time() - t0:.0f}s")
+    return demos_aug
+
+
 @torch.no_grad()
 def greedy_eval(model, pool_seed, eval_seed, episodes, n_tasks, selected_tasks, pool, stacking,
                 sample=False, device="cuda"):
@@ -294,33 +325,9 @@ def main(argv=None) -> dict:
     dev = torch.device(args.device)
     card = card_identity(dev)
     gen = lambda seed: torch.Generator(device=dev).manual_seed(seed)
-    base = dict(size=(8, 8), max_steps=60, stacking=False, fixed_init_state=args.pool,
-                device=dev)
     names = list(C.TASK_LIST)
 
-    t0 = time.time()
-    grid_dim = 8 * 8 * C.N_CHANNELS
-    singles, single_tasks = [], []
-    for k, task in enumerate(names):
-        d = bc.collect_demos(args.episodes_per_task, seed=args.seed, selected_tasks=[task],
-                             random_warmup=25, feature_fn=obs_features_init, **base)
-        singles.append(d)
-        single_tasks.append(np.full(len(d.actions), k, np.int32))
-        log(f"demos[{task}]: {d.num_episodes} eps, {len(d.actions)} rows")
-    demos_s = bc.concat_demos(*singles)
-    tasks_s = np.concatenate(single_tasks)
-
-    n_ctx = args.episodes_per_task * C.N_TASKS
-    demos_c, tasks_c = collect_context_demos(n_ctx, args.seed, args.pool, RANK, dev)
-    log(f"handoff demos: {demos_c.num_episodes} eps, {len(demos_c.actions)} rows")
-
-    demos_base = bc.concat_demos(demos_s, demos_c)
-    tasks_base = np.concatenate([tasks_s, tasks_c])
-    demos_p = augment_pending(demos_base, tasks_base, RANK, args.seed + 99, grid_dim)
-    demos_aug = bc.concat_demos(demos_base, demos_p)
-    log(f"dataset: {len(demos_aug.actions)} rows "
-        f"(singles {len(demos_s.actions)}, handoff {len(demos_c.actions)}, "
-        f"pending-relabel {len(demos_p.actions)}) in {time.time() - t0:.0f}s")
+    demos_aug = training_demos(args.episodes_per_task, args.seed, args.pool, dev)
 
     model = init_cpv(gen(args.seed + 1), 8, 8, hidden=args.hidden, with_init=True)
     scan_bc_train(demos_aug, gen(args.seed + 2), model, epochs=args.epochs, batch=512, lr=2e-3)

@@ -9,12 +9,16 @@ package's framework-free counter.
 The port adds what its tools (``gym_craftingworld_tpu_torch/tools/``) share:
 ``card_identity`` names the card and its power limit, ``timed_runs`` times a
 function with CUDA events (median and spread of n runs after a warm-up), and
-``device_time_ms`` reads a call's device time from ``torch.profiler``.
+``device_time_ms`` reads a call's device time from ``torch.profiler``;
+``kernel_wrappers`` and ``plain_versions`` name the hand-written kernels'
+wrappers and their plain versions, whose ``launches`` and ``calls`` counters
+``counted`` reads around a call.
 """
 
 from __future__ import annotations
 
 import contextlib
+import importlib
 import os
 import statistics
 import subprocess
@@ -142,3 +146,47 @@ def device_time_ms(fn, reps: int = 10) -> dict:
     lost = sum(c.correlation_id() not in device for c in launches)
     return {"ms": sum(kernels.values()), "kernels": kernels,
             "launches": len(launches) / reps, "lost": lost}
+
+
+def kernel_wrappers(*names) -> dict:
+    """{name: wrapper} of the nine hand-written kernels, or of those named,
+    each counting its launches in ``launches``."""
+    from gym_craftingworld_tpu_torch.ops import fused_reset as fre
+    from gym_craftingworld_tpu_torch.ops import fused_update as fu
+    from gym_craftingworld_tpu_torch.ops import packed_fused as pf
+
+    fr = importlib.import_module("gym_craftingworld_tpu_torch.ops.fused_rollout")
+    frt = importlib.import_module("gym_craftingworld_tpu_torch.ops.fused_rollout_t")
+    every = {"packed_bench": pf.rollout_packed_bench, "packed_actions": pf.rollout_packed_actions,
+             "action_stream": pf.fused_action_stream, "pool": fre.pool_picks,
+             "ppo_grads": fu.fused_minibatch_grads,
+             "ppo_grads_indexed": fu.fused_minibatch_grads_indexed,
+             "fused_rollout": fr.rollout_slots_seeded,
+             "fused_rollout_actions": fr.rollout_slots_actions,
+             "fused_rollout_t": frt.rollout_t_seeded}
+    return {k: every[k] for k in names} if names else every
+
+
+def plain_versions() -> list:
+    """Every kernel's plain version, each counting its calls in ``calls``."""
+    from gym_craftingworld_tpu_torch.ops import fused_reset as fre
+    from gym_craftingworld_tpu_torch.ops import fused_update as fu
+    from gym_craftingworld_tpu_torch.ops import packed_fused as pf
+
+    fr = importlib.import_module("gym_craftingworld_tpu_torch.ops.fused_rollout")
+    frt = importlib.import_module("gym_craftingworld_tpu_torch.ops.fused_rollout_t")
+    return [fre.fresh_packed_plain, fu.ppo_grads_plain, pf.rollout_packed_actions_plain,
+            pf.rollout_packed_bench_plain, pf.action_stream_plain, fr.rollout_slots_seeded_plain,
+            fr.rollout_slots_actions_plain, frt.rollout_t_seeded_plain]
+
+
+def counted(fn):
+    """``(fn(), launches, calls)``: the kernels ``fn()`` launched and the plain
+    versions it called, as {name: count} of those that ran."""
+    wrappers, plains = kernel_wrappers(), plain_versions()
+    before = ({k: w.launches for k, w in wrappers.items()}, [f.calls for f in plains])
+    out = fn()
+    launches = {k: w.launches - before[0][k] for k, w in wrappers.items()}
+    calls = {f.__name__: f.calls - c for f, c in zip(plains, before[1])}
+    return (out, {k: n for k, n in launches.items() if n},
+            {k: n for k, n in calls.items() if n})

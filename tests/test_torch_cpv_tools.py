@@ -56,6 +56,11 @@ def jcc():
 
 
 @pytest.fixture(scope="module")
+def jcm():
+    return jax_tool("cpv_matrix")
+
+
+@pytest.fixture(scope="module")
 def pool(jcc):
     """JAX's 8x8 pool of 16 worlds, as numpy."""
     return jcc.make_pool(CFG, 3, 16)
@@ -73,8 +78,7 @@ def aligned(r1: np.random.RandomState, r2: np.random.RandomState) -> bool:
     return all(np.array_equal(a, b) for a, b in zip(s1[1:], s2[1:]))
 
 
-def test_shared_tables_are_jax_s(jcc):
-    jcm = jax_tool("cpv_matrix")
+def test_shared_tables_are_jax_s(jcc, jcm):
     assert _cpv.ORDER == jcc._ORDER == jcm._ORDER and _cpv.RANK == jcc._RANK == jcm._RANK
     assert _cpv.EFFECT == jcc._EFFECT == jcm._EFFECT
     assert _cpv.MOVE_ITEM == jcc._MOVE_ITEM == jcm._MOVE_ITEM
@@ -188,8 +192,7 @@ def test_phase1_cache_reads_back_as_jax_reads_it(tmp_path, expert):
     assert all(np.array_equal(a, b) for a, b in zip(data, snaps)) and np.array_equal(t, tasks)
 
 
-def test_the_8x8_augment_pending_matches_jax():
-    jcm = jax_tool("cpv_matrix")
+def test_the_8x8_augment_pending_matches_jax(jcm):
     rng = np.random.default_rng(0)
     n, dim = 200, 8 * 8 * 12 + 18
     feats = (rng.random((n, dim)) < 0.1).astype(np.float32)
@@ -203,11 +206,10 @@ def test_the_8x8_augment_pending_matches_jax():
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
-def test_the_8x8_apply_predecessors_matches_jax(seed):
+def test_the_8x8_apply_predecessors_matches_jax(jcm, seed):
     """The façade edit: from the same reset state (the JAX env's, carried
     across), both envs hold the same state afterwards, the port's cache is
     cleared, and the stream is aligned."""
-    jcm = jax_tool("cpv_matrix")
     jenv = JEnv(seed=seed, size=(8, 8), max_steps=60, stacking=False, fixed_init_state=4)
     tenv = TEnv(seed=seed, size=(8, 8), max_steps=60, stacking=False, device="cpu")
     r_j, r_t = np.random.RandomState(seed), np.random.RandomState(seed)
@@ -230,7 +232,8 @@ def test_the_8x8_apply_predecessors_matches_jax(seed):
 def trained(jcc, pool):
     """A CPVGridPolicy JAX trained on singles and handoffs from the pool (its
     greedy episodes neither all won nor all lost), its variables as numpy,
-    and the port's module holding them."""
+    the port's module holding them, the rows it trained on and its optimizer
+    state as numpy (JAX's epoch donates the state it is given)."""
     rng = np.random.RandomState(0)
     parts = []
     for j in range(9):
@@ -244,8 +247,9 @@ def trained(jcc, pool):
     ts = jdagger.BCTrainState(v, jdagger._make_tx(3e-3).init(v))
     model, ts, _ = jdagger.bc_train_snaps(CFG, snaps, key=1, model_and_state=(model, ts),
                                           epochs=16, batch_size=128, lr=3e-3)
-    params = jax.tree.map(np.asarray, ts.params)
-    return model, params, interop.cpv_grid_policy_from_numpy(params, device="cpu")
+    params, opt_state = jax.tree.map(np.asarray, (ts.params, ts.opt_state))
+    return (model, params, interop.cpv_grid_policy_from_numpy(params, device="cpu"), snaps,
+            opt_state)
 
 
 def agreeing(model, params, port, cols, live) -> np.ndarray:
@@ -267,7 +271,7 @@ def test_argmax_rollout_and_cell_success_match_jax(jcc, pool, trained):
     the envs whose argmaxes agree at every visited state (at least all but
     two of 32); the rates equal JAX's where all agree. Some episodes of
     each are won, some lost."""
-    model, params, port = trained
+    model, params, port, *_ = trained
     r_j, r_t = np.random.RandomState(4), np.random.RandomState(4)
     js, _ = jcc.draw_handoff_batch(CFG, *pool, 32, r_j)
     ts, _ = cc.draw_handoff_batch(tcfg(CFG), *pool, 32, r_t, device="cpu")
@@ -305,6 +309,39 @@ def test_argmax_rollout_and_cell_success_match_jax(jcc, pool, trained):
         assert cc.eval_cell(tcfg(CFG), port, *pool, cell, seed, n)["argmax"] == w
 
 
+def test_bc_train_snaps_one_epoch_of_the_cpv_policy_matches_jax(trained):
+    """One epoch of ``bc_train_snaps`` on the CPVGridPolicy (goal through the
+    plan vector only), continued from JAX's carried ``BCTrainState`` with
+    JAX's permutation over the CPV tool's own rows, as
+    ``tests/test_torch_dagger.py`` holds it for the GridPolicy: the loss
+    within rtol 1e-3 / atol 1e-3 (measured 1.2e-5), the accuracy within 2
+    rows a minibatch, atol 2/256 (measured 4.9e-4), every parameter within
+    2e-3 relative L2 (measured max 4.4e-4, ``conv0.bias``), the Adam count
+    exact."""
+    model, params, _, snaps, opt_state = trained
+    key = jax.random.PRNGKey(7)
+    start = jdagger.BCTrainState(*jax.tree.map(jnp.asarray, (params, opt_state)))
+    _, jts, jh = jdagger.bc_train_snaps(CFG, snaps, key, model_and_state=(model, start), epochs=1,
+                                        batch_size=256, lr=3e-4)
+    # the permutation bc_train_snaps draws from ``key``
+    key, _ = jax.random.split(key)
+    _, k_perm = jax.random.split(key)
+    perm = np.array(jax.random.permutation(k_perm, snaps.num_rows))
+    tts, th = tdagger.bc_train_snaps(tcfg(CFG), snaps, torch.Generator(),
+                                     state=interop.bc_train_state_from_numpy(params, opt_state,
+                                                                             device="cpu"),
+                                     epochs=1, batch_size=256, lr=3e-4, perms=[perm])
+    assert snaps.num_rows > 2 * 256
+    np.testing.assert_allclose(th[0]["loss"], jh[0]["loss"], rtol=1e-3, atol=1e-3)
+    np.testing.assert_allclose(th[0]["accuracy"], jh[0]["accuracy"], rtol=0, atol=2 / 256)
+    want = interop._flat_tree(jax.tree.map(np.asarray, jts.params["params"]))
+    got = {k: v.detach().numpy() for k, v in tts.params.named_parameters()}
+    assert sorted(got) == sorted(want) and "task_embed" in got
+    for k, w in want.items():  # (the value head takes no gradient: zeros both)
+        assert np.linalg.norm(got[k] - w) <= 2e-3 * np.linalg.norm(w), k
+    assert int(tts.opt_state.count) == int(jax.tree.map(np.asarray, jts.opt_state)[1][0].count)
+
+
 def test_cell_seeds_are_jax_s():
     """The seeds JAX's matrix gives a single, a pair and a triple
     (``tools/cpv_canonical.py:672-694``)."""
@@ -317,7 +354,7 @@ def test_trace_cell_replays_eval_cell(pool, trained):
     """``trace_cell`` rolls a cell's episodes as ``eval_cell`` does: the same
     success rate in both modes; its failure classes add up to the failures,
     and every failure misses a desired bit or holds an undesired one."""
-    _, _, port = trained
+    _, _, port, *_ = trained
     for cell in ((1,), (1, 3)):
         seed = cc.cell_seed(5, cell)
         rates = cc.eval_cell(tcfg(CFG), port, *pool, cell, seed, 32)

@@ -15,7 +15,7 @@ import os
 import signal
 import subprocess
 import sys
-import time
+import threading
 
 import jax
 import numpy as np
@@ -40,6 +40,9 @@ _ARGS = [
     "--log-every", "1", "--ckpt-every", "2", "--device", "cpu",
 ]
 _VOLATILE = {"env_steps_per_s", "wall_s"}  # timing fields differ between runs
+# each run takes 5-10 s with six test workers on 8 cores: one that runs past
+# this has stalled
+RUN_TIMEOUT_S = 120
 RUN = [sys.executable, "-m", "gym_craftingworld_tpu_torch.train.run"]
 
 
@@ -59,7 +62,8 @@ def _metrics(lines):
 
 
 def _run(cmd):
-    res = subprocess.run(cmd, env=_env(), capture_output=True, text=True, timeout=600, cwd=ROOT)
+    res = subprocess.run(cmd, env=_env(), capture_output=True, text=True, timeout=RUN_TIMEOUT_S,
+                         cwd=ROOT)
     assert res.returncode == 0, res.stderr[-3000:]
     return _metrics(res.stdout.splitlines())
 
@@ -77,17 +81,19 @@ def test_killed_run_resumes_bit_identically(full, tmp_path):
     cmd = RUN + _ARGS + ["--updates", "4", "--ckpt-dir", str(tmp_path)]
     proc = subprocess.Popen(cmd, env=_env(), stdout=subprocess.PIPE, text=True, cwd=ROOT)
     pre_kill = []
-    deadline = time.time() + 600
+    # a run that stalls without a line is killed, which ends the read below
+    watchdog = threading.Timer(RUN_TIMEOUT_S, proc.kill)
+    watchdog.start()
     try:
         for line in proc.stdout:
             pre_kill.append(line)
             if '"checkpoint"' in line and "step_2" in line:
                 os.kill(proc.pid, signal.SIGKILL)
                 break
-            assert time.time() < deadline, "no checkpoint before deadline"
         else:
-            pytest.fail(f"run ended without checkpointing: {pre_kill}")
+            pytest.fail(f"run ended without checkpointing within {RUN_TIMEOUT_S} s: {pre_kill}")
     finally:
+        watchdog.cancel()
         proc.wait(timeout=60)
     pre = _metrics(pre_kill)
     assert set(pre) >= {0, 1}

@@ -22,6 +22,9 @@ import torch
 
 TESTS = Path(__file__).resolve().parent
 ROOT = TESTS.parent
+# the slowest spawn of the sharded tests took 6.7 s with six test workers
+# busy on 8 cores: a spawn that runs nine times as long has stalled
+SPAWN_TIMEOUT_S = 60
 
 _WORKER = r"""
 import importlib, os, sys
@@ -44,7 +47,7 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def spawn(target: str, world: int, out_dir, *args, timeout: float = 400) -> None:
+def spawn(target: str, world: int, out_dir, *args, timeout: float = SPAWN_TIMEOUT_S) -> None:
     """Run ``target`` on ``world`` CPU ranks; raise with the output of a rank
     that fails or runs past ``timeout`` seconds."""
     port = str(free_port())
