@@ -12,6 +12,7 @@
     python3 chip_smoke.py --cpv         # phases 1 and 24 only
     python3 chip_smoke.py --distill     # phases 1 and 25 only
     python3 chip_smoke.py --tools       # phases 1 and 26 only
+    python3 chip_smoke.py --keys        # phases 1 and 27 only
 
 Needs one CUDA card and ``nvcc`` (on PATH or under CUDA_HOME); imports
 nothing of JAX. Phases, each of which must pass:
@@ -23,7 +24,8 @@ nothing of JAX. Phases, each of which must pass:
    pipe class (integer, FMA, memory, other), from which its issue bounds are
    taken; then check the pipe classes on the card (``pipe_probe``);
 2. main path, with the kernels' launch counters set to 0 just before: reset
-   16,384 worlds on the 21x21 grid, convert them to slots, run the fused bench
+   16,384 worlds on the 21x21 grid (the keyed-draw kernels, phase 27),
+   convert them to slots, run the fused bench
    rollout, then fetch its action stream and replay it step by step; the
    replay must give the bench's final state and checksum;
 3. actions kernel against its plain version (bit-exact) on 21x21 at
@@ -145,6 +147,10 @@ nothing of JAX. Phases, each of which must pass:
    with a checkpoint at 2, and a resume from it that repeats updates 2-3 bit
    for bit; the cost of deterministic algorithms on its update;
    ``dryrun_multichip(1)``; ``scaling_report``'s one-card rates;
+   ``train/ppo.py`` through ``ppo_train_step_sharded`` (mlp, 4,096 envs) at
+   world 1 and 2: each rank's start state its columns of
+   ``reset_from_seed``, each rank's draws (the keyed wrappers' counters) its
+   B/W envs only, ms an update;
 22. learning: the default ``FastPPOConfig`` on single-task 8x8 at 4,096 envs
    for 192 updates (``tools/fast_ppo_sweep.learning_curve``), seeds 0 and 1,
    through the gradient kernel and through autograd, every counter set to 0
@@ -222,7 +228,25 @@ nothing of JAX. Phases, each of which must pass:
    ``FAST_PROF_BAND`` / ``COLLECT_PROF_BAND`` of ``full``; (d) ``ppo_prof``
    at its default B, 3 runs a stage; (e) ``cpv_debug`` and
    ``expert_probe`` at their smallest settings. Every JSON line parses and
-   carries the card's name; the phase takes at most ``TOOLS_BUDGET_S``.
+   carries the card's name; the phase takes at most ``TOOLS_BUDGET_S``;
+27. the keyed draws (``ops/keyed_draws.py``, ``csrc/keyed_draws.cu``): (a)
+   the reset kernel against its plain version bit for bit (fresh and pool
+   modes at 16,384 envs on 21x21, 4,096 on 8x8, 256 on 181x181, a task
+   selection, the world mode of ``generate_pool``) and the counter kernel
+   (split keys and ``randint`` of (64, 16,384), whole and a rank's
+   columns); (b) with their counters set to 0 just before, the keyed main
+   path: ``reset_from_seed(ray_config(), 0, 16384)`` and a T=64 auto-reset
+   rollout of ``randint(PRNGKey(3))``'s actions at 4,096 envs on 8x8
+   (max_steps 10), 66 reset and 3 counter launches, no plain version, every
+   field hashing to the JAX package's digests
+   (``tools/records/keyed_digests.json``, made on the CPU with JAX and held
+   there by ``tests/test_torch_keyed_reset.py``); (c) both kernels' times
+   by CUDA events beside their bounds and plain versions,
+   ``reset_from_seed``'s, the vector env's and the façade's.
+
+A phase that "launches no kernel" launches none of the nine kernels that
+replace the JAX package's Pallas kernels (``kernel_wrappers``); an env that
+resets from keys, in any phase, launches the keyed-draw kernels of phase 27.
 
 It prints one JSON line of per-kernel results, then, as its last line,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
@@ -235,7 +259,10 @@ moves, compare and index of an actions kernel's ring of loads ahead (``AHEAD``:
 the function's work, not the ring's), on each of 132 x 4 schedulers at the
 max SM clock: one warp-instruction a clock, and one on the integer pipe every
 second clock (``pipe_bound_ms``). The single-rate
-bound (``instruction_bound_ms``) is printed beside it.
+bound (``instruction_bound_ms``) is printed beside it. The keyed-draw
+kernels' operations are counted from the algorithm (``keyed_bound``: 71
+integer operations a Threefry draw, 2 more to make a float) over 64 integer
+lanes an SM-clock.
 """
 
 from __future__ import annotations
@@ -378,6 +405,21 @@ def kernel_wrappers(*names):
     from gym_craftingworld_tpu_torch.utils import profiling
 
     return profiling.kernel_wrappers(*names)
+
+
+def keyed_wrappers() -> dict:
+    """{name: wrapper} of the keyed-draw kernels (``ops/keyed_draws.py``),
+    which replace no Pallas kernel, each counting ``launches``."""
+    from gym_craftingworld_tpu_torch.ops import keyed_draws as kd
+
+    return {"keyed_reset": kd.reset_draws_kernel, "keyed_counter": kd.counter_draws_kernel}
+
+
+def prng_key(seed: int):
+    """``jax.random.PRNGKey(seed)``'s key data (``ops/threefry.py``)."""
+    from gym_craftingworld_tpu_torch.ops.threefry import prng_key as key
+
+    return key(seed)
 
 
 # ---------------------------------------------------------------------------
@@ -796,7 +838,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
         capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
     SASS.update(sass_paths(path))
-    integer = ("cw_bench", "cw_actions", "cw_stream", "cw_pool", "cw_slot_rollout")
+    integer = ("cw_bench", "cw_actions", "cw_stream", "cw_pool", "cw_slot_rollout", "cw_keyed")
     print(f"{tag} max SM clock {SM_CLOCK_HZ / 1e6:.0f} MHz; SASS instructions of the integer "
           f"kernels, static (all, outermost loop) and on a warp's path (before the loop, a "
           f"trip, after): " + "; ".join(
@@ -818,8 +860,8 @@ def main() -> int:
         gradient_phase(cw, dev, tag)
         return 0
     alone = [a for a in ("--ladder", "--multi-device", "--learning", "--canonical", "--cpv",
-                         "--distill", "--tools") if a in sys.argv[1:]]
-    if alone:  # phases 11-13, 21, 22, 23, 24, 25 and/or 26 alone
+                         "--distill", "--tools", "--keys") if a in sys.argv[1:]]
+    if alone:  # phases 11-13, 21, 22, 23, 24, 25, 26 and/or 27 alone
         if "--ladder" in alone:
             ladder_phases(cw, dev, tag)
         if "--multi-device" in alone:
@@ -834,6 +876,8 @@ def main() -> int:
             distill_phase(cw, dev, tag)
         if "--tools" in alone:
             tools_phase(cw, dev, tag, card)
+        if "--keys" in alone:
+            keys_phase(cw, dev, tag)
         return 0
 
     cfg = cw.ray_config()
@@ -841,6 +885,7 @@ def main() -> int:
 
     # ---- 2. the main path, counted ---------------------------------------
     wrappers = kernel_wrappers("packed_bench", "packed_actions", "action_stream")
+    wrappers.update(keyed_wrappers())
     T_MAIN, SEED = cfg.max_steps, 1
     for w in wrappers.values():
         w.launches = 0
@@ -1085,6 +1130,7 @@ def main() -> int:
     cpv_phase(cw, dev, tag)
     distill_phase(cw, dev, tag)
     tools_phase(cw, dev, tag, card)
+    kernels += keys_phase(cw, dev, tag)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1763,7 +1809,7 @@ def ladder_phases(cw, dev, tag):
 
     T = 32
     gen.manual_seed(4)
-    for name, fn in (("grid rollout_random", lambda: cw.rollout_random(cfg, state, gen, T)),
+    for name, fn in (("grid rollout_random", lambda: cw.rollout_random(cfg, state, prng_key(4), T)),
                      ("rollout_slots_random", lambda: sm.rollout_slots_random(cfg, sl, gen, T)),
                      ("rollout_t_random", lambda: tr.rollout_t_random(cfg, sl, gen, T))):
         ms = time_ms(fn)
@@ -1821,12 +1867,13 @@ def front_end_phases(cw, dev, tag):
     wrappers = kernel_wrappers()
     for w in wrappers.values():
         w.launches = 0
+    keyed = {k: w.launches for k, w in keyed_wrappers().items()}
     gen = torch.Generator(device=dev)
 
     # ---- 14. renders -----------------------------------------------------------
     gen.manual_seed(14)
     fresh = cw.reset_from_seed(cfg, 14, B, device=dev)
-    stepped, _ = cw.rollout_random(cfg, fresh, gen, 40)  # held items, crafted objects
+    stepped, _ = cw.rollout_random(cfg, fresh, prng_key(14), 40)  # held items, crafted objects
     renderers = {"render_ray": raster.render_ray, "render_altobs": raster.render_altobs,
                  "render_onehot": raster.render_onehot}
     for label, st in (("reset_from_seed", fresh), ("after 40 random steps", stepped)):
@@ -2000,8 +2047,11 @@ def front_end_phases(cw, dev, tag):
         del env, obs
     launches = {k: w.launches for k, w in wrappers.items()}
     check(all(n == 0 for n in launches.values()),
-          f"the front end runs plain PyTorch and no hand-written kernel: {launches}")
-    print(f"{tag} launch counters over phases 14-16: {launches}")
+          f"the front end runs plain PyTorch and none of the nine ported kernels: {launches}")
+    keyed = {k: w.launches - keyed[k] for k, w in keyed_wrappers().items()}
+    check(keyed["keyed_reset"] >= 3 * (320 + 64 * 4), f"the vector env's auto-reset launched "
+          f"the keyed reset kernel every step: {keyed}")
+    print(f"{tag} launch counters over phases 14-16: {launches}; keyed draws {keyed}")
 
 
 # ---------------------------------------------------------------------------
@@ -2240,7 +2290,7 @@ def policy_families_phase(cw, dev, tag):
     for f in plains:
         f.calls = 0
     gen = torch.Generator(device=dev).manual_seed(18)
-    st, _ = cw.rollout_random(cfg, cw.reset_from_seed(cfg, 18, 256, device=dev), gen, 40)
+    st, _ = cw.rollout_random(cfg, cw.reset_from_seed(cfg, 18, 256, device=dev), prng_key(18), 40)
     host = on_host(st)
     g = torch.Generator().manual_seed(18)  # drawn on the CPU, carried to the card by interop
     images = lambda s: (cnn.student_images(cfg, s.objects, s.agent, s.holding, s.goal_objects,
@@ -2407,7 +2457,8 @@ def imitation_phase(cw, dev, tag):
 
     # ---- features on the card -----------------------------------------------------
     gen.manual_seed(19)
-    st, _ = cw.rollout_random(cfg, cw.reset_from_seed(cfg, 19, CHECK_B, device=dev), gen, 60)
+    st, _ = cw.rollout_random(cfg, cw.reset_from_seed(cfg, 19, CHECK_B, device=dev), prng_key(19),
+                              60)
     cols = gp.snap_columns_from_state(cfg, st)
     host = on_host(st)
     agent = host.agent.numpy()
@@ -2585,7 +2636,7 @@ def recurrent_phase(cw, dev, tag):
           f"at the median; peak device memory {peak / 2**30:.3f} GiB; metrics {json.dumps(metrics)}")
 
     # ---- the GRU and CPVPolicy on the card against the CPU ------------------------
-    st, _ = cw.rollout_random(cfg, cw.reset_from_seed(cfg, 21, 256, device=dev), gen, 30)
+    st, _ = cw.rollout_random(cfg, cw.reset_from_seed(cfg, 21, 256, device=dev), prng_key(21), 30)
     host = on_host(st)
     rnn_host = interop.recurrent_actor_critic_from_numpy(interop.flax_params_to_numpy(ts.params),
                                                          device="cpu")
@@ -2598,7 +2649,7 @@ def recurrent_phase(cw, dev, tag):
             h, lc, vc = ts.params(h, obs, done)
             hh, lh, vh = rnn_host(hh, obs.cpu(), done.cpu())
             err = max(err, card_vs_cpu(f"RecurrentActorCritic step {t}", (h, lc, vc), (hh, lh, vh)))
-            st, _ = cw.rollout_random(cfg, st, gen, 1)
+            st, _ = cw.rollout_random(cfg, st, prng_key(22 + t), 1)
     print(f"{tag} RecurrentActorCritic hidden {p.hidden}, 8 steps with dones at B=256 on 21x21, "
           f"the card vs the CPU on the same parameters (hidden state carried on each): max abs "
           f"{err:.3e}")
@@ -2647,6 +2698,7 @@ def recurrent_phase(cw, dev, tag):
 
 MD_SEED, MD_STREAM_SEED = 21, 22  # the bench's and the action slab's Philox seeds
 MD_WORLD = 2  # ranks that share the one card under gloo
+MD_PPO_B = 4096  # envs of phase 21's train/ppo.py update under a mesh
 RUN_ENVS, RUN_UPDATES = 4096, 4  # run.py's check: 4 updates, a checkpoint at 2
 # the sharded fast- and pixel-PPO updates against the unsharded ones (only the
 # order of the sums over the ranks, and the update phase's per-rank widths,
@@ -2675,9 +2727,10 @@ def md_work(cw, dev, mesh, timed: bool) -> dict:
     """Phase 21's work over ``mesh`` (None: the unsharded run): the bench
     kernel (T = 300), the actions kernel on row 3's stream (T = 300), one
     default fast-PPO update, counted, with its collect and first minibatch's
-    gradient, and one default pixel-PPO update, at 16,384 envs on 21x21.
-    Returns CPU copies of the results, and with ``timed`` the ms of an update
-    and the share of it in ``all_reduce`` calls."""
+    gradient, and one default pixel-PPO update, at 16,384 envs on 21x21;
+    then ``md_ppo_work``. Returns CPU copies of the results, and with
+    ``timed`` the ms of an update and the share of it in ``all_reduce``
+    calls."""
     import copy
 
     from gym_craftingworld_tpu_torch.core import slots as sm
@@ -2767,6 +2820,47 @@ def md_work(cw, dev, mesh, timed: bool) -> dict:
     _, envx2, _, xm = fx.train_step_pixel(cfg, px, xts0, envx, gen(10), mesh)
     out["pixel_env"] = to_host(envx2)
     out["pixel_metrics"] = {k: float(v) for k, v in xm.items()}
+    del envx, envx2, xts0
+    out.update(md_ppo_work(cw, dev, mesh, timed))
+    return out
+
+
+def md_ppo_work(cw, dev, mesh, timed: bool) -> dict:
+    """``train/ppo.py`` over ``mesh`` (None: unsharded) through
+    ``ppo_train_step_sharded``, the counterpart of ``dryrun_multichip``'s path
+    1: the default mlp at ``MD_PPO_B`` envs on 21x21; the start state, the
+    envs and keys this rank drew at reset and in one update, the update's
+    metrics and, with ``timed``, its ms."""
+    from gym_craftingworld_tpu_torch.ops import keyed_draws as kd
+    from gym_craftingworld_tpu_torch.parallel import mesh as pm
+    from gym_craftingworld_tpu_torch.train import ppo as tppo
+
+    cfg, out = cw.ray_config(), {}
+    gen = lambda seed: torch.Generator(device=dev).manual_seed(seed)
+    pp = tppo.PPOConfig()
+    drawn = lambda: ((kd.reset_draws_kernel.envs + kd.reset_draws_plain.envs),
+                     (kd.counter_draws_kernel.elements + kd.counter_draws_plain.elements))
+    before = drawn()
+    if mesh is None:
+        env_p = cw.reset_from_seed(cfg, 0, MD_PPO_B, device=dev)
+        pstep = lambda ts, env_, g: tppo.train_step(cfg, pp, ts, env_, g)
+    else:
+        env_p = pm.reset_sharded(cfg, 0, MD_PPO_B, mesh)
+        pstep = pm.ppo_train_step_sharded(cfg, pp, mesh)
+    out["ppo_start"] = to_host(env_p)
+    after_reset = drawn()
+    pts, env_p, gp, ppo_m = pstep(tppo.init_train_state(gen(13), cfg, pp), env_p, gen(14))
+    out["ppo_drawn"] = dict(reset=[a - b for a, b in zip(after_reset, before)],
+                            update=[a - b for a, b in zip(drawn(), after_reset)])
+    out["ppo_metrics"] = {k: float(v) for k, v in ppo_m.items()}
+    if timed:
+        pstate = {"ts": pts, "env": env_p}
+
+        def ppo_update():
+            pstate["ts"], pstate["env"], _, _ = pstep(pstate["ts"], pstate["env"], gp)
+
+        out["ppo_ms"] = pm.time_ms(ppo_update, 3, dev)
+        del pstate
     return out
 
 
@@ -2865,6 +2959,32 @@ def md_compare(name: str, got: dict, ref: dict, tag: str) -> None:
           f"errors: " + "; ".join(f"{k} {a:.3e} {b:.3e} {c:.3e}" for k, (a, b, c) in errs.items()))
 
 
+def md_ppo(name: str, ranks: list, ref: dict, tag: str) -> None:
+    """``train/ppo.py`` under a mesh: each rank's start state is its columns
+    of ``reset_from_seed``; its reset drew its B/W envs' keys and worlds and
+    its update T x B/W worlds (its envs' auto-resets), no more; finite
+    metrics; ms an update (slowest rank)."""
+    n, world = MD_PPO_B // len(ranks), len(ranks)
+    T = 64  # PPOConfig().rollout_steps
+    for i, r in enumerate(ranks):
+        cols = slice(i * n, (i + 1) * n)
+        want = type(ref["ppo_start"])(**{f.name: getattr(ref["ppo_start"], f.name)[cols]
+                                         for f in dataclasses.fields(ref["ppo_start"])})
+        md_equal(r["ppo_start"], want, f"{name} rank {i}: ppo start state == its columns of "
+                                       f"reset_from_seed(cfg, 0, {MD_PPO_B})")
+        check(r["ppo_drawn"] == dict(reset=[n, n], update=[T * n, 0]),
+              f"{name} rank {i} drew only its envs: {r['ppo_drawn']} (want reset [{n}, {n}], "
+              f"update [{T * n}, 0])")
+        check(all(math.isfinite(v) for v in r["ppo_metrics"].values()),
+              f"{name} rank {i}: finite train/ppo.py metrics")
+    print(f"{tag} phase 21 {name}: train/ppo.py (mlp, hidden 512, T=64) at {MD_PPO_B} envs, "
+          f"{n} a rank: start states are reset_from_seed's columns, each rank drew {n} keys and "
+          f"envs at reset and {T * n} envs an update; "
+          f"{max(r['ppo_ms'] for r in ranks):.2f} ms an update (slowest rank, CUDA events, "
+          f"median of 3); loss {ranks[0]['ppo_metrics']['loss']:.5f} (unsharded "
+          f"{ref['ppo_metrics']['loss']:.5f})")
+
+
 def md_launches(name: str, per_rank: list, tag: str) -> None:
     """The counted fast-PPO update: per rank the pool, actions and indexed
     gradient kernels ran 1, 64 and at most 16 times, every minibatch ran on
@@ -2957,6 +3077,7 @@ def multi_device_phase(cw, dev, tag):
             else:
                 check(r[k] == ranks[0][k], f"world {MD_WORLD} {k} alike on every rank")
     md_compare(f"world {MD_WORLD} (gloo, two ranks sharing one card)", whole, ref, tag)
+    md_ppo(f"world {MD_WORLD}", ranks, ref, tag)
     md_launches(f"world {MD_WORLD}", [(r["fast_launches"], r["fast_calls"]) for r in ranks], tag)
     w2 = ranks[0]
     print(f"{tag} phase 21 world {MD_WORLD} (gloo, two ranks sharing one card): {t_ranks:.1f} s "
@@ -2978,6 +3099,7 @@ def multi_device_phase(cw, dev, tag):
     finally:
         torch.distributed.destroy_process_group()
     md_compare(f"world 1 ({backend})", w1, ref, tag)
+    md_ppo("world 1", [w1], ref, tag)
     md_launches("world 1", [(w1["fast_launches"], w1["fast_calls"])], tag)
     ar = w1["all_reduce"]
     print(f"{tag} phase 21 world 1 ({backend}): sharded fast-PPO update {w1['fast_ms']:.2f} ms "
@@ -3712,6 +3834,195 @@ def tools_phase(cw, dev, tag, card):
           f"{' '.join(PROBE_ARGS)}: {len(fails)} failures of 11; seconds (host clock) "
           f"{json.dumps({k: round(v, 1) for k, v in seconds.items()})}; phase 26 took {took:.1f} s")
     check(took <= TOOLS_BUDGET_S, f"phase 26 took {took:.1f} s, budget {TOOLS_BUDGET_S} s")
+
+
+# ---------------------------------------------------------------------------
+# the keyed draws (phase 27)
+# ---------------------------------------------------------------------------
+
+KEYED_SOURCE = "gym_craftingworld_tpu_torch/csrc/keyed_draws.cu"
+KEYED_DIGESTS = "gym_craftingworld_tpu_torch/tools/records/keyed_digests.json"
+# 32-bit integer operations of one Threefry-2x32 draw: 20 rounds of add,
+# funnel-shift rotate and xor, 5 key injections of two adds, the words' xor;
+# a uniform float adds a shift and an or (its subtraction is on the FMA pipe)
+THREEFRY_OPS, UNIFORM_OPS = 20 * 3 + 5 * 2 + 1, 2
+INT_LANES = 64  # 32-bit integer results a clock an SM (compute capability 9.0)
+# Threefry draws a reset makes per env besides its cells: split(key, 4), the
+# 7 goal keys, split(k_task), randint's 2 keys and 2 words, the permutation's
+# split and one word a selected task
+ENV_DRAWS = 4 + 7 + 2 + 4 + 2
+KEYED_POOL = 256  # pool size of 27a's pool-mode check
+
+
+def keyed_bound(draws: float, cell_draws: float, nbytes: float):
+    """(bound_ms, bound_by) of ``draws`` Threefry draws, ``cell_draws`` of
+    them made uniform floats, moving ``nbytes``: integer operations over 64
+    lanes an SM-clock on 132 SMs at the max SM clock, or bytes over 3.35 TB/s."""
+    ops = draws * THREEFRY_OPS + cell_draws * UNIFORM_OPS
+    return bound(ops / (INT_LANES * SMS * SM_CLOCK_HZ) * 1e3, nbytes)
+
+
+def events_ms(fn, n: int = 20) -> float:
+    """Device ms a call of ``fn()``: CUDA events around ``n`` calls launched
+    back to back after a warm-up, so the card never waits on the host."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def keys_phase(cw, dev, tag):
+    """Phase 27: the keyed draws. (a) both kernels against their plain
+    versions bit for bit; (b) the keyed main path, counted, against the JAX
+    package's digests; (c) times by CUDA events. Returns the two kernels'
+    rows of the ``{"kernels": ...}`` line."""
+    import hashlib
+
+    import numpy as np
+
+    from gym_craftingworld_tpu_torch import api, interop
+    from gym_craftingworld_tpu_torch.core.rollout import rollout
+    from gym_craftingworld_tpu_torch.ops import keyed_draws as kd
+
+    t_phase = time.perf_counter()
+    ray, flat = cw.ray_config(), cw.flat_config()
+    sel = cw.flat_config(selected_task_indices=(1, 4, 7), number_of_tasks=2)
+    big = cw.ray_config(height=181, width=181)
+
+    # ---- 27a. kernels against plain, bit for bit -----------------------------------
+    worst = 0.0
+
+    def same_draws(got, want, what):
+        nonlocal worst
+        for f, g, w in zip(kd.ResetDraws._fields, got, want):
+            check((g is None) == (w is None), f"{what}: {f} drawn by both or neither")
+            if g is None:
+                continue
+            check(g.dtype == w.dtype and g.shape == w.shape, f"{what}: {f} dtype and shape")
+            worst = max(worst, float((g.double() - w.double()).abs().max()))
+            check(torch.equal(g, w), f"{what}: {f} bit for bit, tolerance 0")
+
+    for label, cfg, B, mode, pool in (("21x21 fresh", ray, B_MAIN, "fresh", 0),
+                                      ("21x21 pool", ray, B_MAIN, "pool", KEYED_POOL),
+                                      ("8x8 fresh", flat, B_SMALL, "fresh", 0),
+                                      ("8x8 tasks (1, 4, 7) of 2, pool", sel, B_SMALL, "pool", 5),
+                                      ("181x181 fresh", big, 256, "fresh", 0),
+                                      ("21x21 world (generate_pool)", ray, 2 * B_MAIN, "world", 0)):
+        key = prng_key(27 + B).to(dev)
+        keys = kd.counter_draws_kernel(key, "split", 1, B, 0, B)[0]
+        check(torch.equal(keys, kd.counter_draws_plain(key, "split", 1, B, 0, B)[0]),
+              f"counter kernel split of {B} keys == plain, tolerance 0")
+        same_draws(kd.reset_draws_kernel(cfg, keys, mode, pool),
+                   kd.reset_draws_plain(cfg, keys, mode, pool), f"reset kernel {label} B={B}")
+        print(f"{tag} keyed reset kernel == plain: {label} B={B} n={cfg.n_cells}, every draw "
+              f"bit for bit; split kernel == plain")
+    key = prng_key(3).to(dev)
+    for label, cols in (("whole", slice(None)), ("rank 1 of 2", slice(B_MAIN // 2, B_MAIN))):
+        got = kd.randint_cols(key, (64, B_MAIN), 0, 6, cols, dev)
+        c0, width = kd._bounds(cols, B_MAIN)
+        want = kd.counter_draws_plain(key, "randint", 64, B_MAIN, c0, width, 0, 6)
+        check(torch.equal(got, want), f"counter kernel randint (64, {B_MAIN}) {label} == plain")
+        keys = kd.split_keys(key, B_MAIN, cols, dev)
+        check(torch.equal(keys, kd.counter_draws_plain(key, "split", 1, B_MAIN, c0, width)[0]),
+              f"counter kernel split {label} == plain")
+    freq = torch.bincount(got.reshape(-1).to(torch.int64), minlength=6).double() / got.numel()
+    print(f"{tag} keyed counter kernel == plain: randint (64, {B_MAIN}) in [0, 6) whole and "
+          f"rank 1 of 2's columns, split keys likewise; max |freq - 1/6| "
+          f"{float((freq - 1 / 6).abs().max()):.2e}")
+
+    # ---- 27b. the keyed main path, counted, against JAX's digests ------------------
+    digests = json.loads((HERE / KEYED_DIGESTS).read_text())
+    keyed = keyed_wrappers()
+    for w in keyed.values():
+        w.launches = 0
+    plain_calls = kd.reset_draws_plain.calls, kd.counter_draws_plain.calls
+    state = cw.reset_from_seed(ray, 0, 16384, device=dev)  # the digests' sizes
+    cfg10 = cw.flat_config(max_steps=10)
+    start = cw.reset_from_seed(cfg10, 0, 4096, device=dev)
+    actions = kd.randint_cols(prng_key(3), (64, 4096), 0, 6, device=dev)
+    rolled, out = rollout(cfg10, start, actions, auto_reset=True)
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in keyed.items()}
+    check(launches == {"keyed_reset": 2 + 64, "keyed_counter": 3},
+          f"the keyed path launched the reset kernel 66 times and the counter kernel 3: {launches}")
+    check((kd.reset_draws_plain.calls, kd.counter_draws_plain.calls) == plain_calls,
+          "the keyed path ran no plain version")
+    world_invariants(state, ray)
+    sha = lambda a: hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+    (reset_name, want_reset), (roll_name, want_roll) = digests.items()
+    got_reset = {k: sha(v) for k, v in interop.env_state_to_numpy(state).items()}
+    got_roll = {k: sha(v) for k, v in interop.env_state_to_numpy(rolled).items()}
+    got_roll.update(reward=sha(out.reward.cpu().numpy()), done=sha(out.done.cpu().numpy()))
+    for name, got, want in ((reset_name, got_reset, want_reset), (roll_name, got_roll, want_roll)):
+        bad = sorted(k for k in want if got.get(k) != want[k])
+        check(not bad and set(got) == set(want), f"{name} on the card == JAX's digests "
+              f"({KEYED_DIGESTS}); fields that differ: {bad}")
+    print(f"{tag} keyed main path: reset_from_seed(ray_config(), 0, 16384) and a T=64 "
+          f"auto-reset rollout at 4,096 envs on 8x8 (max_steps 10, {int(out.done.sum())} "
+          f"restarts) hash to JAX's digests, every field incl. rng; launches {launches}")
+    del state, start, rolled, out
+
+    # ---- 27c. times by CUDA events ---------------------------------------------------
+    B, n = B_MAIN, ray.n_cells
+    keys = kd.split_keys(prng_key(5), B, device=dev)
+    reset_ms = dict(ms=time_ms(lambda: kd.reset_draws_kernel(ray, keys)),
+                    device_ms=events_ms(lambda: kd.reset_draws_kernel(ray, keys)),
+                    plain_ms=time_ms(lambda: kd.reset_draws_plain(ray, keys)))
+    n_sel = len(ray.selected_task_indices)
+    reset_bound = keyed_bound(B * (8 * n + ENV_DRAWS + n_sel), B * 8 * n,
+                              B * (16 + 8 * n * 4 + 4 + 4 * n_sel + 16))
+    T = 64
+    counter_ms = dict(ms=time_ms(lambda: kd.randint_cols(key, (T, B), 0, 6, device=dev)),
+                      device_ms=events_ms(lambda: kd.randint_cols(key, (T, B), 0, 6, device=dev)),
+                      plain_ms=time_ms(lambda: kd.counter_draws_plain(key, "randint", T, B, 0, B,
+                                                                      0, 6)))
+    counter_bound = keyed_bound(2 * T * B + 2, 0, 16 + 4 * T * B)
+    split_ms = events_ms(lambda: kd.split_keys(key, B, device=dev))
+    for name, r, (b_ms, b_by), shape in (
+            ("keyed_reset", reset_ms, reset_bound, f"B={B} on 21x21"),
+            ("keyed_counter", counter_ms, counter_bound, f"randint (T={T}, B={B})")):
+        print(f"{tag} {name} {shape}: kernel {r['ms']:.4f} ms (CUDA events, one call, median "
+              f"of 5), device {r['device_ms']:.4f} ms (CUDA events over 20 back-to-back "
+              f"launches), plain {r['plain_ms']:.4f} ms; bound {b_ms:.5f} ms ({b_by}), share "
+              f"{b_ms / r['device_ms']:.1%} of the device time, {b_ms / r['ms']:.1%} of one call")
+    print(f"{tag} keyed_counter split of {B} keys: device {split_ms:.4f} ms")
+    ms = time_ms(lambda: cw.reset_from_seed(ray, 6, B, device=dev))
+    print(f"{tag} reset_from_seed B={B} 21x21: {ms:.4f} ms (CUDA events, median of 5; the "
+          f"generator reset read 3.7172 ms in PR 7's phase 6)")
+    env = api.CraftingWorldVectorEnv(B, obs_mode="onehot", seed=27, device=dev)
+    env.reset()
+    steps = kd.randint_cols(prng_key(27), (64, B), 0, 6, device=dev)
+
+    def run():  # keeps no step's observations
+        for a in steps:
+            env.step(a)
+    ms = time_ms(run, reps=3)
+    print(f"{tag} vector env onehot B={B}: {B * 64 / (ms / 1e3):.4e} env-steps/s "
+          f"({ms / 64:.4f} ms a step, 64 steps a run, median of 3, CUDA events)")
+    del env
+    env = api.make("craftingworld-v3", batch_size=B, seed=0, device=dev)
+    env.reset()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        env.step(np.arange(B) % 6)
+        times.append(time.perf_counter() - t0)
+    print(f"{tag} façade craftingworld-v3 batch_size={B}: steps "
+          f"{', '.join(f'{t * 1e3:.1f}' for t in times)} ms (host clock, obs copied to the host)")
+    del env
+    print(f"{tag} phase 27 took {time.perf_counter() - t_phase:.1f} s")
+    replaces = {"keyed_reset": "gym_craftingworld_tpu/core/reset.py:75",
+                "keyed_counter": "gym_craftingworld_tpu/core/reset.py:178"}
+    return [dict(name=name, route="cuda", source=KEYED_SOURCE, replaces=replaces[name],
+                 launches=launches[name], max_abs_err=worst, ms=r["ms"], plain_ms=r["plain_ms"],
+                 bound_ms=b[0], bound_by=b[1], library_ms=None)
+            for name, r, b in (("keyed_reset", reset_ms, reset_bound),
+                               ("keyed_counter", counter_ms, counter_bound))]
 
 
 def free_port() -> int:

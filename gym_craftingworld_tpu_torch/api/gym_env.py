@@ -20,8 +20,9 @@ live attributes RL code reads (``obs_one_hot``, ``agent_pos``,
 
 The state lives on ``device`` (the card unless the caller asks for the CPU)
 and observations come back as numpy arrays, as from the JAX façade.
-``rng_mode="fast"`` draws resets from a ``torch.Generator`` on that device
-seeded with ``seed``: the JAX package's distributions, from another stream.
+``rng_mode="fast"`` draws resets with JAX's key chain from ``PRNGKey(seed)``
+(``ops/threefry.py``; the per-env draws on the device), so its worlds equal
+the JAX façade's fast-mode worlds under the same seed.
 ``rng_mode="parity"`` draws them on the host with the reference's
 RandomState sequence (``parity/host_rng.py``), so an episode equals the JAX
 façade's parity-mode episode under the same seed and actions, step for step.
@@ -35,8 +36,8 @@ Differences by design (recorded deviations, as in the JAX package):
   * a custom ``task_list`` ordering is not supported: the reference's own task
     evaluation hard-codes canonical bit indices (craftingworld_ray.py:646-703),
     so reordering breaks it there too;
-  * ``allow_gif_storage`` takes its env id from the env's generator in both
-    modes and never from the parity RandomState, as the JAX façade does.
+  * ``allow_gif_storage`` takes its env id from the env's key in both modes
+    and never from the parity RandomState, as the JAX façade does.
 """
 
 from __future__ import annotations
@@ -57,6 +58,8 @@ from gym_craftingworld_tpu_torch.core.reset import (
 )
 from gym_craftingworld_tpu_torch.core.state import onehot_from_packed, packed_from_onehot
 from gym_craftingworld_tpu_torch.core.step import step as core_step
+from gym_craftingworld_tpu_torch.ops.keyed_draws import reset_draws, split_keys
+from gym_craftingworld_tpu_torch.ops.threefry import prng_key, randint, split
 from gym_craftingworld_tpu_torch.render import raster
 from gym_craftingworld_tpu_torch.utils.coordinates import Coord
 from gym_craftingworld_tpu_torch.utils.gif import GifRecorder
@@ -99,12 +102,12 @@ class CraftingWorldEnvRay:
         incremental_render=False,
         device="cuda",
     ):
-        """``rng_mode='fast'`` (default) draws resets from a
-        ``torch.Generator`` on ``device`` — same distributions as the
-        reference, different bitstream. ``rng_mode='parity'`` (batch_size 1
-        only) replays the reference's RandomState draw sequence on the host
-        (parity/host_rng.py), making whole episodes bit-exact with a
-        reference env under the same seed. ``incremental_render=True`` (pixel
+        """``rng_mode='fast'`` (default) draws resets with the JAX façade's
+        key chain, its per-env draws on ``device`` — the JAX façade's worlds:
+        the reference's distributions, from another bitstream.
+        ``rng_mode='parity'`` (batch_size 1 only) replays the reference's
+        RandomState draw sequence on the host (parity/host_rng.py), making
+        whole episodes bit-exact with a reference env under the same seed. ``incremental_render=True`` (pixel
         variants, batch_size 1 only) maintains the observation image on the
         host and repaints only the cells a step changed — the reference's
         ``render_edit`` fast path (craftingworld_ray.py:522-557) for
@@ -125,6 +128,7 @@ class CraftingWorldEnvRay:
         self.incremental_render = bool(incremental_render)
         self._inc = None
         self.device = torch.device(device)
+        torch.empty(0, device=self.device)  # no card: fail here, not at the first reset
         size = size or self._DEFAULT_SIZE
         max_steps = max_steps or self._DEFAULT_MAX_STEPS
         task_list = list(task_list) if task_list is not None else TASK_LIST
@@ -165,7 +169,8 @@ class CraftingWorldEnvRay:
             if self.rng_mode == "parity":
                 self._parity.generate_fixed_pool(self.fixed_init_state)
             else:
-                self._pool = _generate_pool(self.cfg, self._gen, self.fixed_init_state)
+                self._key, sub = split(self._key)
+                self._pool = _generate_pool(self.cfg, sub, self.fixed_init_state, self.device)
 
         self.action_space = spaces.Discrete(C.N_ACTIONS)
         self.observation_space = self._build_observation_space()
@@ -219,8 +224,7 @@ class CraftingWorldEnvRay:
         if seed is None:
             seed = int(np.random.SeedSequence().entropy % (2**31))
         self._seed = seed
-        self._gen = torch.Generator(device=self.device)
-        self._gen.manual_seed(seed)
+        self._key = prng_key(seed)
         if getattr(self, "rng_mode", "fast") == "parity":
             from gym_craftingworld_tpu_torch.parity.host_rng import ParityReset
 
@@ -231,12 +235,17 @@ class CraftingWorldEnvRay:
 
     # -- core plumbing -----------------------------------------------------
 
+    def _next_keys(self):
+        self._key, sub = split(self._key)
+        return split_keys(sub, self.batch_size, device=self.device)
+
     def _do_reset(self):
         if self.rng_mode == "parity":
             return self._parity.reset_state(self.device)
+        keys = self._next_keys()
         if self._pool is not None:
-            return _reset_from_pool(self.cfg, self.batch_size, self._gen, *self._pool)
-        return _core_reset(self.cfg, self.batch_size, self._gen, self.device)
+            return _reset_from_pool(self.cfg, keys, *self._pool)
+        return _core_reset(self.cfg, keys)
 
     def _unbatch(self, arr):
         """Return numpy; drop the leading batch axis when batch_size == 1."""
@@ -482,14 +491,14 @@ class CraftingWorldEnvRay:
         ``(state (H, W, 12) int one-hot, agent_position Coord)``. In parity
         mode the placement consumes the reference's RandomState shuffle, so
         successive calls match a reference env under the same seed draw for
-        draw; fast mode draws placement scores from the env's generator (same
+        draw; fast mode draws from the env's key, as the JAX façade does (same
         distribution — see core/reset.sample_world).
         """
         if self.rng_mode == "parity":
             objects, agent = self._parity._sample_world()
         else:
-            scores = torch.rand((1, self.cfg.n_cells), generator=self._gen,
-                                device=self.device)
+            self._key, sub = split(self._key)
+            scores = reset_draws(self.cfg, sub.to(self.device)[None], "world").world
             obj, agent, _ = _sample_world(self.cfg, scores)
             objects, agent = _numpy(obj[0]), _numpy(agent[0])
         state = onehot_from_packed(np.asarray(objects), agent, C.HOLD_NONE)
@@ -577,8 +586,8 @@ class CraftingWorldEnvRay:
     def allow_gif_storage(self, store_gif=True):
         self.store_gif = store_gif
         if store_gif:
-            env_id = int(torch.randint(0, 1_000_000, (), generator=self._gen,
-                                       device=self.device))
+            self._key, sub = split(self._key)
+            env_id = int(randint(sub, (), 0, 1_000_000))
             self._recorder = GifRecorder(
                 env_id=env_id, save_rate=self.render_save_rate
             )

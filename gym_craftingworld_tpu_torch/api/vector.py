@@ -8,11 +8,11 @@ infos)`` with per-env autoreset — while stepping, resets and rendering stay
 on the device, and so do the tensors it returns. No per-env Python objects
 exist.
 
-Auto-reset. The JAX package resets each done env from that env's own key.
-The port's ``rng`` field is opaque (``core/state.py``), so every step draws a
-fresh batch of worlds from the env's ``torch.Generator`` and takes the fresh
-world for each env whose step was done, as ``core/rollout.py`` does: the
-shapes stay fixed and a step makes no host sync.
+The key chain is JAX's (``vector.py:31,109-114``): ``reset`` splits the
+env's key and resets env ``b`` from key ``b`` of ``split(sub, num_envs)``,
+and each done env restarts from its own ``rng`` key, as ``core/rollout.py``
+does. So from the same seed and actions every state, reward and observation
+equals the JAX vector env's, and a step makes no host sync.
 """
 
 from __future__ import annotations
@@ -27,14 +27,14 @@ from gym_craftingworld_tpu_torch.core.reset import reset as core_reset
 from gym_craftingworld_tpu_torch.core.rollout import _select
 from gym_craftingworld_tpu_torch.core.state import EnvState
 from gym_craftingworld_tpu_torch.core.step import step as core_step
+from gym_craftingworld_tpu_torch.ops.keyed_draws import split_keys
+from gym_craftingworld_tpu_torch.ops.threefry import prng_key, split
 
 
-def _step_autoreset(cfg: EnvConfig, state: EnvState, actions, generator):
-    """One batched step; finished episodes restart from worlds freshly drawn
-    from ``generator``."""
+def _step_autoreset(cfg: EnvConfig, state: EnvState, actions):
+    """One batched step; finished episodes restart from their own keys."""
     state, res = core_step(cfg, state, actions)
-    fresh = core_reset(cfg, state.objects.shape[0], generator, state.objects.device)
-    return _select(res.done, fresh, state), res
+    return _select(res.done, core_reset(cfg, state.rng), state), res
 
 
 class CraftingWorldVectorEnv:
@@ -67,9 +67,9 @@ class CraftingWorldVectorEnv:
         self.num_envs = int(num_envs)
         self.obs_mode = obs_mode
         self.device = torch.device(device)
+        torch.empty(0, device=self.device)  # no card: fail here, not at the first reset
         self._seed = seed
-        self._gen = torch.Generator(device=self.device)
-        self._gen.manual_seed(seed)
+        self._key = prng_key(seed)
         self._state: EnvState | None = None
 
         self.single_action_space = spaces.Discrete(C.N_ACTIONS)
@@ -108,13 +108,15 @@ class CraftingWorldVectorEnv:
     def reset(self, *, seed=None, options=None):
         if seed is not None:
             self._seed = seed
-            self._gen.manual_seed(seed)
-        self._state = core_reset(self.cfg, self.num_envs, self._gen, self.device)
+            self._key = prng_key(seed)
+        self._key, sub = split(self._key)
+        keys = split_keys(sub, self.num_envs, device=self.device)
+        self._state = core_reset(self.cfg, keys)
         return self._obs(), {}
 
     def step(self, actions):
         actions = torch.as_tensor(actions, dtype=torch.int32, device=self.device)
-        self._state, res = _step_autoreset(self.cfg, self._state, actions, self._gen)
+        self._state, res = _step_autoreset(self.cfg, self._state, actions)
         obs = self._obs()
         rewards = res.reward
         # success → terminated; step-cap → truncated (gymnasium semantics)

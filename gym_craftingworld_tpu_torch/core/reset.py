@@ -7,13 +7,18 @@ reference reset pipeline (``craftingworld_ray.py:156-218``) in two layers:
   semantics of the JAX ``_reset_one``: task sampling, world sampling, goal
   imagination. Fed the draws that the JAX reset takes from its keys, it gives
   the JAX state field for field (``tests/test_torch_reset.py``).
-* ``reset`` and ``reset_from_seed`` draw those inputs with a
-  ``torch.Generator`` on the target device. ``torch`` and ``jax.random`` give
-  different numbers from one seed, so these resets agree with the JAX ones in
-  distribution, not bit for bit.
-* The fixed-init-state reset has the same two layers: ``generate_pool`` /
-  ``generate_pool_from_scores`` make the pool, ``reset_from_pool`` /
-  ``reset_from_pool_draws`` draw each env's world from it.
+* ``reset(cfg, keys)``, ``reset_from_pool``, ``generate_pool`` and
+  ``reset_from_seed`` take JAX's signatures: they make the draws that the
+  JAX functions make with ``jax.random`` from the same key data, bit for
+  bit (``ops/keyed_draws.py``: a kernel on the card, ``ops/threefry.py`` on
+  the CPU), so they give the JAX package's states field for field,
+  ``rng`` included (``tests/test_torch_keyed_reset.py``). Each reset stores
+  the env's next key (``k_next`` of ``split(key, 4)``) in ``rng``, from
+  which the env's auto-reset draws its next world.
+* ``reset_from_generator`` draws the same distributions from a
+  ``torch.Generator`` instead, for the callers whose JAX counterparts draw
+  from keys outside the env layer (the imitation and canonical tools); it
+  is the port's own and ``rng`` stays zero.
 
 World placement is one stable descending sort of iid uniform scores per env:
 iid scores rank the cells in a uniform permutation, so the first 9 cells in
@@ -29,6 +34,8 @@ from gym_craftingworld_tpu_torch import constants as C
 from gym_craftingworld_tpu_torch.config import EnvConfig
 from gym_craftingworld_tpu_torch.core.imagine import N_GOAL_SCORE_ROWS, imagine_goal
 from gym_craftingworld_tpu_torch.core.state import EnvState
+from gym_craftingworld_tpu_torch.ops import keyed_draws
+from gym_craftingworld_tpu_torch.ops.threefry import prng_key
 
 
 def sample_desired(cfg: EnvConfig, k: torch.Tensor, perm: torch.Tensor):
@@ -97,7 +104,7 @@ def reset_from_draws(
 
 
 def _state_from_world(cfg: EnvConfig, desired, objects, agent, init_objects,
-                      goal_scores) -> EnvState:
+                      goal_scores, rng=None) -> EnvState:
     """A fresh EnvState around a placed world: goal imagination and bookkeeping."""
     B = objects.shape[0]
     device = objects.device
@@ -119,36 +126,41 @@ def _state_from_world(cfg: EnvConfig, desired, objects, agent, init_objects,
         goal_objects=goal_flat.view(B, cfg.height, cfg.width),
         goal_agent=goal_agent,
         step_num=torch.zeros((B,), dtype=torch.int32, device=device),
-        rng=torch.zeros((B, 2), dtype=torch.int64, device=device),
+        rng=torch.zeros((B, 2), dtype=torch.int64, device=device) if rng is None else rng,
     )
 
 
-def _task_draws(cfg: EnvConfig, B: int, draw: dict):
-    """(k, perm) for ``sample_desired``, drawn from ``draw``'s generator."""
-    if cfg.stacking:
-        k = torch.randint(0, cfg.number_of_tasks, (B,), **draw) + 1
-    else:
-        k = torch.ones((B,), dtype=torch.int64, device=draw["device"])
-    perm = torch.argsort(torch.rand((B, len(cfg.selected_task_indices)), **draw), dim=1)
-    return k, perm
+def reset(cfg: EnvConfig, keys: torch.Tensor) -> EnvState:
+    """Batched reset from per-env key data int64[B, 2], on the keys' device.
+
+    Env ``b`` is JAX ``_reset_one(keys[b])``; its ``rng`` holds ``k_next``.
+    """
+    d = keyed_draws.reset_draws(cfg, keys)
+    objects, agent, init_objects = sample_world(cfg, d.world)
+    return _state_from_world(cfg, sample_desired(cfg, d.k, d.perm), objects, agent,
+                             init_objects, d.goal, d.k_next)
 
 
-def reset(cfg: EnvConfig, batch_size: int, generator: torch.Generator,
-          device=None, cols: slice = slice(None)) -> EnvState:
-    """Batched reset drawing every random choice from ``generator``.
+def reset_from_generator(cfg: EnvConfig, batch_size: int, generator: torch.Generator,
+                         device=None) -> EnvState:
+    """Batched reset drawing every random choice from ``generator`` (the
+    port's own stream; ``rng`` stays zero).
 
-    ``device`` defaults to the generator's device; the two must agree.
-    ``cols`` builds only those envs of the batch from the whole batch's
-    draws, as a rank of a mesh does (``parallel/mesh.py``): the result equals
-    the same envs of the whole batch's reset.
+    For the callers whose draws are still a ``torch.Generator``'s (the
+    imitation path and the canonical tools). ``device`` defaults to the
+    generator's device; the two must agree.
     """
     device = generator.device if device is None else torch.device(device)
     B, n = batch_size, cfg.n_cells
     draw = dict(generator=generator, device=device)
-    k, perm = _task_draws(cfg, B, draw)
+    if cfg.stacking:
+        k = torch.randint(0, cfg.number_of_tasks, (B,), **draw) + 1
+    else:
+        k = torch.ones((B,), dtype=torch.int64, device=device)
+    perm = torch.argsort(torch.rand((B, len(cfg.selected_task_indices)), **draw), dim=1)
     world_scores = torch.rand((B, n), **draw)
     goal_scores = torch.rand((B, N_GOAL_SCORE_ROWS, n), **draw)
-    return reset_from_draws(cfg, k[cols], perm[cols], world_scores[cols], goal_scores[cols])
+    return reset_from_draws(cfg, k, perm, world_scores, goal_scores)
 
 
 def generate_pool_from_scores(cfg: EnvConfig, scores: torch.Tensor):
@@ -160,12 +172,12 @@ def generate_pool_from_scores(cfg: EnvConfig, scores: torch.Tensor):
     return objects, agent
 
 
-def generate_pool(cfg: EnvConfig, generator: torch.Generator, num_states: int,
-                  device=None):
-    """Pre-generate ``num_states`` worlds (reference generate_fixed_states)."""
-    device = generator.device if device is None else torch.device(device)
-    scores = torch.rand((num_states, cfg.n_cells), generator=generator, device=device)
-    return generate_pool_from_scores(cfg, scores)
+def generate_pool(cfg: EnvConfig, key: torch.Tensor, num_states: int, device=None):
+    """Pre-generate ``num_states`` worlds (reference generate_fixed_states):
+    world ``i`` is ``sample_world`` of key ``i`` of ``split(key, num_states)``,
+    on ``device`` (the key's by default)."""
+    keys = keyed_draws.split_keys(key, num_states, device=device)
+    return generate_pool_from_scores(cfg, keyed_draws.reset_draws(cfg, keys, "world").world)
 
 
 def reset_from_pool_draws(cfg: EnvConfig, k: torch.Tensor, perm: torch.Tensor,
@@ -189,25 +201,18 @@ def reset_from_pool_draws(cfg: EnvConfig, k: torch.Tensor, perm: torch.Tensor,
                              init_objects.view(objects.shape), goal_scores)
 
 
-def reset_from_pool(cfg: EnvConfig, batch_size: int, generator: torch.Generator,
-                    pool_objects: torch.Tensor, pool_agent: torch.Tensor) -> EnvState:
-    """Batched fixed-init-state reset: each env draws one pool entry uniformly.
-
-    The draws come from ``generator``, on the pool's device.
-    """
-    device = pool_objects.device
-    B = batch_size
-    draw = dict(generator=generator, device=device)
-    k, perm = _task_draws(cfg, B, draw)
-    pick = torch.randint(0, pool_objects.shape[0], (B,), **draw)
-    goal_scores = torch.rand((B, N_GOAL_SCORE_ROWS, cfg.n_cells), **draw)
-    return reset_from_pool_draws(cfg, k, perm, pick, goal_scores, pool_objects, pool_agent)
+def reset_from_pool(cfg: EnvConfig, keys: torch.Tensor, pool_objects: torch.Tensor,
+                    pool_agent: torch.Tensor) -> EnvState:
+    """Batched fixed-init-state reset: each env draws one pool entry uniformly,
+    from its key (JAX ``_reset_one_from_pool``); ``rng`` holds ``k_next``."""
+    d = keyed_draws.reset_draws(cfg, keys, "pool", pool_objects.shape[0])
+    st = reset_from_pool_draws(cfg, d.k, d.perm, d.pick, d.goal, pool_objects, pool_agent)
+    st.rng = d.k_next
+    return st
 
 
-def reset_from_seed(cfg: EnvConfig, seed: int, batch_size: int,
-                    device="cuda") -> EnvState:
-    """Convenience: seed a generator on ``device`` (the card unless asked for
-    the CPU) and reset ``batch_size`` envs."""
-    generator = torch.Generator(device=device)
-    generator.manual_seed(seed)
-    return reset(cfg, batch_size, generator, device)
+def reset_from_seed(cfg: EnvConfig, seed: int, batch_size: int, device="cuda") -> EnvState:
+    """Convenience: derive B per-env keys from one integer seed
+    (``split(PRNGKey(seed), B)``) and reset, on ``device`` (the card unless
+    asked for the CPU)."""
+    return reset(cfg, keyed_draws.split_keys(prng_key(seed), batch_size, device=device))

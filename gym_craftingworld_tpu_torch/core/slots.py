@@ -58,7 +58,7 @@ class SlotState(NamedTuple):
     init_pos: torch.Tensor  # int32[B, 8, 2] — slot cells at reset
     init_agent: torch.Tensor  # int32[B, 2]
     step_num: torch.Tensor  # int32[B]
-    rng: torch.Tensor  # int64[B, 2], opaque (see core/state.py)
+    rng: torch.Tensor  # int64[B, 2], per-env key data (see core/state.py)
 
 
 def _find_codes(flat: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:

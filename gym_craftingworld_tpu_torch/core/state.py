@@ -28,9 +28,8 @@ class EnvState:
     """Batched CraftingWorld state. All fields have leading batch axis B.
 
     Field names and dtypes are the JAX ``EnvState``'s, except ``rng``: there
-    it holds JAX key data (uint32[B, 2]); here it is an opaque int64[B, 2]
-    that the port carries but never reads. The port's auto-reset draws fresh
-    worlds from a ``torch.Generator`` instead (``core/rollout.py``).
+    it holds JAX key data (uint32[B, 2]); here the same two words widened to
+    int64[B, 2] (values in [0, 2**32), ``ops/threefry.py``).
     """
 
     # Live world.
@@ -56,8 +55,10 @@ class EnvState:
     # Episode clock.
     step_num: torch.Tensor  # int32[B]
 
-    # Per-env key, int64[B, 2], opaque (see above); the port's resets fill it
-    # with zeros, and interop widens the JAX package's uint32 key data into it.
+    # Per-env Threefry key data, int64[B, 2]: a reset stores the env's next
+    # key here, and the env's auto-reset draws its next world from it
+    # (``core/reset.py``); interop widens the JAX package's uint32 key data
+    # into it.
     rng: torch.Tensor
 
     @property

@@ -3,8 +3,9 @@
 The JAX package's states arrive as dicts of numpy arrays keyed by field name
 (``{k: np.asarray(v) ...}`` of an ``EnvState``, ``SlotState``,
 ``TSlotState`` or ``PackedState``), and leave the same way. Every field keeps its dtype except
-``rng``: the JAX package's uint32 key data becomes the port's opaque int64
-field, and goes back to uint32 on the way out.
+``rng``: the JAX package's uint32 key data becomes the port's int64 key
+data (the same words, ``ops/threefry.py``), from which the port's auto-reset
+continues as JAX's does, and goes back to uint32 on the way out.
 
 Weights cross the same way: the fast-PPO policy's ``MLPParams`` and the
 pixel policy's ``ConvParams`` as dicts of f32 numpy arrays under the JAX

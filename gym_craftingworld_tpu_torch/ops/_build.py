@@ -33,6 +33,7 @@ ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-lineinfo", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _U32, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
+_LL = ctypes.c_longlong
 # C signatures of the entry points in csrc/*.cu
 _SIGNATURES = {
     # packed_fused.cu
@@ -59,6 +60,12 @@ _SIGNATURES = {
     "cw_ppo_grads": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _P),
     # a, b, part, out, M, N, K, splits, kchunk, stream
     "cw_gemm_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # keyed_draws.cu
+    # keys, B, n, mode, n_sel, task_span, stacking, pool_span, rounds, k, perm,
+    # world, pick, goal, k_next, stream
+    "cw_keyed_reset": (_P, _I, _I, _I, _I, _U32, _I, _U32, _I, _P, _P, _P, _P, _P, _P, _P),
+    # key, mode, rows, row_stride, col0, width, span, minval, out, stream
+    "cw_keyed_counter": (_P, _I, _LL, _LL, _LL, _LL, _U32, _I, _P, _P),
 }
 
 

@@ -14,7 +14,9 @@ held to what the JAX dry run checks it against:
    ranks, against the per-shard average within ``rtol = atol = 2e-5``.
 
 Shapes are the JAX dry run's where the port's blocks allow (its shuffle
-blocks are 128 rows, so a rank holds 128 envs in paths 3 and 5).
+blocks are 128 rows, so a rank holds 128 envs in paths 3 and 5), and so
+are the resets and the actions of paths 1, 2 and 4 (``PRNGKey(3)``,
+``PRNGKey(7)``).
 
     torchrun --standalone --nproc_per_node 2 -m gym_craftingworld_tpu_torch.parallel.dryrun
     python -m gym_craftingworld_tpu_torch.parallel.dryrun --device cpu   # one rank
@@ -32,7 +34,9 @@ from gym_craftingworld_tpu_torch.core import slots as sm
 from gym_craftingworld_tpu_torch.core.reset import reset_from_seed
 from gym_craftingworld_tpu_torch.ops import fused_update as fu
 from gym_craftingworld_tpu_torch.ops import packed_fused as pf
+from gym_craftingworld_tpu_torch.ops.keyed_draws import randint_cols
 from gym_craftingworld_tpu_torch.ops.packed_rollout import rollout_p
+from gym_craftingworld_tpu_torch.ops.threefry import prng_key
 from gym_craftingworld_tpu_torch.parallel import sharded_engine as se
 from gym_craftingworld_tpu_torch.parallel.mesh import (
     initialize_distributed,
@@ -72,7 +76,7 @@ def dryrun_multichip(n_devices: int, device=None) -> str:
     cfg_r = EnvConfig(height=7, width=7, max_steps=20)
     T = 24
     whole = sm.from_env_state(reset_from_seed(cfg_r, 0, B, device=dev))
-    actions = torch.randint(0, 6, (T, B), generator=gen(3), device=dev, dtype=torch.int32)
+    actions = randint_cols(prng_key(3), (T, B), 0, 6, device=dev)
     sl_ref, out_ref = rollout_p(cfg_r, whole, actions, T)
     sl_sh, out_sh = se.rollout_p_sharded(cfg_r, se.shard_slots(whole, mesh), actions, T, mesh)
     cols = mesh.cols(B)
@@ -92,7 +96,7 @@ def dryrun_multichip(n_devices: int, device=None) -> str:
     # 4) the actions kernel, against the unsharded run
     Bf, Tf = 128 * n_devices, 16
     slf = sm.from_env_state(reset_from_seed(cfg_r, 6, Bf, device=dev))
-    f_actions = torch.randint(0, 6, (Tf, Bf), generator=gen(7), device=dev, dtype=torch.int32)
+    f_actions = randint_cols(prng_key(7), (Tf, Bf), 0, 6, device=dev)
     sl_f_ref, rew_f_ref, _ = pf.fused_rollout_packed(cfg_r, slf, f_actions, Tf)
     sl_f, rew_f, _ = se.fused_rollout_packed_sharded(cfg_r, se.shard_slots(slf, mesh), f_actions,
                                                      Tf, mesh=mesh)

@@ -7,9 +7,11 @@ its own contiguous columns of the env batch, runs the unsharded functions on
 them, and meets the other ranks only in collectives. So what the partitioner
 derives, the port writes out: which rank owns which envs (``EnvMesh.cols``),
 the gathers and sums the learner needs (``EnvMesh.all_reduce``,
-``EnvMesh.gather``), and draws that every rank takes at the whole batch's
-shapes from one seeded generator, keeping its own columns, so that a sharded
-run equals the unsharded run from the same seed.
+``EnvMesh.gather``), and the keys of each rank's own envs: env ``b``'s key
+is key ``b`` of ``split(PRNGKey(seed), B)``, a hash of ``b`` alone
+(``ops/threefry.py``), so a rank derives its columns' keys and draws only
+its own envs, and a sharded run equals the unsharded run from the same seed
+on any number of ranks, as in JAX.
 
 One collective only, ``all_reduce``: with ``broadcast`` it is all gloo
 does on CUDA tensors, and two ranks that share one card must use gloo
@@ -36,6 +38,8 @@ import torch.distributed as dist
 from gym_craftingworld_tpu_torch.config import EnvConfig
 from gym_craftingworld_tpu_torch.core.reset import reset
 from gym_craftingworld_tpu_torch.core.state import EnvState
+from gym_craftingworld_tpu_torch.ops.keyed_draws import randint_cols, split_keys
+from gym_craftingworld_tpu_torch.ops.threefry import prng_key
 
 ENV_AXIS = "env"
 
@@ -214,14 +218,13 @@ def shard_state(state: EnvState, mesh: EnvMesh) -> EnvState:
 def reset_sharded(cfg: EnvConfig, seed: int, batch_size: int, mesh: EnvMesh) -> EnvState:
     """This rank's columns of ``reset_from_seed(cfg, seed, batch_size)``.
 
-    Every rank draws the whole batch's randoms from a generator seeded with
-    ``seed`` on its device (the draws depend on their shape) and builds only
-    its own envs, so the shards are the unsharded reset's columns on any
-    number of ranks.
+    The rank derives only its own columns' keys of ``split(PRNGKey(seed),
+    batch_size)`` on its device and resets them: no gather, no replicated
+    work, and the shards are the unsharded reset's columns on any number of
+    ranks.
     """
-    cols = mesh.cols(batch_size)
-    generator = torch.Generator(device=mesh.device).manual_seed(seed)
-    return reset(cfg, batch_size, generator, mesh.device, cols)
+    keys = split_keys(prng_key(seed), batch_size, mesh.cols(batch_size), mesh.device)
+    return reset(cfg, keys)
 
 
 def ppo_train_step_sharded(cfg: EnvConfig, ppo, mesh: EnvMesh):
@@ -263,7 +266,8 @@ def scaling_report(cfg: EnvConfig, batch_per_device: int, num_steps: int = 64,
                    engines=("grid", "packed_scan"), iters: int = 3, device=None) -> dict:
     """env-steps/s on one rank against all ranks of the process group, per engine.
 
-    Engines: ``grid`` (``core/rollout.rollout_random``), ``packed_scan``
+    Engines: ``grid`` (``core/rollout.rollout_random`` of ``PRNGKey(1)``:
+    this rank's columns of its actions), ``packed_scan``
     (``parallel/sharded_engine.rollout_p_sharded``) and ``fused`` (the bench
     kernel through ``fused_rollout_packed_bench_sharded``). A rank's time is
     the median of ``iters`` runs after a warm-up (``time_ms``); the N-rank
@@ -272,7 +276,7 @@ def scaling_report(cfg: EnvConfig, batch_per_device: int, num_steps: int = 64,
     rate(1))}}``; in one process N is 1.
     """
     from gym_craftingworld_tpu_torch.core import slots as sm
-    from gym_craftingworld_tpu_torch.core.rollout import rollout_random
+    from gym_craftingworld_tpu_torch.core.rollout import rollout
     from gym_craftingworld_tpu_torch.parallel import sharded_engine as se
 
     full = make_env_mesh(device=device)
@@ -283,17 +287,17 @@ def scaling_report(cfg: EnvConfig, batch_per_device: int, num_steps: int = 64,
         for n in sorted({1, n_max}):
             mesh = make_env_mesh(1, device) if n == 1 else full
             B = batch_per_device * n
-            gen = torch.Generator(device=mesh.device)
             if engine == "grid":
                 state = reset_sharded(cfg, 0, B, mesh)
 
-                def run(state=state, gen=gen):
-                    rollout_random(cfg, state, gen.manual_seed(1), num_steps)
+                def run(state=state, mesh=mesh, B=B):
+                    actions = randint_cols(prng_key(1), (num_steps, B), 0, 6, mesh.cols(B),
+                                           mesh.device)
+                    rollout(cfg, state, actions)
 
             elif engine == "packed_scan":
                 slots = sm.from_env_state(reset_sharded(cfg, 0, B, mesh))
-                actions = torch.randint(0, 6, (num_steps, B), generator=gen.manual_seed(2),
-                                        device=mesh.device, dtype=torch.int32)
+                actions = randint_cols(prng_key(2), (num_steps, B), 0, 6, device=mesh.device)
 
                 def run(slots=slots, actions=actions, mesh=mesh):
                     se.rollout_p_sharded(cfg, slots, actions, num_steps, mesh)

@@ -49,6 +49,7 @@ import torch
 import gym_craftingworld_tpu_torch as cw
 from gym_craftingworld_tpu_torch.core import slots as sm
 from gym_craftingworld_tpu_torch.core.rollout import rollout_random
+from gym_craftingworld_tpu_torch.ops.threefry import prng_key
 from gym_craftingworld_tpu_torch.ops import obs_rollout as obr
 from gym_craftingworld_tpu_torch.ops import packed_fused as pf
 from gym_craftingworld_tpu_torch.ops import packed_rollout as pr
@@ -81,7 +82,11 @@ def make_engine(layout: str, cfg, state):
     if layout not in LAYOUTS:
         raise SystemExit(f"unknown BENCH_LAYOUT {layout!r}")
     if layout == "grid":
-        engine = lambda st, g, n: rollout_random(cfg, st, g, n)
+        def roll(st, seed, n):
+            st, out = rollout_random(cfg, st, prng_key(seed), n)
+            return st, out.reward.sum(dtype=torch.int64)
+
+        return roll, state
     else:
         state = sm.from_env_state(state)
         if layout == "packed_fused":

@@ -17,10 +17,9 @@ Protocol, as in JAX:
     handoff episodes (policy actions, expert labels). No trajectory ever
     completes more than one task.
 
-What differs from JAX: the pool comes from ``core/reset.generate_pool`` on a
-``torch.Generator`` seeded ``--seed``, so its worlds differ from JAX's, unless
-``--pool-npz`` gives JAX's own (``load_pool``); the
-rollouts are eager loops that freeze finished episodes
+The pool is JAX's: ``core/reset.generate_pool`` of ``PRNGKey(--seed)`` draws
+the JAX tool's worlds bit for bit (``--pool-npz`` reads a pool from a file,
+``load_pool``). What differs from JAX: the rollouts are eager loops that freeze finished episodes
 (``train/dagger._rollout_states``, ``_eval_batch_grid``), whose ``sample``
 draws are Gumbel noise and ``argmax_eps`` draws uniforms and moves from a
 ``torch.Generator`` seeded as JAX seeds its keys; parameters are saved as
@@ -42,7 +41,7 @@ run; ``--matrix-only`` evaluates ``params.pt`` (phase 4 alone).
     python -m gym_craftingworld_tpu_torch.tools.cpv_canonical --resume      # after a cut
     python -m gym_craftingworld_tpu_torch.tools.cpv_canonical --matrix-only
     python -m gym_craftingworld_tpu_torch.tools.cpv_canonical \
-        --pool-npz gym_craftingworld_tpu_torch/tools/records/cpv_pool_jax_seed7.npz  # JAX's worlds
+        --pool-npz gym_craftingworld_tpu_torch/tools/records/cpv_pool_jax_seed7.npz  # a saved pool
 """
 
 from __future__ import annotations
@@ -64,6 +63,7 @@ from gym_craftingworld_tpu_torch.config import EnvConfig, ray_config
 from gym_craftingworld_tpu_torch.core.reset import generate_pool
 from gym_craftingworld_tpu_torch.core.state import EnvState
 from gym_craftingworld_tpu_torch.models.cpv import init_cpv_grid
+from gym_craftingworld_tpu_torch.ops.threefry import prng_key
 from gym_craftingworld_tpu_torch.tools._canonical import (REPO, RUNS, load_params, log, relabel,
                                                           save_params, seconds_since)
 from gym_craftingworld_tpu_torch.tools._cpv import RANK, apply_predecessors_np, failure_kind
@@ -90,9 +90,10 @@ SMOKE = ["--pool", "8", "--singles-per-task", "2", "--handoff-episodes", "8", "-
 
 
 def make_pool(cfg: EnvConfig, seed: int, n: int, device="cuda"):
-    """``n`` pool worlds from a generator seeded ``seed`` on ``device``, as
-    numpy (objects int8[n, H, W], agent int32[n, 2])."""
-    objects, agent = generate_pool(cfg, torch.Generator(device=device).manual_seed(seed), n)
+    """``n`` pool worlds of ``generate_pool(cfg, PRNGKey(seed), n)`` on
+    ``device`` (JAX's worlds, as ``tools/cpv_canonical.py:116`` draws them),
+    as numpy (objects int8[n, H, W], agent int32[n, 2])."""
+    objects, agent = generate_pool(cfg, prng_key(seed), n, device)
     return objects.cpu().numpy(), agent.cpu().numpy().astype(np.int32)
 
 

@@ -40,7 +40,7 @@ import torch
 
 from gym_craftingworld_tpu_torch import constants as C
 from gym_craftingworld_tpu_torch.config import EnvConfig, ray_config
-from gym_craftingworld_tpu_torch.core.reset import reset as core_reset
+from gym_craftingworld_tpu_torch.core.reset import reset_from_generator
 from gym_craftingworld_tpu_torch.core.rollout import _select
 from gym_craftingworld_tpu_torch.core.state import EnvState
 from gym_craftingworld_tpu_torch.core.step import step
@@ -100,7 +100,7 @@ def init_state(model: torch.nn.Module, ft: FTConfig) -> FTState:
 def draw(cfg: EnvConfig, ft: FTConfig, B: int, generator: torch.Generator) -> Draws:
     """An update's draws from ``generator``: the pool, then the noise, then
     the permutations."""
-    pool = core_reset(cfg, 2 * B, generator)
+    pool = reset_from_generator(cfg, 2 * B, generator)
     noise = dagger.gumbel((ft.rollout_steps, B, C.N_ACTIONS), generator)
     N = ft.rollout_steps * B
     perms = torch.stack([torch.randperm(N, generator=generator, device=generator.device)
@@ -285,7 +285,7 @@ def main(argv=None) -> dict:
         log(f"loaded {args.init_params}")
     ft = FTConfig(lr=args.lr, ent_coef=args.ent_coef)
     ts = init_state(model, ft)
-    env = core_reset(cfg, args.envs, torch.Generator(device=dev).manual_seed(args.seed))
+    env = reset_from_generator(cfg, args.envs, torch.Generator(device=dev).manual_seed(args.seed))
     gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
 
     def evaluate(tag, n, seed):

@@ -46,7 +46,7 @@ import torch
 
 from gym_craftingworld_tpu_torch import constants as C
 from gym_craftingworld_tpu_torch.config import EnvConfig, ray_config
-from gym_craftingworld_tpu_torch.core.reset import reset as core_reset
+from gym_craftingworld_tpu_torch.core.reset import reset_from_generator
 from gym_craftingworld_tpu_torch.core.rollout import _select
 from gym_craftingworld_tpu_torch.core.state import EnvState
 from gym_craftingworld_tpu_torch.core.step import step
@@ -218,7 +218,7 @@ def collect_round(cfg: EnvConfig, kind: str, model, episodes: int, seed: int, ep
     parts, succ = [], []
     for i in range(0, episodes, chunk):
         B = min(chunk, episodes - i)
-        state = core_reset(cfg, B, torch.Generator(device=dev).manual_seed(seed + i))
+        state = reset_from_generator(cfg, B, torch.Generator(device=dev).manual_seed(seed + i))
         g = torch.Generator(device=dev).manual_seed(seed ^ (7 + i))
         u = torch.rand((cfg.max_steps, B), generator=g, device=dev)
         a = torch.randint(0, 4, (cfg.max_steps, B), generator=g, device=dev)
@@ -456,7 +456,7 @@ def eval_student(cfg: EnvConfig, model, episodes: int, seed: int, chunk: int = 2
     for i in range(0, episodes, chunk):
         B = min(chunk, episodes - i)
         g = torch.Generator(device=dev).manual_seed(seed + 31 * i)
-        state = core_reset(cfg, B, g)
+        state = reset_from_generator(cfg, B, g)
         noise = dagger.gumbel((cfg.max_steps, B, C.N_ACTIONS), g) if mode == "sample" else None
         outs.append({k: v.cpu().numpy() for k, v in _eval_student(cfg, model, state, noise).items()})
     return summarize({k: np.concatenate([o[k] for o in outs]) for k in outs[0]})

@@ -8,7 +8,7 @@ between CUDA events:
 
 * ``train_step``: ``train_step`` in full, carrying its state; its env-steps/s;
 * ``collect``: ``_collect`` of 64 policy steps with auto-reset;
-* ``reset``: 64 resets of B fresh worlds (``core/reset.reset``);
+* ``reset``: 64 resets of B envs from their keys (``core/reset.reset``);
 * ``grid_step``: 64 grid steps (``core/step.step``) with random actions;
 * ``policy_forward``: 64 forwards of the policy on one snapshot;
 * ``update_epoch``: one epoch of 4 minibatch updates (autograd, clip and
@@ -91,12 +91,12 @@ def main(argv=None) -> list:
 
     @torch.no_grad()
     def collect():
-        return P._collect(cfg, ppo, apply_fn, carry["ts"].params, st1, noise, gen)
+        return P._collect(cfg, ppo, apply_fn, carry["ts"].params, st1, noise)
 
     @torch.no_grad()
     def resets():
         for _ in range(STAGE_STEPS):
-            reset(cfg, B, gen, dev)
+            reset(cfg, st1.rng)
 
     @torch.no_grad()
     def grid_steps():

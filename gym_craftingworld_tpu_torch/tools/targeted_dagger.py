@@ -43,7 +43,7 @@ import torch
 
 from gym_craftingworld_tpu_torch import constants as C
 from gym_craftingworld_tpu_torch.config import EnvConfig
-from gym_craftingworld_tpu_torch.core.reset import reset as core_reset
+from gym_craftingworld_tpu_torch.core.reset import reset_from_generator
 from gym_craftingworld_tpu_torch.models.grid_policy import init_grid_policy
 from gym_craftingworld_tpu_torch.tools._canonical import (
     CFG, DEMOS, RUNS, Metrics, append_columns, fit, load_params, log, mixed_train_chunk,
@@ -98,7 +98,7 @@ def full_eval_artifact(cfg: EnvConfig, model: torch.nn.Module, episodes: int, se
     """
     if state is None:
         dev = next(model.parameters()).device
-        state = core_reset(cfg, episodes, torch.Generator(device=dev).manual_seed(seed))
+        state = reset_from_generator(cfg, episodes, torch.Generator(device=dev).manual_seed(seed))
     return artifact_summary(dagger._eval_batch_grid(cfg, model, state), episodes, seed)
 
 

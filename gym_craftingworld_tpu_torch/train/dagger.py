@@ -33,7 +33,7 @@ import torch
 
 from gym_craftingworld_tpu_torch import constants as C
 from gym_craftingworld_tpu_torch.config import EnvConfig
-from gym_craftingworld_tpu_torch.core.reset import reset as core_reset
+from gym_craftingworld_tpu_torch.core.reset import reset_from_generator
 from gym_craftingworld_tpu_torch.core.rollout import _select
 from gym_craftingworld_tpu_torch.core.state import EnvState
 from gym_craftingworld_tpu_torch.core.step import step
@@ -217,7 +217,8 @@ def evaluate_grid_policy(cfg: EnvConfig, model: torch.nn.Module, num_episodes: i
     from gym_craftingworld_tpu_torch.train.evaluate import summarize
 
     generator = torch.Generator(device=_device(model)).manual_seed(seed)
-    return summarize(_eval_batch_grid(cfg, model, core_reset(cfg, num_episodes, generator)))
+    state = reset_from_generator(cfg, num_episodes, generator)
+    return summarize(_eval_batch_grid(cfg, model, state))
 
 
 # ---------------------------------------------------------------------------
@@ -291,7 +292,8 @@ def collect_policy_states(cfg: EnvConfig, model: torch.nn.Module, num_episodes: 
     dev = _device(model)
     T = cfg.max_steps
     if state is None:
-        state = core_reset(cfg, num_episodes, torch.Generator(device=dev).manual_seed(seed))
+        state = reset_from_generator(cfg, num_episodes,
+                                     torch.Generator(device=dev).manual_seed(seed))
     if explore is None:
         g = torch.Generator(device=dev).manual_seed(seed ^ 0xDA66E4)
         explore = (torch.rand((T, num_episodes), generator=g, device=dev),

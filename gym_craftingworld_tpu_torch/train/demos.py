@@ -37,7 +37,7 @@ import torch
 from gym_craftingworld_tpu_torch import constants as C
 from gym_craftingworld_tpu_torch.agents.expert import ExpertPolicy
 from gym_craftingworld_tpu_torch.config import EnvConfig
-from gym_craftingworld_tpu_torch.core.reset import reset as core_reset
+from gym_craftingworld_tpu_torch.core.reset import reset_from_generator
 from gym_craftingworld_tpu_torch.core.step import step as core_step
 
 _BITS9 = (1 << np.arange(C.N_TASKS, dtype=np.int64)).astype(np.int64)
@@ -344,7 +344,7 @@ def collect_expert_demos(
         B = min(batch, num_episodes - bi * batch)
         if resets is None:
             gen = torch.Generator(device=device).manual_seed(seed + 7919 * bi)
-            state = core_reset(cfg, B, gen)
+            state = reset_from_generator(cfg, B, gen)
         else:
             state = resets[bi]
         snaps, _, success = collect_batch(cfg, state, wrng, experts, noise_eps, only_successful)

@@ -22,6 +22,8 @@ from gym_craftingworld_tpu_torch.core.reset import reset
 from gym_craftingworld_tpu_torch.core.rollout import _select
 from gym_craftingworld_tpu_torch.core.state import EnvState
 from gym_craftingworld_tpu_torch.core.step import step
+from gym_craftingworld_tpu_torch.ops.keyed_draws import split_keys
+from gym_craftingworld_tpu_torch.ops.threefry import prng_key
 from gym_craftingworld_tpu_torch.train.ppo import PPOConfig, make_policy, snapshot
 
 
@@ -47,10 +49,10 @@ def _eval_batch(cfg: EnvConfig, ppo: PPOConfig, params, state: EnvState) -> dict
 def evaluate_policy(cfg: EnvConfig, ppo: PPOConfig, params, num_episodes: int,
                     seed: int = 0) -> dict:
     """Greedy-policy evaluation over ``num_episodes`` parallel episodes, reset
-    from a generator seeded with ``seed`` on the parameters' device."""
+    from ``split(PRNGKey(seed), num_episodes)`` on the parameters' device."""
     device = next(params.parameters()).device
-    generator = torch.Generator(device=device).manual_seed(seed)
-    return summarize(_eval_batch(cfg, ppo, params, reset(cfg, num_episodes, generator)))
+    keys = split_keys(prng_key(seed), num_episodes, device=device)
+    return summarize(_eval_batch(cfg, ppo, params, reset(cfg, keys)))
 
 
 def _host(x) -> np.ndarray:

@@ -9,10 +9,8 @@ observations anew from it.
 
 What the port does differently:
 
-* Stepping is the port's batched grid step (``core/step.step``). The JAX
-  package resets a done env from that env's own ``rng`` key; the port's
-  ``rng`` field is opaque, so every step draws a fresh batch of worlds from
-  the generator and done envs take theirs, as ``core/rollout.py`` does.
+* Stepping is the port's batched grid step (``core/step.step``); a done env
+  restarts from its own ``rng`` key, as in JAX (``core/rollout.py``).
 * Actions are ``jax.random.categorical``'s Gumbel-argmax over explicit
   Gumbel noise ``noise`` f32[T, B, 6], and the epoch shuffles are explicit
   permutations ``perms`` int[update_epochs, T*B], so a test can pass JAX's
@@ -22,8 +20,9 @@ What the port does differently:
   Adam of ``train/fast_ppo.py`` on its named parameters, applied in place.
 * Under a ``mesh`` (``parallel/mesh.ppo_train_step_sharded``) a rank steps
   its own columns of the batch and computes the unsharded step's function:
-  the noise, the fresh worlds of every step and the permutations are drawn
-  at the whole batch's shapes and the rank keeps its columns; minibatch row
+  its envs restart from their own keys, so it builds and draws only its own
+  worlds; the noise and the permutations are drawn at the whole batch's
+  shapes and the rank keeps its columns; minibatch row
   ``t*B + b`` belongs to rank ``b // (B / world)``; each minibatch's
   advantages are normalised over all its rows; each rank differentiates its
   rows' share of the means, and one ``all_reduce`` a minibatch sums the
@@ -158,15 +157,13 @@ def gumbel(generator: torch.Generator, shape) -> torch.Tensor:
 
 
 def _collect(cfg: EnvConfig, ppo: PPOConfig, apply_fn, params: nn.Module,
-             env_state: EnvState, noise: torch.Tensor, generator: torch.Generator, mesh=None):
+             env_state: EnvState, noise: torch.Tensor):
     """``rollout_steps`` policy steps with auto-reset; ``noise`` f32[T, B, 6]
-    Gumbel draws. Done envs restart from a fresh batch drawn from
-    ``generator`` every step. Returns (env_state, Transition). Under a
-    ``mesh``, ``env_state`` and ``noise`` are this rank's columns, and the
-    fresh batch is drawn whole and built for them."""
+    Gumbel draws. Done envs restart from their own keys. Returns
+    (env_state, Transition). Under a mesh, ``env_state`` and ``noise`` are
+    this rank's columns."""
     T, B = ppo.rollout_steps, env_state.objects.shape[0]
     dev = env_state.objects.device
-    B_all, cols = (B, slice(None)) if mesh is None else (B * mesh.size, mesh.cols(B * mesh.size))
     buf = lambda x: torch.empty((T, *x.shape), dtype=x.dtype, device=dev)
     tr = Transition(Snapshot(*(buf(x) for x in snapshot(env_state))),
                     *(torch.empty((T, B), dtype=d, device=dev)
@@ -180,7 +177,7 @@ def _collect(cfg: EnvConfig, ppo: PPOConfig, apply_fn, params: nn.Module,
         action = torch.argmax(noise[t] + logits, dim=-1).to(torch.int32)
         log_prob = torch.log_softmax(logits, dim=-1).gather(1, action.long()[:, None])[:, 0]
         st, res = step(cfg, st, action)
-        st = _select(res.done, reset(cfg, B_all, generator, dev, cols), st)
+        st = _select(res.done, reset(cfg, st.rng), st)
         for dst, src in zip(tr.obs, obs):
             dst[t] = src
         for dst, src in zip(tr[1:], (action, log_prob, value,
@@ -298,15 +295,15 @@ def _update_phase(ppo: PPOConfig, apply_fn, ts: TrainState, traj: Transition, ad
 def rollout_phase(cfg: EnvConfig, ppo: PPOConfig, ts: TrainState, env_state: EnvState,
                   generator: torch.Generator, mesh=None):
     """The draws, the collect and GAE of one iteration; (env_state, (traj,
-    adv, ret, perms)). Draws, in order: the Gumbel noise [T, B, 6], each
-    step's fresh worlds, the epoch permutations, at the whole batch's shapes."""
+    adv, ret, perms)). ``generator`` draws, in order: the Gumbel noise [T,
+    B, 6] and the epoch permutations, at the whole batch's shapes."""
     _, apply_fn = make_policy(ppo)
     T, Bl = ppo.rollout_steps, env_state.objects.shape[0]
     B = Bl if mesh is None else Bl * mesh.size
     noise = gumbel(generator, (T, B, C.N_ACTIONS))
     if mesh is not None:
         noise = noise[:, mesh.cols(B)]
-    env_state, traj = _collect(cfg, ppo, apply_fn, ts.params, env_state, noise, generator, mesh)
+    env_state, traj = _collect(cfg, ppo, apply_fn, ts.params, env_state, noise)
     _, last_value = apply_fn(ts.params, snapshot(env_state))
     adv, ret = _gae(ppo, traj, last_value)
     perms = torch.stack([torch.randperm(T * B, generator=generator, device=generator.device)
@@ -318,9 +315,9 @@ def rollout_phase(cfg: EnvConfig, ppo: PPOConfig, ts: TrainState, env_state: Env
 def train_step(cfg: EnvConfig, ppo: PPOConfig, ts: TrainState, env_state: EnvState,
                generator: torch.Generator, mesh=None):
     """One PPO iteration: rollout -> GAE -> minibatched clipped updates;
-    (ts, env_state, generator, metrics). Every draw comes from
-    ``generator``, on the env's device: the Gumbel noise, the auto-reset
-    worlds, the epoch permutations. Under a ``mesh`` ``env_state`` is this
+    (ts, env_state, generator, metrics). The auto-reset worlds come from
+    the envs' keys; ``generator``, on the env's device, draws the Gumbel
+    noise and the epoch permutations. Under a ``mesh`` ``env_state`` is this
     rank's columns and the metrics' sums run over every rank."""
     _, apply_fn = make_policy(ppo)
     env_state, (traj, adv, ret, perms) = rollout_phase(cfg, ppo, ts, env_state, generator, mesh)

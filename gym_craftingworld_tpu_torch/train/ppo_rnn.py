@@ -15,8 +15,8 @@ What the port does differently, as ``train/ppo.py`` does:
   Gumbel noise ``noise`` f32[T, B, 6], and the epoch shuffles over the env
   axis are explicit permutations ``perms`` int[update_epochs, B]; both are
   drawn from the generator unless passed in, so a test can pass JAX's draws.
-* Auto-reset draws a fresh batch of worlds from the generator every step and
-  done envs take theirs, where JAX resets each done env from its own key.
+
+A done env restarts from its own ``rng`` key, as in JAX (``ppo_rnn.py:100``).
 """
 
 from __future__ import annotations
@@ -77,8 +77,7 @@ def init_rnn_train_state(generator: torch.Generator, cfg: EnvConfig, ppo: PPOCon
 
 
 def _collect(cfg: EnvConfig, ppo: PPOConfig, params: RecurrentActorCritic, env_state: EnvState,
-             hidden: torch.Tensor, prev_done: torch.Tensor, noise: torch.Tensor,
-             generator: torch.Generator):
+             hidden: torch.Tensor, prev_done: torch.Tensor, noise: torch.Tensor):
     """``rollout_steps`` GRU policy steps with auto-reset; ``noise`` f32[T, B,
     6] Gumbel draws. Returns (env_state, hidden, prev_done, RnnTransition)."""
     T, B = ppo.rollout_steps, env_state.objects.shape[0]
@@ -96,7 +95,7 @@ def _collect(cfg: EnvConfig, ppo: PPOConfig, params: RecurrentActorCritic, env_s
         action = torch.argmax(noise[t] + logits, dim=-1).to(torch.int32)
         log_prob = torch.log_softmax(logits, dim=-1).gather(1, action.long()[:, None])[:, 0]
         st, res = step(cfg, st, action)
-        st = _select(res.done, reset(cfg, B, generator, dev), st)
+        st = _select(res.done, reset(cfg, st.rng), st)
         for dst, src in zip(tr.obs, obs):
             dst[t] = src
         for dst, src in zip(tr[1:], (done_prev, action, log_prob, value,
@@ -165,15 +164,15 @@ def train_step_rnn(cfg: EnvConfig, ppo: PPOConfig, ts: RnnTrainState, env_state:
                    perms: torch.Tensor | None = None):
     """One recurrent PPO iteration: rollout -> GAE -> minibatched sequence
     updates; (ts, env_state, generator, metrics). The Gumbel ``noise`` f32[T,
-    B, 6], the auto-reset worlds and the env permutations ``perms``
-    int[update_epochs, B] come from ``generator``, on the env's device,
-    unless ``noise`` and ``perms`` are passed in."""
+    B, 6] and the env permutations ``perms`` int[update_epochs, B] come from
+    ``generator``, on the env's device, unless they are passed in; the
+    auto-reset worlds come from the envs' keys."""
     T, B = ppo.rollout_steps, env_state.objects.shape[0]
     if noise is None:
         noise = gumbel(generator, (T, B, C.N_ACTIONS))
     h0 = ts.hidden
     env_state, hidden, prev_done, traj = _collect(cfg, ppo, ts.params, env_state, h0,
-                                                  ts.prev_done, noise, generator)
+                                                  ts.prev_done, noise)
     _, _, last_value = ts.params(hidden, _features(snapshot(env_state)), prev_done)
     adv, ret = fast_ppo._gae(ppo, traj, last_value)  # generalised advantages, f32[T, B]
     if perms is None:

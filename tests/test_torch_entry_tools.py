@@ -34,6 +34,7 @@ from gym_craftingworld_tpu_torch.ops import obs_rollout as obr
 from gym_craftingworld_tpu_torch.ops import packed_fused as pf
 from gym_craftingworld_tpu_torch.ops import packed_rollout as pr
 from gym_craftingworld_tpu_torch.ops import transposed_rollout as tr
+from gym_craftingworld_tpu_torch.ops.threefry import prng_key
 from gym_craftingworld_tpu_torch.tools import (bench, collect_prof, cpv_debug, cpv_matrix,
                                                expert_probe, fast_ppo_prof, ppo_prof)
 from gym_craftingworld_tpu_torch.train import fast_ppo as fp
@@ -101,7 +102,7 @@ def direct(layout, cfg, state, seed, T):
     checksum)."""
     gen = torch.Generator().manual_seed(seed)
     if layout == "grid":
-        st, out = rollout_random(cfg, state, gen, T)
+        st, out = rollout_random(cfg, state, prng_key(seed), T)
         return st, out.reward.sum(dtype=torch.int64)
     if layout == "packed_fused":
         return pf.fused_rollout_packed_bench(cfg, state, seed, T)
@@ -309,7 +310,9 @@ def test_cpv_debug_classifies_a_pair_as_the_jax_tool(cpv_8x8, monkeypatch):
                         functools.partial(jge.CraftingWorldEnvRay, rng_mode="parity"))
     args = SimpleNamespace(seed=5, pool=16)
     seen = {}
-    for spec in ("GoToHouse+MoveAxe", "MoveHammer+MoveSticks"):
+    # the model is trained on the tool's data, JAX's worlds since the keyed
+    # resets: MakeBread+ChopTree gives a second failure class beside the stalls
+    for spec in ("GoToHouse+MoveAxe", "MakeBread+ChopTree"):
         pair = tuple(spec.split("+"))
         want = jcd.trace_pair(model, jax.tree.map(jnp.asarray, params), pair, args, episodes=6,
                               verbose=0)

@@ -17,7 +17,7 @@ import pytest
 import torch
 
 import gym_craftingworld_tpu as jcw
-from gym_craftingworld_tpu.core.reset import reset as jreset
+from gym_craftingworld_tpu.core.reset import _reset_one, reset as jreset
 from gym_craftingworld_tpu.core.state import EnvState as JEnvState
 from gym_craftingworld_tpu.core.step import _step_one
 from gym_craftingworld_tpu.models import actor_critic as jac
@@ -31,6 +31,8 @@ from gym_craftingworld_tpu_torch.models import actor_critic as tac
 from gym_craftingworld_tpu_torch.models import cnn as tcnn
 from gym_craftingworld_tpu_torch.models import vit as tvit
 from gym_craftingworld_tpu_torch.ops import packed_fused as pf
+from gym_craftingworld_tpu_torch.ops.keyed_draws import split_keys
+from gym_craftingworld_tpu_torch.ops.threefry import prng_key
 from gym_craftingworld_tpu_torch.train import evaluate as tev
 from gym_craftingworld_tpu_torch.train import ppo as tppo
 
@@ -193,7 +195,7 @@ def test_train_step_runs_and_updates(policy):
     g = torch.Generator().manual_seed(0)
     ts = tppo.init_train_state(g, cfg, tp)
     before = {k: p.detach().clone() for k, p in ts.params.named_parameters()}
-    st = treset(cfg, 32, g)
+    st = treset(cfg, split_keys(prng_key(0), 32))
     calls = pf.rollout_packed_actions_plain.calls
     ts, st, g, m = tppo.train_step(cfg, tp, ts, st, g)
     assert pf.rollout_packed_actions_plain.calls == calls  # the grid step, no kernel
@@ -213,9 +215,10 @@ def test_collect_replays_jax_step_by_step(policy):
     port's snapshot gives the port's logits (rtol 2e-2 / atol 2e-2; measured
     max 1.5e-8 mlp, 1.8e-6 cnn, 1.2e-2 vit), the port's action is the argmax of its logits plus the Gumbel
     noise (``jax.random.gumbel`` draws), and JAX's batched ``_step_one`` on
-    the port's state and action, with done envs taking the port's fresh
-    worlds, gives the port's next state, reward and done bit for bit. A
-    T-step collect equals the T one-step collects."""
+    the port's state and action, with done envs taking JAX's ``_reset_one``
+    of their own keys (JAX ``ppo.py:180``), gives the port's next state,
+    reward and done bit for bit. A T-step collect equals the T one-step
+    collects."""
     ppo, tp, v, params = family(policy, seed=4)
     cfg, T, B = tcfg(CFG), 6, 24
     st0 = jcw.reset_from_seed(CFG, 4, B)
@@ -225,7 +228,7 @@ def test_collect_replays_jax_step_by_step(policy):
     _, apply_j = jppo.make_policy(ppo)
     _, apply_t = tppo.make_policy(tp)
     step_j = jax.jit(jax.vmap(partial(_step_one, CFG)))
-    g = torch.Generator().manual_seed(6)
+    reset_one = jax.jit(jax.vmap(partial(_reset_one, CFG)))
     st = to_port(st0)
     one = tp._replace(rollout_steps=1)
     trs, dones = [], 0
@@ -234,14 +237,14 @@ def test_collect_replays_jax_step_by_step(policy):
             logits, _ = apply_t(params, tppo.snapshot(st))
         jl, _ = apply_j(v, jppo.snapshot(to_jax(st)))
         np.testing.assert_allclose(logits.numpy(), np.asarray(jl), rtol=2e-2, atol=2e-2)
-        fresh = treset(cfg, B, torch.Generator().set_state(g.get_state()))
-        nxt, tr = tppo._collect(cfg, one, apply_t, params, st, noise[t:t + 1], g)
+        nxt, tr = tppo._collect(cfg, one, apply_t, params, st, noise[t:t + 1])
         action = tr.action[0]
         assert torch.equal(action, torch.argmax(noise[t] + logits, dim=-1).to(torch.int32))
         js2, res = step_j(to_jax(st), jnp.asarray(action.numpy()))
         done = np.asarray(res.done)
+        fresh = reset_one(jax.vmap(jax.random.wrap_key_data)(js2.rng))
         want = {k: np.where(done.reshape((-1,) + (1,) * (a.ndim - 1)), f, a) for (k, a), f in
-                zip(np_tree(js2).items(), interop.env_state_to_numpy(fresh).values())}
+                zip(np_tree(js2).items(), np_tree(fresh).values())}
         assert_tree_equal(interop.env_state_to_numpy(nxt), want)
         np.testing.assert_array_equal(tr.done[0].numpy(), done)
         np.testing.assert_array_equal(tr.reward[0].numpy(), np.where(
@@ -253,7 +256,7 @@ def test_collect_replays_jax_step_by_step(policy):
         st = nxt
     assert dones > 0
     whole_end, whole = tppo._collect(cfg, tp._replace(rollout_steps=T), apply_t, params,
-                                     to_port(st0), noise, torch.Generator().manual_seed(6))
+                                     to_port(st0), noise)
     for k in tppo.Transition._fields[1:]:
         assert torch.equal(getattr(whole, k), torch.cat([getattr(tr, k) for tr in trs])), k
     assert_tree_equal(interop.env_state_to_numpy(whole_end), interop.env_state_to_numpy(st))

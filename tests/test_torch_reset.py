@@ -2,9 +2,9 @@
 
 ``reset_from_draws`` is fed the draws that JAX ``reset_from_seed`` takes from
 its keys, replayed split for split, and must give the JAX state field for
-field (exact: every field is an integer). The generator-driven ``reset`` uses
-torch's own stream, so it is held to the invariants and the chi-square
-bounds of tests/test_reset_distribution.py instead.
+field (exact: every field is an integer). The keyed ``reset_from_seed``,
+bit-exact with JAX's (``tests/test_torch_keyed_reset.py``), is also held to
+the invariants and the chi-square bounds of tests/test_reset_distribution.py.
 """
 
 import dataclasses

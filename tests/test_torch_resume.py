@@ -25,6 +25,8 @@ import torch
 import gym_craftingworld_tpu as jcw
 from gym_craftingworld_tpu.train import ppo as jppo
 from gym_craftingworld_tpu_torch import interop
+from gym_craftingworld_tpu_torch.ops.keyed_draws import split_keys
+from gym_craftingworld_tpu_torch.ops.threefry import prng_key
 from gym_craftingworld_tpu_torch.train import checkpoint
 from gym_craftingworld_tpu_torch.train import fast_ppo as fp
 from gym_craftingworld_tpu_torch.train import ppo as tppo
@@ -135,7 +137,7 @@ def test_checkpoint_round_trip(tmp_path):
     ppo = tppo.PPOConfig(rollout_steps=4, num_minibatches=2, hidden=16)
     g = torch.Generator().manual_seed(1)
     ts = tppo.init_train_state(g, cfg, ppo)
-    env = tppo.reset(cfg, 8, g)
+    env = tppo.reset(cfg, split_keys(prng_key(1), 8))
     ts, env, g, _ = tppo.train_step(cfg, ppo, ts, env, g)
     checkpoint.save(str(tmp_path / "step_1"), ts, env, g, step=1)
     nxt = torch.rand(5, generator=g)  # the draws after the checkpoint

@@ -22,6 +22,8 @@ from gym_craftingworld_tpu_torch import interop
 from gym_craftingworld_tpu_torch.core.reset import reset as treset
 from gym_craftingworld_tpu_torch.models import rnn as trnn
 from gym_craftingworld_tpu_torch.ops import packed_fused as pf
+from gym_craftingworld_tpu_torch.ops.keyed_draws import split_keys
+from gym_craftingworld_tpu_torch.ops.threefry import prng_key
 from gym_craftingworld_tpu_torch.train import ppo as tppo
 from gym_craftingworld_tpu_torch.train import ppo_rnn as tpr
 
@@ -158,7 +160,7 @@ def test_train_step_rnn_matches_jax():
 
 def test_train_step_rnn_draws_and_resets():
     """The port's own draws: Gumbel noise and permutations from the
-    generator, auto-reset from a fresh batch (envs started near
+    generator, auto-reset from the envs' keys (envs started near
     ``max_steps`` finish within T); every kernel changes and the metrics are
     finite."""
     cfg = tcfg(CFG)
@@ -167,7 +169,7 @@ def test_train_step_rnn_draws_and_resets():
     ts = tpr.init_rnn_train_state(g, cfg, p, 8)
     assert not ts.prev_done.any() and not ts.hidden.any()
     before = {k: v.detach().clone() for k, v in ts.params.named_parameters()}
-    st = treset(cfg, 8, g)
+    st = treset(cfg, split_keys(prng_key(4), 8))
     st.step_num[:] = CFG.max_steps - 2
     ts, st, g, m = tpr.train_step_rnn(cfg, p, ts, st, g)
     assert bool((st.step_num < 6).all())  # every env restarted within T

@@ -20,6 +20,8 @@ from gym_craftingworld_tpu_torch import constants as C
 from gym_craftingworld_tpu_torch import interop
 from gym_craftingworld_tpu_torch.core import slots as tsm
 from gym_craftingworld_tpu_torch.ops import transposed_rollout as ttr
+from gym_craftingworld_tpu_torch.ops.keyed_draws import randint_cols
+from gym_craftingworld_tpu_torch.ops.threefry import prng_key
 
 from test_torch_packed_rollout import assert_tree_equal, np_tree, tcfg
 
@@ -134,14 +136,19 @@ def test_slot_engines_equal_grid_step(cfg, seed, steps):
 
 
 def test_random_rollouts_agree():
-    """``rollout_random``, ``rollout_slots_random`` and ``rollout_t_random``
-    draw the same int32 actions from one generator state and agree."""
+    """``rollout_slots_random`` and ``rollout_t_random`` draw the same int32
+    actions from one generator state and agree with the grid ``rollout`` of
+    those actions, which ``rollout_random`` runs on its key's actions."""
     cfg = tcw.flat_config()
     B, T = 32, 128
     grid = tcw.reset_from_seed(cfg, 9, B, device="cpu")
     sl = tsm.from_env_state(grid)
     gen = lambda: torch.Generator().manual_seed(4)
-    g_st, g_out = tcw.rollout_random(cfg, grid, gen(), T)
+    actions = torch.randint(0, 6, (T, B), generator=gen(), dtype=torch.int32)
+    g_st, g_out = tcw.rollout(cfg, grid, actions)
+    k_st, k_out = tcw.rollout_random(cfg, grid, prng_key(4), T)
+    k_ref, ref_out = tcw.rollout(cfg, grid, randint_cols(prng_key(4), (T, B), 0, 6))
+    assert torch.equal(k_out.reward, ref_out.reward) and torch.equal(k_st.objects, k_ref.objects)
     s_st, s_out = tsm.rollout_slots_random(cfg, sl, gen(), T)
     t_st, t_out = ttr.rollout_t_random(cfg, sl, gen(), T)
     for out in (s_out, t_out):

@@ -22,6 +22,8 @@ from gym_craftingworld_tpu.core.state import EnvState as JEnvState
 from gym_craftingworld_tpu_torch import constants as C
 from gym_craftingworld_tpu_torch import interop
 from gym_craftingworld_tpu_torch.core import validate as tval
+from gym_craftingworld_tpu_torch.ops.keyed_draws import split_keys
+from gym_craftingworld_tpu_torch.ops.threefry import prng_key
 
 from test_torch_packed_rollout import crafting_actions, np_tree, tcfg
 from test_torch_reset import _chi2
@@ -29,6 +31,7 @@ from test_torch_reset import _chi2
 # the packages re-export the `reset` function, shadowing the module name
 jreset = importlib.import_module("gym_craftingworld_tpu.core.reset")
 treset = importlib.import_module("gym_craftingworld_tpu_torch.core.reset")
+trollout = importlib.import_module("gym_craftingworld_tpu_torch.core.rollout")
 
 torch.set_num_threads(1)
 
@@ -148,12 +151,13 @@ def test_rollout_equals_jax(cfg):
 
 
 def test_rollout_random_draws_int32_actions_from_the_generator():
+    """The actions of ``rollout_random(key)`` are JAX's ``randint(key, (T,
+    B), 0, 6)``, int32."""
     cfg = tcw.flat_config()
     st = tcw.reset_from_seed(cfg, 2, 16, device="cpu")
-    g = torch.Generator().manual_seed(8)
-    actions = torch.randint(0, 6, (40, 16), generator=torch.Generator().manual_seed(8),
-                            dtype=torch.int32)
-    a, out_a = tcw.rollout_random(cfg, st, g, 40)
+    actions = torch.as_tensor(np.asarray(jax.random.randint(jax.random.PRNGKey(8), (40, 16), 0, 6)))
+    assert actions.dtype == torch.int32
+    a, out_a = tcw.rollout_random(cfg, st, prng_key(8), 40)
     b, out_b = tcw.rollout(cfg, st, actions)
     assert torch.equal(out_a.reward, out_b.reward) and torch.equal(out_a.done, out_b.done)
     assert torch.equal(a.objects, b.objects)
@@ -161,17 +165,15 @@ def test_rollout_random_draws_int32_actions_from_the_generator():
 
 def test_auto_reset():
     """Up to each env's first done the auto-reset rollout equals the plain one;
-    a done env restarts from the generator's fresh world of that step, at step
-    0 with no task achieved, and every state stays valid."""
+    a done env restarts from the fresh world of its own key, at step 0 with
+    no task achieved, and every state stays valid."""
     cfg = tcw.EnvConfig(height=8, width=8, max_steps=20, reward_equal=False)
     B, T = 4096, 20
     st0 = tcw.reset_from_seed(cfg, 6, B, device="cpu")
     actions = torch.as_tensor(crafting_actions(7, T, B))
-    g = torch.Generator().manual_seed(9)
-    replay = torch.Generator().manual_seed(9)
-    with pytest.raises(ValueError):
-        tcw.rollout(cfg, st0, actions, auto_reset=True)
-    st, out = tcw.rollout(cfg, st0, actions, auto_reset=True, generator=g)
+    before, head = tcw.rollout(cfg, st0, actions[:-1], auto_reset=True)
+    st, last_step = tcw.rollout(cfg, before, actions[-1:], auto_reset=True)
+    out = trollout.RolloutOut(*(torch.cat(x) for x in zip(head, last_step)))
     _, ref = tcw.rollout(cfg, st0, actions)
 
     done = out.done.numpy()
@@ -181,9 +183,8 @@ def test_auto_reset():
     np.testing.assert_array_equal(done[upto], ref.done.numpy()[upto])
     assert (first < cfg.max_steps - 1).any(), "some env succeeds before the step limit"
 
-    # an env done at the last step holds the last fresh batch the rollout drew
-    for _ in range(T):
-        fresh = treset.reset(cfg, B, replay)
+    # an env done at the last step holds the fresh world of the key it held
+    fresh = treset.reset(cfg, before.rng)
     last = out.done[-1]
     assert last.float().mean() > 0.5
     for f in dataclasses.fields(fresh):
@@ -205,7 +206,7 @@ def test_auto_reset():
     # mid-rollout: an env last done at step t has taken T - 1 - t steps since
     T2 = 27
     actions = torch.as_tensor(crafting_actions(8, T2, B))
-    st, out = tcw.rollout(cfg, st0, actions, auto_reset=True, generator=g)
+    st, out = tcw.rollout(cfg, st0, actions, auto_reset=True)
     d = out.done.numpy()
     last = np.where(d.any(axis=0), T2 - 1 - d[::-1].argmax(axis=0), -1)
     want = np.where(last >= 0, T2 - 1 - last, np.minimum(T2, cfg.max_steps))
@@ -288,10 +289,9 @@ def test_pool_reset_equals_jax(cfg):
 
 def test_generator_pool_reset():
     cfg = tcw.flat_config()
-    g = torch.Generator().manual_seed(3)
-    pobj, pagent = tcw.core.generate_pool(cfg, g, 16)
+    pobj, pagent = tcw.core.generate_pool(cfg, prng_key(3), 16)
     assert pobj.dtype == torch.int8 and pagent.dtype == torch.int32
-    st = tcw.core.reset_from_pool(cfg, 256, g, pobj, pagent)
+    st = tcw.core.reset_from_pool(cfg, split_keys(prng_key(4), 256), pobj, pagent)
     flat = st.objects.reshape(256, -1)
     match = (flat[:, None, :] == pobj.reshape(1, 16, -1)).all(dim=2)
     assert (match.sum(dim=1) >= 1).all(), "every world comes from the pool"

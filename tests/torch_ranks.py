@@ -238,3 +238,32 @@ def scaling_cpu(out) -> None:
     from gym_craftingworld_tpu_torch.tools import scaling_artifact as sa
 
     sa.run_cpu(Path(out) / "scaling.json", batch_per_device=8, num_steps=4, iters=1)
+
+
+def keyed_reset_ranks(out, batch: str, steps: str) -> None:
+    """A rank's ``reset_sharded`` and an auto-reset rollout of its columns of
+    ``randint(PRNGKey(3), (T, B), 0, 6)``, with the envs and keys it drew."""
+    from gym_craftingworld_tpu_torch import flat_config, ray_config
+    from gym_craftingworld_tpu_torch.core.rollout import rollout
+    from gym_craftingworld_tpu_torch.ops import keyed_draws as kd
+    from gym_craftingworld_tpu_torch.ops.threefry import prng_key
+    from gym_craftingworld_tpu_torch.parallel.mesh import make_env_mesh, reset_sharded
+
+    B, T = int(batch), int(steps)
+    mesh = make_env_mesh(device="cpu")
+
+    def drawn(fn):
+        before = kd.reset_draws_plain.envs, kd.counter_draws_plain.elements
+        res = fn()
+        return res, {"envs": kd.reset_draws_plain.envs - before[0],
+                     "keys": kd.counter_draws_plain.elements - before[1]}
+
+    reset, reset_draws = drawn(lambda: reset_sharded(ray_config(), 5, B, mesh))
+    cfg = flat_config(max_steps=6)
+    actions = kd.randint_cols(prng_key(3), (T, B), 0, 6, mesh.cols(B))
+    (rolled, out_), rollout_draws = drawn(
+        lambda: rollout(cfg, reset_sharded(cfg, 5, B, mesh), actions, auto_reset=True))
+    # the keys of a rollout are its reset's: the rollout draws no key, it reads them
+    rollout_draws["keys"] += T * (B // mesh.size)
+    _save(out, {"reset": reset, "reset_draws": reset_draws, "rolled": rolled,
+                "done": out_.done, "rollout_draws": rollout_draws})
