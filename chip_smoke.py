@@ -13,6 +13,8 @@
     python3 chip_smoke.py --distill     # phases 1 and 25 only
     python3 chip_smoke.py --tools       # phases 1 and 26 only
     python3 chip_smoke.py --keys        # phases 1 and 27 only
+    python3 chip_smoke.py --worker JOB  # one job of ``SIDE_BY_SIDE``, e.g. 23a or
+                                        # 22:fused:0 (the whole script starts these)
 
 Needs one CUDA card and ``nvcc`` (on PATH or under CUDA_HOME); imports
 nothing of JAX. Phases, each of which must pass:
@@ -47,8 +49,12 @@ nothing of JAX. Phases, each of which must pass:
    T=64, 2 epochs x 8 minibatches), ``train_many_fast`` for 3 updates, then
    the trained policy's loss and gradient on one fresh minibatch through
    ``fused_minibatch_grads``; the same 3 updates with ``throughput()``. The
-   pool, indexed-gradient and actions kernels must have run 3, 48 and 192
-   times, and no plain version at all;
+   parameters, the first envs and every draw come from JAX's key chain (key
+   data on the card). The pool, indexed-gradient and actions kernels must
+   have run 3, 48 and 192 times, the keyed counter kernel 8 times an update
+   (6 at ``throughput()``: ``keyed_update_launches``), and no plain version
+   at all; one update's draws under ``torch.cuda.set_sync_debug_mode
+   ("error")`` make no host sync;
 8. pool kernel against its plain version (bit-exact) at n=32,768, and its
    device time there (``torch.profiler``) beside its bound;
 9. (9a) the gradient's bf16 product core (``gemm_bf16_kernel``) against its
@@ -99,8 +105,10 @@ nothing of JAX. Phases, each of which must pass:
    before: ``train_many_pixel`` for 3 updates at the default
    ``PixelPPOConfig`` (conv 32/64, hidden 256, stride 2, T=64, 2 epochs x 16
    minibatches) and at ``throughput()`` (conv 16/32, hidden 192, stride 3, 1
-   epoch x 8); the actions kernel must have run 192 times, no other kernel
-   and no plain version; then ``render_grid_obs`` on the card equal to the
+   epoch x 8), from keys; the actions kernel must have run 192 times and
+   no other of the nine kernels, the keyed-draw kernels as
+   ``pixel_keyed_launches`` counts (the keyed pool, the uniforms, the
+   permutations), no plain version; then ``render_grid_obs`` on the card equal to the
    CPU's byte for byte, ``apply_pixel_policy`` (whole and in the collect's
    chunks) and one minibatch's loss and gradient within the CPU tests'
    tolerances, the collect's policy step from its CUDA graph equal to its
@@ -113,8 +121,11 @@ nothing of JAX. Phases, each of which must pass:
    ``PixelDistillStudent`` and ``GridActorCritic`` on the card against the
    CPU on the same parameters (carried by ``interop``); one ``train/ppo.py``
    update per family at hidden 512 on 21x21 (mlp and cnn at 4,096 envs, vit
-   at 256), ms per update, and ``evaluate_policy`` over 1,024 greedy
-   episodes; no hand-written kernel runs, and the phase checks so;
+   at 256), each step from a key (the flax init from a generator), ms per
+   update (after a warm-up, median of 3; vit's of 1), and ``evaluate_policy``
+   over 1,024 greedy episodes (vit: 256); none of the
+   nine kernels runs, the keyed draws run on their kernels (the resets, the
+   key chain, the noise, the permutations), and the phase checks so;
 19. the canonical imitation path on 21x21 stacked goals (max_steps 300):
    ``collect_expert_demos`` of 384 episodes in batches of 192 (noise 0.05);
    ``expert_relabel`` of 256 collected rows reproducing their labels;
@@ -127,7 +138,7 @@ nothing of JAX. Phases, each of which must pass:
    one ``dagger_round`` (768 episodes, 20,000 states, 1 epoch), its rollout,
    relabel and training timed;
 20. ``train_step_rnn`` at 4,096 envs on 21x21 (default ``PPOConfig``) for 3
-   updates; ``RecurrentActorCritic`` over 8 steps with dones and ``CPVPolicy``
+   updates from ``PRNGKey(20)``; ``RecurrentActorCritic`` over 8 steps with dones and ``CPVPolicy``
    with and without the init view, on the card against the CPU; ``bc.py``'s
    small-data path through the façade (16 episodes, 3 epochs at hidden 256,
    16 greedy episodes). Phases 19-20 launch no hand-written kernel and no
@@ -140,23 +151,31 @@ nothing of JAX. Phases, each of which must pass:
    script with ``--rank-worker``; a rank that fails fails the phase) and over
    one rank under NCCL in this process: rows 1-2, both trajectories and both
    final envs bit for bit, both trainers' first-minibatch gradients, loss
-   terms and update metrics within ``MD_*_TOL``, per rank the pool,
-   actions and indexed-gradient kernels 1, 64 and at most 16 times and no
-   plain version; the sharded update's ms and its ``all_reduce`` share;
-   ``train/run.py`` under torchrun (4,096 envs, mlp hidden 512), 4 updates
-   with a checkpoint at 2, and a resume from it that repeats updates 2-3 bit
-   for bit; the cost of deterministic algorithms on its update;
+   terms and update metrics within ``MD_*_TOL``, per rank the actions and
+   indexed-gradient kernels 64 and at most 16 times and no plain version;
+   the sharded update's ms and its ``all_reduce`` share; (21c, side by
+   side) ``train/run.py`` under torchrun (4,096 envs, mlp hidden 512), 4
+   updates with a checkpoint at 2, and a resume from it that repeats updates
+   2-3 bit for bit; the cost of deterministic algorithms on its update;
    ``dryrun_multichip(1)``; ``scaling_report``'s one-card rates;
    ``train/ppo.py`` through ``ppo_train_step_sharded`` (mlp, 4,096 envs) at
    world 1 and 2: each rank's start state its columns of
    ``reset_from_seed``, each rank's draws (the keyed wrappers' counters) its
-   B/W envs only, ms an update;
+   B/W envs only (resets, auto-resets and noise), ms an update. The fast
+   and pixel updates take keys; fast PPO takes its default pool, the keyed
+   ``fresh_packed_batch`` over two ranks (JAX's sharded choice: the reset
+   kernel once, the counter kernel 10 times) and the pool kernel on one
+   (8), each held to an unsharded run of the same pool, and each rank's
+   counter draws of an update are the unsharded update's less the other
+   ranks' columns of the uniforms;
 22. learning: the default ``FastPPOConfig`` on single-task 8x8 at 4,096 envs
    for 192 updates (``tools/fast_ppo_sweep.learning_curve``), seeds 0 and 1,
    through the gradient kernel and through autograd, every counter set to 0
-   before each run: the pool, actions and indexed-gradient kernels must have
-   run 192, 12,288 and 3,072 times (0 through autograd), no plain version at
-   all. Each run's success per step over updates 160-191 must lie within
+   before each run, seed ``s`` taking JAX's tool's keys ``PRNGKey(100 + s)``,
+   ``PRNGKey(200 + s)`` and ``PRNGKey(300 + s)``: the pool, actions and
+   indexed-gradient kernels must have run 192, 12,288 and 3,072 times (0
+   through autograd), the keyed counter kernel 8 an update and 8 to start,
+   no plain version at all. Each run's success per step over updates 160-191 must lie within
    ``TAIL_BAND`` of the JAX record's seed mean (``docs/fast_ppo_sweep.json``,
    read as data), over updates 32-63 within ``EARLY_BAND``; the two paths'
    tails must agree within the JAX tool's noise rule
@@ -164,8 +183,9 @@ nothing of JAX. Phases, each of which must pass:
 23. the canonical-training tools (``gym_craftingworld_tpu_torch/tools/``):
    (a) ``fast_pixel_canonical``'s curve at its ``throughput()`` preset,
    16,384 envs on single-task 21x21, seed 0, 100 updates, every counter set
-   to 0 just before: the actions kernel must have run 6,400 times (64 an
-   update), no other kernel and no plain version; the mean success per step
+   to 0 just before, JAX's tool's keys: the actions kernel must have run
+   6,400 times (64 an update) and no other of the nine kernels, the keyed
+   draws as ``pixel_keyed_launches`` counts, no plain version; the mean success per step
    over updates 0-49 must lie within ``PIXEL_FIRST_BAND`` of the JAX
    record's (``docs/pixel_canonical.json``, read as data) and the ratio of
    updates 50-99 to 0-49 within ``PIXEL_DIP_BAND`` (JAX's dip, 0.494);
@@ -232,17 +252,33 @@ nothing of JAX. Phases, each of which must pass:
 27. the keyed draws (``ops/keyed_draws.py``, ``csrc/keyed_draws.cu``): (a)
    the reset kernel against its plain version bit for bit (fresh and pool
    modes at 16,384 envs on 21x21, 4,096 on 8x8, 256 on 181x181, a task
-   selection, the world mode of ``generate_pool``) and the counter kernel
-   (split keys and ``randint`` of (64, 16,384), whole and a rank's
-   columns); (b) with their counters set to 0 just before, the keyed main
+   selection, the world mode of ``generate_pool``, the tasks mode of
+   ``fresh_packed_batch``) and the counter kernel in every mode at tolerance
+   0 (``counter_cases``: split, randint, bits and uniform, one key, 64 given
+   plane keys and 64 split from a parent, whole rows, a rank's column box
+   and ragged widths); (b) with their counters set to 0 just before, the keyed main
    path: ``reset_from_seed(ray_config(), 0, 16384)`` and a T=64 auto-reset
    rollout of ``randint(PRNGKey(3))``'s actions at 4,096 envs on 8x8
    (max_steps 10), 66 reset and 3 counter launches, no plain version, every
    field hashing to the JAX package's digests
    (``tools/records/keyed_digests.json``, made on the CPU with JAX and held
    there by ``tests/test_torch_keyed_reset.py``); (c) both kernels' times
-   by CUDA events beside their bounds and plain versions,
-   ``reset_from_seed``'s, the vector env's and the façade's.
+   beside their bounds and plain versions (device ms: a CUDA graph of 20
+   launches replayed 5 times between CUDA events, the median,
+   ``graph_ms``; bounds from the SASS each kind of warp issues at the
+   timed launch, ``reset_bound`` and ``counter_bound``), the counter kernel
+   at ``randint`` (64, 16,384) and at fast PPO's uniforms of 64 planes x
+   (6, 16,384); fast PPO's pool of 2B worlds keyed (a multi-rank step's) and
+   from the pool kernel; ``reset_from_seed``'s, the vector env's and the
+   façade's.
+
+The script runs phases 1-18 in order, then phases 19, 20, 21c, 22, 23 and 25
+side by side (``side_by_side``: each in a process of its own, phase 22 one a path
+and seed, all started together on the one card; none of them times a kernel
+or has a time budget), then 21, then 24 and 26 each alone in a fresh process
+(they keep their budgets; host-paced work steps slower at the end of a long
+process), then 27. It prints when each group of phases ended, in seconds of
+the script.
 
 A phase that "launches no kernel" launches none of the nine kernels that
 replace the JAX package's Pallas kernels (``kernel_wrappers``); an env that
@@ -260,9 +296,10 @@ the function's work, not the ring's), on each of 132 x 4 schedulers at the
 max SM clock: one warp-instruction a clock, and one on the integer pipe every
 second clock (``pipe_bound_ms``). The single-rate
 bound (``instruction_bound_ms``) is printed beside it. The keyed-draw
-kernels' operations are counted from the algorithm (``keyed_bound``: 71
-integer operations a Threefry draw, 2 more to make a float) over 64 integer
-lanes an SM-clock.
+kernels' warps take paths that their launch decides (the columns a thread
+draws, a block's first warp deriving the env's keys); their bound is the same
+two-rate bound summed over each kind of warp, on the path the timed launch
+decides (``sass_under``, ``warps_bound_ms``).
 """
 
 from __future__ import annotations
@@ -430,6 +467,7 @@ PEAK_BF16 = 989e12  # H100 SXM dense bf16 FLOP/s (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12  # HBM3 bytes/s
 SMS, SCHEDULERS = 132, 4  # one warp-instruction a clock per scheduler
 SASS = {}  # mangled kernel name -> SassPaths
+DISASM = []  # (nvdisasm text, line_text) of each cubin, for ``sass_under``
 SM_CLOCK_HZ = 0.0
 # Conditions that the launch decides, and that some lane of every warp enters
 # on the runs whose bounds are taken: the step guard of a trip of four
@@ -522,23 +560,26 @@ def sass_paths(library: Path) -> dict:
                        capture_output=True, check=True, timeout=300)
         out = {}
         for cubin in sorted(tmp.glob("*.cubin")):
-            out.update(parse_nvdisasm(subprocess.run(
+            DISASM.append((subprocess.run(
                 [tool("nvdisasm"), "-g", "-c", str(cubin)], capture_output=True, text=True,
                 check=True, timeout=300).stdout, line_text))
+            out.update(parse_nvdisasm(*DISASM[-1]))
         return out
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def parse_nvdisasm(text: str, line_text) -> dict:
+def parse_nvdisasm(text: str, line_text, entered=ENTERED, loop: bool = True) -> dict:
     """{kernel: SassPaths} of the text ``nvdisasm -g -c`` prints.
 
     A warp issues an instruction when any of its lanes runs it, and it issues
     predicated instructions whatever their predicate. So a warp's path takes,
-    at each branch on a condition in ``ENTERED`` (``line_text`` gives the
+    at each branch on a condition in ``entered`` (``line_text`` gives the
     branch's source line), the side with more instructions, and at any other
     branch the side with fewer: the count is the least the run's data lets a
-    warp issue. An inner loop counts one trip.
+    warp issue. An inner loop counts one trip. With ``loop`` False the whole
+    path is ``pro``, a warp that leaves before any loop (no backward branch
+    taken).
     """
     funcs, name, where = {}, None, None
     for raw in text.splitlines():
@@ -562,10 +603,10 @@ def parse_nvdisasm(text: str, line_text) -> dict:
         m = re.match(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);", line)
         if m and not m.group(1).startswith("NOP"):
             ins.append((m.group(1).strip(), where))
-    return {k: _paths(ins, labels, line_text) for k, (ins, labels) in funcs.items()}
+    return {k: _paths(ins, labels, line_text, entered, loop) for k, (ins, labels) in funcs.items()}
 
 
-def _paths(ins, labels, line_text) -> SassPaths:
+def _paths(ins, labels, line_text, entered_re, loop) -> SassPaths:
     end = len(ins)  # past an EXIT
     succ, entered, loops, unit = [], [], [], []
     for i, (op, where) in enumerate(ins):
@@ -578,7 +619,7 @@ def _paths(ins, labels, line_text) -> SassPaths:
         ahead = bool(where and AHEAD.search(line_text(where))) and pipe != "mem"
         unit.append((1,) + tuple(int(pipe == p) for p in PIPES)
                     + (int(ahead), int(ahead and pipe == "int")))
-        entered.append(bool(where and ENTERED.search(line_text(where))))
+        entered.append(bool(where and entered_re.search(line_text(where))))
         if mnem.startswith(("EXIT", "RET")):
             succ.append([end, i + 1] if cond else [end])
         elif mnem.startswith("BRA"):
@@ -611,8 +652,9 @@ def _paths(ins, labels, line_text) -> SassPaths:
         check(cost[start] is not None, f"a path from instruction {start}")
         return cost[start]
 
-    if not loops:
-        pro, body, epi, static_body = walk(0, None), zero, zero, 0
+    if not loops or not loop:
+        pro, body, epi = walk(0, None), zero, zero
+        static_body = max(loops)[0] + 1 if loops else 0
     else:
         _, head, latch = max(loops)
         pro = tuple(x - u for x, u in zip(walk(0, head), unit[head])) if head else zero
@@ -626,6 +668,28 @@ def sass_of(kernel: str) -> SassPaths:
     hits = [v for k, v in SASS.items() if kernel in k]
     check(len(hits) == 1, f"one SASS function matches {kernel} ({len(hits)})")
     return hits[0]
+
+
+def sass_under(kernel: str, entered: str, loop: bool = True) -> SassPaths:
+    """``kernel``'s path where the launch also decides, and every warp
+    enters, the branches on source lines that ``entered`` matches (a
+    regular expression, beside ``ENTERED``); ``loop`` as ``parse_nvdisasm``."""
+    pattern = re.compile(f"{ENTERED.pattern}|{entered}")
+    hits = [v for text, line_text in DISASM
+            for k, v in parse_nvdisasm(text, line_text, pattern, loop).items() if kernel in k]
+    check(len(hits) == 1, f"one SASS function matches {kernel} ({len(hits)})")
+    return hits[0]
+
+
+def warps_bound_ms(parts) -> float:
+    """The two-rate issue bound of warps whose paths differ: ``parts`` are
+    (warps, SassPaths, trips); the schedulers of 132 SMs at the max SM clock
+    issue at least the warps' instructions, one a clock, and their
+    integer-pipe instructions, one every second clock (``pipe_bound_ms``
+    for one kind of warp)."""
+    issued = sum(w * (p.pro + p.body * t + p.epi - p.on_pipe("ahead", t)) for w, p, t in parts)
+    integer = sum(w * (p.on_pipe("int", t) - p.on_pipe("ahead_int", t)) for w, p, t in parts)
+    return max(issued, 2 * integer) / (SMS * SCHEDULERS * SM_CLOCK_HZ) * 1e3
 
 
 def instruction_bound_ms(kernel: str, warps: int, trips: int) -> float:
@@ -793,7 +857,15 @@ def near_top(p, cfg):
     return p._replace(slot_key=key, holding=torch.where(hold, 2, p.holding).to(torch.int16))
 
 
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     argv = sys.argv[1:]
     if "--rank-worker" in argv:  # one rank of phase 21's world, started by torchrun
         return rank_worker(Path(argv[argv.index("--rank-worker") + 1]),
@@ -811,12 +883,12 @@ def main() -> int:
     from gym_craftingworld_tpu_torch.ops import packed_rollout as pr
     from gym_craftingworld_tpu_torch.ops import transposed_rollout as tr
 
+    if "--worker" in argv:  # one job of side_by_side
+        return phase_worker(cw, argv[argv.index("--worker") + 1], argv)
     dev = torch.device(DEVICE, 0)
 
     # ---- 1. device and build ---------------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    smi = card_line()
     card = smi.splitlines()[0].strip()
     print(smi)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -844,8 +916,8 @@ def main() -> int:
           f"trip, after): " + "; ".join(
               f"{k}: ({v.static}, {v.static_body}) ({v.pro}, {v.body}, {v.epi})"
               for k, v in SASS.items() if any(n in k for n in integer)))
-    for k in SASS:
-        if any(n in k for n in integer):
+    for k in SASS:  # the keyed kernels' paths by launch: phase 27c
+        if any(n in k for n in integer) and "cw_keyed" not in k:
             p = SASS[k]
             trip_int, ahead, ahead_int = p.pipes["int"][1], p.pipes["ahead"], p.pipes["ahead_int"]
             print(f"{tag} {k} path by pipe (before the loop, a trip, after): {pipe_line(k)}; "
@@ -866,10 +938,12 @@ def main() -> int:
             ladder_phases(cw, dev, tag)
         if "--multi-device" in alone:
             multi_device_phase(cw, dev, tag)
+            run_py_phase(cw, dev, tag)
         if "--learning" in alone:
-            learning_phase(cw, dev, tag)
+            side_by_side(tag, LEARN_JOBS)
         if "--canonical" in alone:
-            canonical_phase(cw, dev, tag)
+            pixel_curve_phase(cw, dev, tag)
+            canonical_tools_phase(cw, dev, tag)
         if "--cpv" in alone:
             cpv_phase(cw, dev, tag)
         if "--distill" in alone:
@@ -1117,20 +1191,35 @@ def main() -> int:
                     plain_ms=r["plain_ms"], bound_ms=bounds[name][0], bound_by=bounds[name][1],
                     library_ms=None)
                for name, r in results.items()]
+
+    def ended(phases: str) -> None:
+        print(f"{tag} phases {phases} ended at {time.perf_counter() - t_start:.1f} s of the script")
+
+    ended("1-6")
     kernels += fast_ppo_phases(cw, dev, tag)
+    ended("7-10")
     kernels += ladder_phases(cw, dev, tag)
+    ended("11-13")
     front_end_phases(cw, dev, tag)
+    ended("14-16")
     pixel_ppo_phases(cw, dev, tag)
+    ended("17")
     policy_families_phase(cw, dev, tag)
-    imitation_phase(cw, dev, tag)
-    recurrent_phase(cw, dev, tag)
+    ended("18")
+    torch.cuda.empty_cache()  # room for the processes side by side
+    side_by_side(tag, SIDE_BY_SIDE)
+    ended("19, 20, 21c, 22, 23 and 25")
     multi_device_phase(cw, dev, tag)
-    learning_phase(cw, dev, tag)
-    canonical_phase(cw, dev, tag)
-    cpv_phase(cw, dev, tag)
-    distill_phase(cw, dev, tag)
-    tools_phase(cw, dev, tag, card)
+    ended("21")
+    side_by_side(tag, ("24",), args=["--long-t-rate", f"{B_MAIN}={LONG_T_RATE[B_MAIN]!r}"])
+    ended("24")
+    side_by_side(tag, ("26",))
+    ended("26")
     kernels += keys_phase(cw, dev, tag)
+    ended("27")
+    for k in kernels:  # the counter kernel's main path is fast PPO's (phase 7)
+        if k["name"] == "keyed_counter":
+            k["launches"] = FAST_PPO_KEYED["launches"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1232,7 +1321,7 @@ def gradient_phase(cw, dev, tag):
     results = {}
     fppo = fp.FastPPOConfig()
     gen.manual_seed(3)
-    params = fp.init_params(gen, cfg, fppo)
+    params = fp.init_params(prng_key(3).to(dev), cfg, fppo)
     N = fppo.rollout_steps * B // fppo.num_minibatches
     batch = random_minibatch(gen, dev, N, F)
     w = fu.weights(params)
@@ -1321,7 +1410,7 @@ def gradient_breakdown(cw, dev, tag, r, reps=5):
     F, B = fp.feature_rows(cfg), B_MAIN
     gen = torch.Generator(device=dev)
     gen.manual_seed(13)
-    params = fp.init_params(gen, cfg, fppo)
+    params = fp.init_params(prng_key(13).to(dev), cfg, fppo)
     N = fppo.rollout_steps * B // fppo.num_minibatches
     BLK = fp.shuffle_block(fppo.rollout_steps, B, fppo.num_minibatches)
     NB = fppo.rollout_steps * B // BLK
@@ -1368,9 +1457,51 @@ def gradient_breakdown(cw, dev, tag, r, reps=5):
           f"{prod_flop / (r['library_ms'] / 1e3) / 1e12:.2f} TFLOP/s")
 
 
+def keyed_update_launches(fppo, B) -> int:
+    """The counter kernel's launches of one fast-PPO update: ``split(key,
+    4)``, the pool kernel's ``randint`` seeds, the uniforms of T planes,
+    ``split(k_perm, epochs)``, and per epoch a split and a bits draw each
+    round of ``permutation``."""
+    from gym_craftingworld_tpu_torch.ops import threefry as tf
+    from gym_craftingworld_tpu_torch.train import fast_ppo as fp
+
+    NB = fppo.rollout_steps * B // fp.shuffle_block(fppo.rollout_steps, B, fppo.num_minibatches)
+    return 4 + 2 * fppo.update_epochs * tf.shuffle_rounds(NB)
+
+
+FAST_PPO_KEYED = {"launches": 0}  # the counter kernel's launches on phase 7's default path
+
+
+def pixel_keyed_launches(ppo, B) -> dict:
+    """The keyed-draw kernels' launches of one pixel-PPO update: the counter
+    kernel for ``split(key, 4)``, the pool's ``split``, scores and ``split``
+    of 2B keys, the uniforms and the permutations; the reset kernel for the
+    pool's tasks."""
+    from gym_craftingworld_tpu_torch.ops import threefry as tf
+    from gym_craftingworld_tpu_torch.train import fast_pixel_ppo as fx
+
+    NB = ppo.rollout_steps * B // fx.BLK
+    return {"keyed_counter": 5 + 1 + 2 * ppo.update_epochs * tf.shuffle_rounds(NB),
+            "keyed_reset": 1}
+
+
+def zero_keyed():
+    """The keyed-draw wrappers' launches and their plain versions' calls set
+    to 0; returns (wrappers, plains) to read them back."""
+    from gym_craftingworld_tpu_torch.ops import keyed_draws as kd
+
+    keyed, plains = keyed_wrappers(), [kd.counter_draws_plain, kd.reset_draws_plain]
+    for w in keyed.values():
+        w.launches = 0
+    for f in plains:
+        f.calls = 0
+    return keyed, plains
+
+
 def fast_ppo_phases(cw, dev, tag):
     from gym_craftingworld_tpu_torch.ops import fused_reset as fr
     from gym_craftingworld_tpu_torch.ops import fused_update as fu
+    from gym_craftingworld_tpu_torch.ops import keyed_draws as kd
     from gym_craftingworld_tpu_torch.ops import packed_fused as pf
     from gym_craftingworld_tpu_torch.train import fast_ppo as fp
 
@@ -1378,17 +1509,20 @@ def fast_ppo_phases(cw, dev, tag):
     F = fp.feature_rows(cfg)
     wrappers = kernel_wrappers("pool", "ppo_grads", "ppo_grads_indexed", "packed_actions",
                                "packed_bench", "action_stream")
+    wrappers.update(keyed_wrappers())
     plains = [fr.fresh_packed_plain, fu.ppo_grads_plain, pf.rollout_packed_actions_plain,
-              pf.rollout_packed_bench_plain, pf.action_stream_plain]
-    gen = torch.Generator(device=dev)
+              pf.rollout_packed_bench_plain, pf.action_stream_plain, kd.counter_draws_plain,
+              kd.reset_draws_plain]
+    gen = torch.Generator(device=dev)  # the synthetic minibatches of phases 9-10
+    key = lambda seed: prng_key(seed).to(dev)
 
     # ---- 7. the trainer at full width, counted ------------------------------
     main_launches = {}
     for preset, fppo in (("default", fp.FastPPOConfig()),
                          ("throughput", fp.FastPPOConfig.throughput())):
-        gen.manual_seed(7)
         env = fr.fresh_packed_fused(cfg, 11, B, device=dev)
-        ts = fp.init_fast_train_state(gen, cfg, fppo)
+        ts = fp.init_fast_train_state(key(7), cfg, fppo)
+        k_train = key(8)
         w1_0 = ts.params.w1.detach().clone()
         torch.cuda.synchronize()
         for w in wrappers.values():
@@ -1396,15 +1530,28 @@ def fast_ppo_phases(cw, dev, tag):
         for f in plains:
             f.calls = 0
         t0 = time.perf_counter()
-        ts, env, gen, m = fp.train_many_fast(cfg, fppo, ts, env, T_, gen)
+        ts, env, k_train, m = fp.train_many_fast(cfg, fppo, ts, env, T_, k_train)
         torch.cuda.synchronize()
         t_train = time.perf_counter() - t0
         launches = {k: w.launches for k, w in wrappers.items()}  # of the 3 updates
         if preset == "default":
+            # one update's draws from the key chain on the card make no host sync
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                _, k_pool, k_roll, k_perm = kd.split_keys(k_train, 4)
+                pool = fp._fresh_pool(cfg, k_pool, 2 * B)
+                u = fp.gumbel_uniforms(k_roll, fppo.rollout_steps, B)
+                NBp = fppo.rollout_steps * B // fp.shuffle_block(fppo.rollout_steps, B,
+                                                                 fppo.num_minibatches)
+                fp.epoch_perms(k_perm, fppo.update_epochs, NBp)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            print(f"{tag} one update's draws (split, pool seeds and pool, {fppo.rollout_steps} "
+                  f"planes of uniforms, {fppo.update_epochs} permutations of {NBp}) under "
+                  f"torch.cuda.set_sync_debug_mode('error'): no host sync")
             # score the trained policy: its loss and gradient on one fresh minibatch
             with torch.no_grad():
-                pool = fp._fresh_pool(cfg, gen, 2 * B)
-                u = fp.gumbel_uniforms(gen, (fppo.rollout_steps, 6, B))
                 env, traj = fp._collect(cfg, fppo, ts.params, env, pool, u)
                 _, last_value = fp.apply_policy(ts.params, fp.features(cfg, env))
                 adv, ret = fp._gae(fppo, traj, last_value)
@@ -1424,6 +1571,13 @@ def fast_ppo_phases(cw, dev, tag):
               f"indexed gradient kernel once per minibatch ({launches['ppo_grads_indexed']})")
         check(launches["packed_actions"] == T_ * fppo.rollout_steps,
               f"actions kernel once per collect step ({launches['packed_actions']})")
+        per_update = keyed_update_launches(fppo, B)
+        check(launches["keyed_counter"] == T_ * per_update,
+              f"counter kernel {per_update} times an update ({launches['keyed_counter']})")
+        check(launches["keyed_reset"] == 0, "no reset kernel: the pool kernel draws the pool")
+        print(f"{tag} fast PPO {preset}: the counter kernel launched {per_update} times an "
+              f"update, the key chain on the card (split 4, pool seeds, {fppo.rollout_steps} "
+              f"planes of uniforms in one launch, {fppo.update_epochs} epoch permutations)")
         check(all(c == 0 for c in calls.values()), f"no plain version ran: {calls}")
         metrics = {k: v.tolist() for k, v in m.items()}
         print(f"{tag} fast PPO {preset} metrics: {json.dumps(metrics)}")
@@ -1436,6 +1590,7 @@ def fast_ppo_phases(cw, dev, tag):
               "env keys in range after training")
         if preset == "default":
             main_launches = {k: w.launches for k, w in wrappers.items()}  # the whole path
+            FAST_PPO_KEYED["launches"] = main_launches["keyed_counter"]
             print(f"{tag} launches of the whole default path (training and scoring): "
                   f"{main_launches}")
             check(main_launches["ppo_grads"] == 1, "the scoring gradient ran through the kernel")
@@ -1494,30 +1649,31 @@ def fast_ppo_phases(cw, dev, tag):
     # ---- 10. fast-PPO timings ----------------------------------------------------
     for preset, fppo in (("default", fp.FastPPOConfig()),
                          ("throughput", fp.FastPPOConfig.throughput())):
-        gen.manual_seed(5)
-        state = {"ts": fp.init_fast_train_state(gen, cfg, fppo),
-                 "env": fr.fresh_packed_fused(cfg, 12, B, device=dev)}
+        state = {"ts": fp.init_fast_train_state(key(5), cfg, fppo),
+                 "env": fr.fresh_packed_fused(cfg, 12, B, device=dev), "key": key(6)}
 
         def step(**kw):
-            state["ts"], state["env"], _, _ = fp.train_step_fast(
-                cfg, fppo, state["ts"], state["env"], gen, **kw)
+            state["ts"], state["env"], state["key"], _ = fp.train_step_fast(
+                cfg, fppo, state["ts"], state["env"], state["key"], **kw)
 
         ms_k = time_ms(step)
         ms_p = time_ms(lambda: step(fused_pool=False, fused_update=False))
         ms_k2 = time_ms(step)
         env0 = state["env"]
-        pool = fp._fresh_pool(cfg, gen, 2 * B)
-        u = fp.gumbel_uniforms(gen, (fppo.rollout_steps, 6, B))
+        k_pool, k_roll, k_perm = key(9), key(10), key(11)
+        pool = fp._fresh_pool(cfg, k_pool, 2 * B)
+        u = fp.gumbel_uniforms(k_roll, fppo.rollout_steps, B)
         with torch.no_grad():
             ms_collect = time_ms(lambda: fp._collect(cfg, fppo, state["ts"].params, env0, pool, u))
             _, traj = fp._collect(cfg, fppo, state["ts"].params, env0, pool, u)
             _, lv = fp.apply_policy(state["ts"].params, fp.features(cfg, env0))
             adv, ret = fp._gae(fppo, traj, lv)
         NBp = fppo.rollout_steps * B // fp.shuffle_block(fppo.rollout_steps, B, fppo.num_minibatches)
-        perms = torch.stack([torch.randperm(NBp, generator=gen, device=dev)
-                             for _ in range(fppo.update_epochs)])
+        perms = fp.epoch_perms(k_perm, fppo.update_epochs, NBp)
         ms_update = time_ms(lambda: fp._update_phase(fppo, state["ts"], traj, adv, ret, perms))
-        ms_pool = time_ms(lambda: fp._fresh_pool(cfg, gen, 2 * B))
+        ms_pool = time_ms(lambda: fp._fresh_pool(cfg, k_pool, 2 * B))
+        ms_draws = time_ms(lambda: (fp.gumbel_uniforms(k_roll, fppo.rollout_steps, B),
+                                    fp.epoch_perms(k_perm, fppo.update_epochs, NBp)))
         ms_gae = time_ms(lambda: fp._gae(fppo, traj, lv))
         env_steps = B * fppo.rollout_steps
         print(f"{tag} fast PPO {preset} B={B} hidden={fppo.hidden}: "
@@ -1525,7 +1681,8 @@ def fast_ppo_phases(cw, dev, tag):
               f"({env_steps / (ms_k2 / 1e3):.4e} env-steps/s), {ms_p:.2f} ms with "
               f"fused_pool=False, fused_update=False (median of 5, CUDA events); stages: "
               f"pool {ms_pool:.3f} ms, collect {ms_collect:.2f} ms, GAE {ms_gae:.3f} ms, "
-              f"update phase {ms_update:.2f} ms")
+              f"update phase {ms_update:.2f} ms; the keyed draws (uniforms and permutations) "
+              f"{ms_draws:.3f} ms")
         if preset == "default":
             torch.cuda.reset_peak_memory_stats(dev)
             step()
@@ -2061,7 +2218,11 @@ def front_end_phases(cw, dev, tag):
 # envs of each family's train_step in phase 18: a vit minibatch of 4,096 rows
 # already holds 6.4 GB of attention weights per block
 FAMILY_B = {"mlp": 4096, "cnn": 4096, "vit": 256}
-EVAL_EPISODES = 1024
+# timed updates after the cold one and greedy evaluation episodes of each
+# family in phase 18: vit's update takes ~10.7 s and its 1,024-episode
+# evaluation ~28 s on the H100, so it is timed once and evaluated over 256
+FAMILY_REPS = {"mlp": 3, "cnn": 3, "vit": 1}
+FAMILY_EVAL = {"mlp": 1024, "cnn": 1024, "vit": 256}
 GRAD_ROWS = 4096  # rows of phase 17's card-vs-CPU gradient check
 
 
@@ -2124,27 +2285,41 @@ def pixel_ppo_phases(cw, dev, tag):
     from gym_craftingworld_tpu_torch import interop
     from gym_craftingworld_tpu_torch.train import fast_pixel_ppo as fx
 
+    from gym_craftingworld_tpu_torch.ops import keyed_draws as kd
+
     cfg, B, U = cw.ray_config(), B_MAIN, PPO_UPDATES
-    wrappers, plains = kernel_wrappers(), plain_versions()
-    gen = torch.Generator(device=dev)
+    wrappers, keyed = kernel_wrappers(), keyed_wrappers()
+    plains = plain_versions() + [kd.counter_draws_plain, kd.reset_draws_plain]
+    gen = torch.Generator(device=dev)  # the synthetic minibatch of the card-vs-CPU check
+    key = lambda seed: prng_key(seed).to(dev)
     for preset, ppo in (("default", fx.PixelPPOConfig()),
                         ("throughput", fx.PixelPPOConfig.throughput())):
         T = ppo.rollout_steps
         gen.manual_seed(17)
-        ts = fx.init_pixel_train_state(gen, cfg, ppo)
-        env = fx.fresh_packed_batch(cfg, gen, B)
+        ts = fx.init_pixel_train_state(key(17), cfg, ppo)
+        env = fx.fresh_packed_batch(cfg, key(18), B)
+        k_train = key(19)
         before = {k: v.detach().clone() for k, v in ts.params.tensors().items()}
         torch.cuda.synchronize()
-        for w in wrappers.values():
+        for w in (*wrappers.values(), *keyed.values()):
             w.launches = 0
         for f in plains:
             f.calls = 0
         t0 = time.perf_counter()
-        ts, env, gen, m = fx.train_many_pixel(cfg, ppo, ts, env, U, gen)
+        ts, env, k_train, m = fx.train_many_pixel(cfg, ppo, ts, env, U, k_train)
         torch.cuda.synchronize()
         t_train = time.perf_counter() - t0
         launches = {k: w.launches for k, w in wrappers.items()}
+        keyed_launches = {k: w.launches for k, w in keyed.items()}
         calls = {f.__name__: f.calls for f in plains}
+        # an update: split(key, 4); the pool's split, scores, split of 2B keys
+        # and tasks (the reset kernel); the uniforms; the permutations
+        NB = T * B // fx.BLK
+        want = {k: U * v for k, v in pixel_keyed_launches(ppo, B).items()}
+        print(f"{tag} pixel PPO {preset}: the keyed-draw kernels launched {keyed_launches} "
+              f"in {U} updates (want {want}): the pool of fresh_packed_batch, the uniforms and "
+              f"permutations from the key chain on the card")
+        check(keyed_launches == want, f"keyed draws {keyed_launches} == {want}")
         print(f"{tag} pixel PPO {preset}: B={B} conv {ppo.conv1}/{ppo.conv2} stride {ppo.stride1} "
               f"hidden {ppo.hidden} T={T} {ppo.update_epochs}x{ppo.num_minibatches} minibatches, "
               f"{U} updates in {t_train * 1e3:.1f} ms (cold, host clock); launches {launches}; "
@@ -2152,7 +2327,8 @@ def pixel_ppo_phases(cw, dev, tag):
         check(launches["packed_actions"] == U * T,
               f"actions kernel once per collect step ({launches['packed_actions']})")
         check(all(n == 0 for k, n in launches.items() if k != "packed_actions"),
-              f"no other kernel ran (the pixel path draws its pool with torch): {launches}")
+              f"no other of the nine kernels ran (the pixel path draws its pool from keys): "
+              f"{launches}")
         check(all(c == 0 for c in calls.values()), f"no plain version ran: {calls}")
         metrics = {k: v.tolist() for k, v in m.items()}
         print(f"{tag} pixel PPO {preset} metrics: {json.dumps(metrics)}")
@@ -2216,16 +2392,17 @@ def pixel_ppo_phases(cw, dev, tag):
         del card_obs, host_obs, host_env
 
         # times
-        state = {"ts": ts, "env": env}
+        state = {"ts": ts, "env": env, "key": k_train}
 
         def step():
-            state["ts"], state["env"], _, _ = fx.train_step_pixel(cfg, ppo, state["ts"],
-                                                                  state["env"], gen)
+            state["ts"], state["env"], state["key"], _ = fx.train_step_pixel(
+                cfg, ppo, state["ts"], state["env"], state["key"])
 
         ms_update = time_ms(step)
         env0 = state["env"]
-        pool = fx.fresh_packed_batch(cfg, gen, 2 * B)
-        u = fx.gumbel_uniforms(gen, (T, 6, B))
+        k_pool, k_perm = key(20), key(21)
+        pool = fx.fresh_packed_batch(cfg, k_pool, 2 * B)
+        u = fx.gumbel_uniforms(key(22), T, B)
         with torch.no_grad():
             # the collect's policy step: replayed from its CUDA graph (as
             # training runs it), its chunks called one by one, one call of B
@@ -2245,11 +2422,9 @@ def pixel_ppo_phases(cw, dev, tag):
             _, lv = fx._policy_tb(params, cfg, env0, ppo.stride1)
             ms_gae = time_ms(lambda: fx._gae(ppo.as_fast, traj, lv))
             adv, ret = fx._gae(ppo.as_fast, traj, lv)
-        NB = T * B // fx.BLK
-        perms = torch.stack([torch.randperm(NB, generator=gen, device=dev)
-                             for _ in range(ppo.update_epochs)])
+        perms = fx.epoch_perms(k_perm, ppo.update_epochs, NB)
         ms_upd = time_ms(lambda: fx._update_phase(cfg, ppo, state["ts"], traj, adv, ret, perms))
-        ms_pool = time_ms(lambda: fx.fresh_packed_batch(cfg, gen, 2 * B))
+        ms_pool = time_ms(lambda: fx.fresh_packed_batch(cfg, k_pool, 2 * B))
         del traj, adv, ret
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -2283,11 +2458,13 @@ def policy_families_phase(cw, dev, tag):
     from gym_craftingworld_tpu_torch.train import evaluate as ev
     from gym_craftingworld_tpu_torch.train import ppo
 
+    from gym_craftingworld_tpu_torch.ops import keyed_draws as kd
+
     cfg = cw.ray_config()
-    wrappers, plains = kernel_wrappers(), plain_versions()
-    for w in wrappers.values():
+    wrappers, plains, keyed = kernel_wrappers(), plain_versions(), keyed_wrappers()
+    for w in (*wrappers.values(), *keyed.values()):
         w.launches = 0
-    for f in plains:
+    for f in (*plains, kd.counter_draws_plain, kd.reset_draws_plain):
         f.calls = 0
     gen = torch.Generator(device=dev).manual_seed(18)
     st, _ = cw.rollout_random(cfg, cw.reset_from_seed(cfg, 18, 256, device=dev), prng_key(18), 40)
@@ -2318,13 +2495,13 @@ def policy_families_phase(cw, dev, tag):
     for policy, B in FAMILY_B.items():
         p = ppo.PPOConfig(policy=policy)
         gen.manual_seed(18)
-        ts = ppo.init_train_state(gen, cfg, p)
+        ts = ppo.init_train_state(gen, cfg, p)  # flax's init stays on a generator
         before = {k: v.detach().clone() for k, v in ts.params.named_parameters()}
         env = cw.reset_from_seed(cfg, 18, B, device=dev)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
-        ts, env, gen, m = ppo.train_step(cfg, p, ts, env, gen)
+        ts, env, k_step, m = ppo.train_step(cfg, p, ts, env, prng_key(18).to(dev))
         torch.cuda.synchronize()
         t_cold = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated(dev)
@@ -2335,32 +2512,39 @@ def policy_families_phase(cw, dev, tag):
         after = dict(ts.params.named_parameters())
         check(all(not torch.equal(before[k], after[k]) for k in before if k.endswith("kernel")),
               f"{policy}: every kernel changed")
-        state = {"ts": ts, "env": env}
+        state = {"ts": ts, "env": env, "key": k_step}
 
         def step():
-            state["ts"], state["env"], _, _ = ppo.train_step(cfg, p, state["ts"], state["env"], gen)
+            state["ts"], state["env"], state["key"], _ = ppo.train_step(
+                cfg, p, state["ts"], state["env"], state["key"])
 
-        ms = time_ms(step, reps=3)
+        reps, episodes = FAMILY_REPS[policy], FAMILY_EVAL[policy]
+        ms = time_ms(step, reps=reps)
         t0 = time.perf_counter()
-        summary = ev.evaluate_policy(cfg, p, state["ts"].params, EVAL_EPISODES, seed=0)
+        summary = ev.evaluate_policy(cfg, p, state["ts"].params, episodes, seed=0)
         t_eval = time.perf_counter() - t0
-        check(summary["episodes"] == EVAL_EPISODES
+        check(summary["episodes"] == episodes
               and 0 < summary["mean_episode_steps"] <= cfg.max_steps,
               f"{policy}: evaluate_policy summary {summary}")
         print(f"{tag} train/ppo.py {policy} hidden {p.hidden} B={B} T={p.rollout_steps} "
               f"{p.update_epochs}x{p.num_minibatches} minibatches of {p.rollout_steps * B // p.num_minibatches} "
-              f"rows: {ms:.2f} ms per update (median of 3, CUDA events), "
+              f"rows: {ms:.2f} ms per update (median of {reps}, CUDA events), "
               f"{B * p.rollout_steps / (ms / 1e3):.4e} env-steps/s; first update {t_cold * 1e3:.1f} ms "
               f"(cold, host clock), peak device memory {peak / 2**30:.3f} GiB; metrics "
-              f"{json.dumps(metrics)}; evaluate_policy over {EVAL_EPISODES} greedy episodes in "
+              f"{json.dumps(metrics)}; evaluate_policy over {episodes} greedy episodes in "
               f"{t_eval:.2f} s (host clock): success {summary['success_rate']:.4f}, mean steps "
               f"{summary['mean_episode_steps']:.2f}")
         del state, ts, env, before, after
     launches = {k: w.launches for k, w in wrappers.items()}
     calls = {f.__name__: f.calls for f in plains}
     check(all(n == 0 for n in launches.values()) and all(c == 0 for c in calls.values()),
-          f"the policy families launch no hand-written kernel: {launches}, plain calls {calls}")
-    print(f"{tag} launch counters over phase 18: {launches}")
+          f"the policy families launch none of the nine kernels: {launches}, plain calls {calls}")
+    keyed_launches = {k: w.launches for k, w in keyed.items()}
+    check(all(n > 0 for n in keyed_launches.values())
+          and kd.counter_draws_plain.calls == kd.reset_draws_plain.calls == 0,
+          f"the keyed draws ran on their kernels, no plain version: {keyed_launches}")
+    print(f"{tag} launch counters over phase 18: {launches}; keyed draws {keyed_launches} "
+          f"(the resets, the key chain, the noise, the permutations)")
 
 
 # ---------------------------------------------------------------------------
@@ -2614,10 +2798,11 @@ def recurrent_phase(cw, dev, tag):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     times, metrics = [], []
+    k_step = prng_key(20).to(dev)
     for _ in range(RNN_UPDATES):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        ts, env, gen, m = ppo_rnn.train_step_rnn(cfg, p, ts, env, gen)
+        ts, env, k_step, m = ppo_rnn.train_step_rnn(cfg, p, ts, env, k_step)
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
@@ -2723,66 +2908,47 @@ def to_host(x):
     return x
 
 
-def md_work(cw, dev, mesh, timed: bool) -> dict:
-    """Phase 21's work over ``mesh`` (None: the unsharded run): the bench
-    kernel (T = 300), the actions kernel on row 3's stream (T = 300), one
-    default fast-PPO update, counted, with its collect and first minibatch's
-    gradient, and one default pixel-PPO update, at 16,384 envs on 21x21;
-    then ``md_ppo_work``. Returns CPU copies of the results, and with
-    ``timed`` the ms of an update and the share of it in ``all_reduce``
-    calls."""
+def md_fast(cfg, fppo, ts0, env, key, mesh, fused_pool, timed: bool) -> dict:
+    """Phase 21's fast-PPO update over ``mesh`` with ``fused_pool``, counted,
+    its collect and first minibatch's gradient (``md_work``)."""
     import copy
 
-    from gym_craftingworld_tpu_torch.core import slots as sm
-    from gym_craftingworld_tpu_torch.ops import fused_reset as fr
-    from gym_craftingworld_tpu_torch.ops import packed_fused as pf
+    from gym_craftingworld_tpu_torch.ops import keyed_draws as kd
     from gym_craftingworld_tpu_torch.parallel import mesh as pm
-    from gym_craftingworld_tpu_torch.parallel import sharded_engine as se
-    from gym_craftingworld_tpu_torch.train import fast_pixel_ppo as fx
     from gym_craftingworld_tpu_torch.train import fast_ppo as fp
 
-    cfg, B = cw.ray_config(), B_MAIN
-    T = cfg.max_steps
-    gen = lambda seed: torch.Generator(device=dev).manual_seed(seed)
+    dev = env.agent_r.device
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    elements = lambda: kd.counter_draws_kernel.elements + kd.counter_draws_plain.elements
     out = {}
-
-    whole = sm.from_env_state(cw.reset_from_seed(cfg, 0, B, device=dev))
-    if mesh is None:
-        out["bench"] = pf.fused_rollout_packed_bench(cfg, whole, MD_SEED, T)
-        stream = pf.fused_action_stream(B, MD_STREAM_SEED, T, device=dev)
-        out["actions"] = pf.fused_rollout_packed(cfg, whole, stream, T)
-    else:
-        mine = se.shard_slots(whole, mesh)
-        out["bench"] = se.fused_rollout_packed_bench_sharded(cfg, mine, MD_SEED, T, mesh=mesh)
-        stream = pf.fused_action_stream(B, MD_STREAM_SEED, T, device=dev)
-        out["actions"] = se.fused_rollout_packed_sharded(cfg, mine, stream, T, mesh=mesh)
-    out = to_host(out)
-    del whole, stream
-
-    local = (lambda env: env) if mesh is None else (lambda env: se.shard_packed(env, mesh))
-    fppo = fp.FastPPOConfig()
-    env = local(fr.fresh_packed_fused(cfg, 11, B, device=dev))
-    ts0 = fp.init_fast_train_state(gen(7), cfg, fppo)
-    step = lambda ts, env_, g: fp.train_step_fast(cfg, fppo, ts, env_, g, mesh=mesh)
+    step = lambda ts, env_, k: fp.train_step_fast(cfg, fppo, ts, env_, k, fused_pool=fused_pool,
+                                                  mesh=mesh)
     sync()
     wrappers, plains = zero_counters()
-    ts1, env1, g1, m = step(copy.deepcopy(ts0), env, gen(8))
+    keyed = keyed_wrappers()
+    for w in keyed.values():
+        w.launches = 0
+    before = elements()
+    ts1, env1, g1, m = step(copy.deepcopy(ts0), env, key(8))
     sync()
-    out["fast_launches"] = {k: w.launches for k, w in wrappers.items()}
-    out["fast_calls"] = {f.__name__: f.calls for f in plains}
+    out["fast_drawn"] = elements() - before
+    out["fast_launches"] = {k: w.launches for k, w in (*wrappers.items(), *keyed.items())}
+    out["fast_calls"] = {f.__name__: f.calls
+                         for f in (*plains, kd.counter_draws_plain, kd.reset_draws_plain)}
     out["fast_metrics"] = {k: float(v) for k, v in m.items()}
     out["fast_env"] = to_host(env1)
-    _, r = fp.rollout_phase(cfg, fppo, copy.deepcopy(ts0), env, gen(8), mesh=mesh)
+    _, r, _ = fp.rollout_phase(cfg, fppo, copy.deepcopy(ts0), env, key(8),
+                               fused_pool=fused_pool, mesh=mesh)
     out["fast_traj"] = to_host(r.traj)
     mb = next(fp.minibatches(fppo, r.traj, r.adv, r.ret, r.perms, mesh))
     out["fast_first"] = to_host(fp.minibatch_grads(fppo, ts0.params, mb, None, mesh))
     del r, mb
     if timed:
-        state = {"ts": ts1, "env": env1}
+        state = {"ts": ts1, "env": env1, "key": g1}
 
         def update():
-            state["ts"], state["env"], _, _ = step(state["ts"], state["env"], g1)
+            state["ts"], state["env"], state["key"], _ = step(state["ts"], state["env"],
+                                                              state["key"])
 
         out["fast_ms"] = pm.time_ms(update, 3, dev)
         # one more update with each all_reduce timed between syncs
@@ -2806,18 +2972,73 @@ def md_work(cw, dev, mesh, timed: bool) -> dict:
             torch.distributed.all_reduce = real
         out["all_reduce"] = dict(calls=len(spent), ms=1e3 * sum(spent), update_ms=1e3 * total)
         del state
-    del ts1, env1, env
+    del ts1, env1
+    return out
+
+
+def md_work(cw, dev, mesh, timed: bool) -> dict:
+    """Phase 21's work over ``mesh`` (None: the unsharded run): the bench
+    kernel (T = 300), the actions kernel on row 3's stream (T = 300), one
+    default fast-PPO update, counted, with its collect and first minibatch's
+    gradient, and one default pixel-PPO update, at 16,384 envs on 21x21;
+    then ``md_ppo_work``. Returns CPU copies of the results, and with
+    ``timed`` the ms of an update and the share of it in ``all_reduce``
+    calls. The ranks' fast PPO takes its default pool (``fused_pool`` None:
+    the keyed ``fresh_packed_batch`` over several ranks, as JAX's sharded
+    step, the pool kernel on one); the unsharded run takes the keyed pool,
+    and again the pool kernel under ``kernel_pool``, to hold each world to;
+    ``*_drawn`` counts the counter kernel's elements of an update (a rank's
+    columns of the uniforms)."""
+    import copy
+
+    from gym_craftingworld_tpu_torch.core import slots as sm
+    from gym_craftingworld_tpu_torch.ops import fused_reset as fr
+    from gym_craftingworld_tpu_torch.ops import keyed_draws as kd
+    from gym_craftingworld_tpu_torch.ops import packed_fused as pf
+    from gym_craftingworld_tpu_torch.parallel import sharded_engine as se
+    from gym_craftingworld_tpu_torch.train import fast_pixel_ppo as fx
+    from gym_craftingworld_tpu_torch.train import fast_ppo as fp
+
+    cfg, B = cw.ray_config(), B_MAIN
+    T = cfg.max_steps
+    key = lambda seed: prng_key(seed).to(dev)
+    elements = lambda: kd.counter_draws_kernel.elements + kd.counter_draws_plain.elements
+    out = {}
+
+    whole = sm.from_env_state(cw.reset_from_seed(cfg, 0, B, device=dev))
+    if mesh is None:
+        out["bench"] = pf.fused_rollout_packed_bench(cfg, whole, MD_SEED, T)
+        stream = pf.fused_action_stream(B, MD_STREAM_SEED, T, device=dev)
+        out["actions"] = pf.fused_rollout_packed(cfg, whole, stream, T)
+    else:
+        mine = se.shard_slots(whole, mesh)
+        out["bench"] = se.fused_rollout_packed_bench_sharded(cfg, mine, MD_SEED, T, mesh=mesh)
+        stream = pf.fused_action_stream(B, MD_STREAM_SEED, T, device=dev)
+        out["actions"] = se.fused_rollout_packed_sharded(cfg, mine, stream, T, mesh=mesh)
+    out = to_host(out)
+    del whole, stream
+
+    local = (lambda env: env) if mesh is None else (lambda env: se.shard_packed(env, mesh))
+    fppo = fp.FastPPOConfig()
+    env = local(fr.fresh_packed_fused(cfg, 11, B, device=dev))
+    ts0 = fp.init_fast_train_state(key(7), cfg, fppo)
+    out.update(md_fast(cfg, fppo, ts0, env, key, mesh, False if mesh is None else None, timed))
+    if mesh is None:
+        out["kernel_pool"] = md_fast(cfg, fppo, ts0, env, key, None, None, False)
+    del env, ts0
 
     px = fx.PixelPPOConfig()
     envx = local(fr.fresh_packed_fused(cfg, 12, B, device=dev))
-    xts0 = fx.init_pixel_train_state(gen(9), cfg, px)
-    _, (traj, adv, ret, perms) = fx.rollout_phase(cfg, px, copy.deepcopy(xts0), envx, gen(10),
-                                                  mesh)
+    xts0 = fx.init_pixel_train_state(key(9), cfg, px)
+    _, (traj, adv, ret, perms), _ = fx.rollout_phase(cfg, px, copy.deepcopy(xts0), envx,
+                                                     key(10), mesh)
     out["pixel_traj"] = to_host(traj)
     out["pixel_first"] = to_host(fx.minibatch_grads(
         px, xts0.params, cfg, *next(fx.minibatches(px, traj, adv, ret, perms, mesh)), mesh))
     del traj, adv, ret, perms
-    _, envx2, _, xm = fx.train_step_pixel(cfg, px, xts0, envx, gen(10), mesh)
+    before = elements()
+    _, envx2, _, xm = fx.train_step_pixel(cfg, px, xts0, envx, key(10), mesh)
+    out["pixel_drawn"] = elements() - before
     out["pixel_env"] = to_host(envx2)
     out["pixel_metrics"] = {k: float(v) for k, v in xm.items()}
     del envx, envx2, xts0
@@ -2830,13 +3051,14 @@ def md_ppo_work(cw, dev, mesh, timed: bool) -> dict:
     ``ppo_train_step_sharded``, the counterpart of ``dryrun_multichip``'s path
     1: the default mlp at ``MD_PPO_B`` envs on 21x21; the start state, the
     envs and keys this rank drew at reset and in one update, the update's
-    metrics and, with ``timed``, its ms."""
+    metrics and, with ``timed``, its ms. The update's counters drawn are its
+    keys, the whole permutations and the rank's envs' noise."""
     from gym_craftingworld_tpu_torch.ops import keyed_draws as kd
     from gym_craftingworld_tpu_torch.parallel import mesh as pm
     from gym_craftingworld_tpu_torch.train import ppo as tppo
 
     cfg, out = cw.ray_config(), {}
-    gen = lambda seed: torch.Generator(device=dev).manual_seed(seed)
+    gen = lambda seed: torch.Generator(device=dev).manual_seed(seed)  # flax's init
     pp = tppo.PPOConfig()
     drawn = lambda: ((kd.reset_draws_kernel.envs + kd.reset_draws_plain.envs),
                      (kd.counter_draws_kernel.elements + kd.counter_draws_plain.elements))
@@ -2849,15 +3071,17 @@ def md_ppo_work(cw, dev, mesh, timed: bool) -> dict:
         pstep = pm.ppo_train_step_sharded(cfg, pp, mesh)
     out["ppo_start"] = to_host(env_p)
     after_reset = drawn()
-    pts, env_p, gp, ppo_m = pstep(tppo.init_train_state(gen(13), cfg, pp), env_p, gen(14))
+    pts, env_p, gp, ppo_m = pstep(tppo.init_train_state(gen(13), cfg, pp), env_p,
+                                  prng_key(14).to(dev))
     out["ppo_drawn"] = dict(reset=[a - b for a, b in zip(after_reset, before)],
                             update=[a - b for a, b in zip(drawn(), after_reset)])
     out["ppo_metrics"] = {k: float(v) for k, v in ppo_m.items()}
     if timed:
-        pstate = {"ts": pts, "env": env_p}
+        pstate = {"ts": pts, "env": env_p, "key": gp}
 
         def ppo_update():
-            pstate["ts"], pstate["env"], _, _ = pstep(pstate["ts"], pstate["env"], gp)
+            pstate["ts"], pstate["env"], pstate["key"], _ = pstep(pstate["ts"], pstate["env"],
+                                                                  pstate["key"])
 
         out["ppo_ms"] = pm.time_ms(ppo_update, 3, dev)
         del pstate
@@ -2964,40 +3188,70 @@ def md_ppo(name: str, ranks: list, ref: dict, tag: str) -> None:
     of ``reset_from_seed``; its reset drew its B/W envs' keys and worlds and
     its update T x B/W worlds (its envs' auto-resets), no more; finite
     metrics; ms an update (slowest rank)."""
+    from gym_craftingworld_tpu_torch.train import ppo as tppo
+
     n, world = MD_PPO_B // len(ranks), len(ranks)
-    T = 64  # PPOConfig().rollout_steps
+    T = tppo.PPOConfig().rollout_steps
     for i, r in enumerate(ranks):
         cols = slice(i * n, (i + 1) * n)
         want = type(ref["ppo_start"])(**{f.name: getattr(ref["ppo_start"], f.name)[cols]
                                          for f in dataclasses.fields(ref["ppo_start"])})
         md_equal(r["ppo_start"], want, f"{name} rank {i}: ppo start state == its columns of "
                                        f"reset_from_seed(cfg, 0, {MD_PPO_B})")
-        check(r["ppo_drawn"] == dict(reset=[n, n], update=[T * n, 0]),
-              f"{name} rank {i} drew only its envs: {r['ppo_drawn']} (want reset [{n}, {n}], "
-              f"update [{T * n}, 0])")
+        # the update's keys and permutations whole, the noise of the rank's envs only
+        want = dict(reset=[n, n], update=[T * n, ref["ppo_drawn"]["update"][1]
+                                          - T * 6 * (MD_PPO_B - n)])
+        check(r["ppo_drawn"] == want, f"{name} rank {i} drew only its envs: {r['ppo_drawn']} "
+                                      f"(want {want})")
         check(all(math.isfinite(v) for v in r["ppo_metrics"].values()),
               f"{name} rank {i}: finite train/ppo.py metrics")
     print(f"{tag} phase 21 {name}: train/ppo.py (mlp, hidden 512, T=64) at {MD_PPO_B} envs, "
           f"{n} a rank: start states are reset_from_seed's columns, each rank drew {n} keys and "
-          f"envs at reset and {T * n} envs an update; "
+          f"envs at reset, {T * n} envs and its envs' {T * 6 * n} noise draws an update "
+          f"(counters {r['ppo_drawn']['update'][1]}, unsharded {ref['ppo_drawn']['update'][1]}); "
           f"{max(r['ppo_ms'] for r in ranks):.2f} ms an update (slowest rank, CUDA events, "
           f"median of 3); loss {ranks[0]['ppo_metrics']['loss']:.5f} (unsharded "
           f"{ref['ppo_metrics']['loss']:.5f})")
 
 
-def md_launches(name: str, per_rank: list, tag: str) -> None:
-    """The counted fast-PPO update: per rank the pool, actions and indexed
-    gradient kernels ran 1, 64 and at most 16 times, every minibatch ran on
-    some rank, and no plain version ran."""
-    for r, (launches, calls) in enumerate(per_rank):
-        check(launches["pool"] == 1 and launches["packed_actions"] == 64
-              and launches["ppo_grads_indexed"] <= 16,
-              f"{name} rank {r}: pool 1, actions 64, indexed gradient <= 16 launches ({launches})")
+def md_launches(name: str, per_rank: list, ref: dict, tag: str) -> None:
+    """The counted fast-PPO update: per rank the actions and indexed gradient
+    kernels ran 64 and at most 16 times; over several ranks the keyed pool's
+    tasks once (the reset kernel) and the counter kernel 10 times (the key
+    chain, the pool's keys and scores, the uniforms, the permutations), on
+    one rank the pool kernel once and the counter kernel 8 times (its seeds
+    for the pool); every minibatch ran on some rank, no plain version ran,
+    and each rank drew of the counters the unsharded update's less the other
+    ranks' columns of the uniforms (and likewise in the pixel-PPO update)."""
+    from gym_craftingworld_tpu_torch.train import fast_pixel_ppo as fx
+    from gym_craftingworld_tpu_torch.train import fast_ppo as fp
+
+    world = len(per_rank)
+    fppo, T_pixel, B = fp.FastPPOConfig(), fx.PixelPPOConfig().rollout_steps, B_MAIN
+    T, n_mb = fppo.rollout_steps, fppo.update_epochs * fppo.num_minibatches
+    keyed_pool = world > 1  # the default pool (fast_ppo.pool_choice)
+    # the keyed pool: split 2, scores, split 2B
+    counter = keyed_update_launches(fppo, B) + (2 if keyed_pool else 0)
+    # the other ranks' columns of the uniforms, in the fast and the pixel update
+    others = tuple(t * 6 * (B - B // world) for t in (T, T_pixel))
+    for r, (launches, calls, drawn) in enumerate(per_rank):
+        check(launches["pool"] == int(not keyed_pool) and launches["packed_actions"] == T
+              and launches["ppo_grads_indexed"] <= n_mb
+              and launches["keyed_reset"] == int(keyed_pool)
+              and launches["keyed_counter"] == counter,
+              f"{name} rank {r}: pool {int(not keyed_pool)}, actions {T}, indexed gradient <= "
+              f"{n_mb}, keyed reset {int(keyed_pool)}, counter {counter} launches ({launches})")
         check(all(c == 0 for c in calls.values()), f"{name} rank {r}: no plain version ({calls})")
-    total = sum(l["ppo_grads_indexed"] for l, _ in per_rank)
-    check(total >= 16, f"{name}: the indexed gradient kernel ran for every minibatch ({total})")
+        check(drawn == (ref["fast_drawn"] - others[0], ref["pixel_drawn"] - others[1]),
+              f"{name} rank {r} drew its columns of the uniforms only: {drawn} (unsharded "
+              f"{ref['fast_drawn']}, {ref['pixel_drawn']}; less {others})")
+    total = sum(l["ppo_grads_indexed"] for l, _, _ in per_rank)
+    check(total >= n_mb, f"{name}: the indexed gradient kernel ran for every minibatch ({total})")
     print(f"{tag} phase 21 {name} fast-PPO update launches per rank: "
-          + "; ".join(f"rank {r} {l}" for r, (l, _) in enumerate(per_rank)))
+          + "; ".join(f"rank {r} {l}" for r, (l, _, _) in enumerate(per_rank))
+          + f"; counters drawn an update (fast, pixel) per rank "
+          + ", ".join(str(d) for _, _, d in per_rank)
+          + f", unsharded {(ref['fast_drawn'], ref['pixel_drawn'])}")
 
 
 def run_group(cmd, timeout: float = 600):
@@ -3024,6 +3278,39 @@ def run_py(args):
                                 "gym_craftingworld_tpu_torch.train.run", *args])
     check(code == 0, f"run.py exited {code}: {err[-3000:]}")
     return [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+
+
+def run_py_phase(cw, dev, tag):
+    """Phase 21c: ``train/run.py`` under torchrun, 4 updates with a checkpoint
+    at 2, then a resume from it that must repeat updates 2-3 bit for bit."""
+    import shutil
+
+    work = HERE / "build" / "run_py"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    args = ["--envs", str(RUN_ENVS), "--size", "21", "--hidden", "512", "--policy", "mlp",
+            "--log-every", "1", "--ckpt-every", "2", "--device", dev.type]
+    t0 = time.perf_counter()
+    full = run_py(args + ["--updates", str(RUN_UPDATES), "--ckpt-dir", str(work / "full")])
+    t_full = time.perf_counter() - t0
+    (work / "resume").mkdir()
+    shutil.copytree(work / "full" / "step_2", work / "resume" / "step_2")
+    resumed = run_py(args + ["--updates", str(RUN_UPDATES), "--ckpt-dir", str(work / "resume"),
+                             "--resume"])
+    volatile = ("env_steps_per_s", "wall_s")
+    metrics = lambda recs: {r["update"]: {k: v for k, v in r.items() if k not in volatile}
+                            for r in recs if "loss" in r}
+    mf, mr = metrics(full), metrics(resumed)
+    check(set(mf) == set(range(RUN_UPDATES)) and set(mr) == {2, 3}, f"run.py updates {mf}, {mr}")
+    for u in (2, 3):
+        check(mr[u] == mf[u], f"run.py update {u} after the resume equals the uninterrupted "
+                              f"run's: {mr[u]} vs {mf[u]}")
+    rates = [r["env_steps_per_s"] for r in full if "env_steps_per_s" in r]
+    print(f"{tag} phase 21c run.py ({RUN_ENVS} envs, 21x21, mlp hidden 512, T=64; torchrun, one "
+          f"rank, deterministic algorithms): {RUN_UPDATES} updates in {t_full:.1f} s of command; "
+          f"env-steps/s {rates} (host clock between log lines); the resume from step_2 repeats "
+          f"updates 2-3 bit for bit: {json.dumps(mr[3])}")
+    shutil.rmtree(work, ignore_errors=True)
 
 
 def multi_device_phase(cw, dev, tag):
@@ -3078,7 +3365,9 @@ def multi_device_phase(cw, dev, tag):
                 check(r[k] == ranks[0][k], f"world {MD_WORLD} {k} alike on every rank")
     md_compare(f"world {MD_WORLD} (gloo, two ranks sharing one card)", whole, ref, tag)
     md_ppo(f"world {MD_WORLD}", ranks, ref, tag)
-    md_launches(f"world {MD_WORLD}", [(r["fast_launches"], r["fast_calls"]) for r in ranks], tag)
+    md_launches(f"world {MD_WORLD}", [(r["fast_launches"], r["fast_calls"],
+                                       (r["fast_drawn"], r["pixel_drawn"])) for r in ranks],
+                ref, tag)
     w2 = ranks[0]
     print(f"{tag} phase 21 world {MD_WORLD} (gloo, two ranks sharing one card): {t_ranks:.1f} s "
           f"of command, a rank's work {max(r['seconds'] for r in ranks):.1f} s; sharded fast-PPO "
@@ -3098,48 +3387,27 @@ def multi_device_phase(cw, dev, tag):
         w1 = md_work(cw, dev, mesh, timed=True)
     finally:
         torch.distributed.destroy_process_group()
-    md_compare(f"world 1 ({backend})", w1, ref, tag)
-    md_ppo("world 1", [w1], ref, tag)
-    md_launches("world 1", [(w1["fast_launches"], w1["fast_calls"])], tag)
+    ref1 = {**ref, **ref["kernel_pool"]}  # one rank's default: the pool kernel
+    md_compare(f"world 1 ({backend})", w1, ref1, tag)
+    md_ppo("world 1", [w1], ref1, tag)
+    md_launches("world 1", [(w1["fast_launches"], w1["fast_calls"],
+                             (w1["fast_drawn"], w1["pixel_drawn"]))], ref1, tag)
     ar = w1["all_reduce"]
     print(f"{tag} phase 21 world 1 ({backend}): sharded fast-PPO update {w1['fast_ms']:.2f} ms "
           f"(CUDA events, median of 3); all_reduce {ar['calls']} calls, {ar['ms']:.2f} ms of a "
           f"{ar['update_ms']:.2f} ms update timed between syncs ({ar['ms'] / ar['update_ms']:.1%})")
-    del ref, ranks, whole, w1
-
-    # run.py under torchrun: 4 updates with a checkpoint at 2, then a resume from it
-    args = ["--envs", str(RUN_ENVS), "--size", "21", "--hidden", "512", "--policy", "mlp",
-            "--log-every", "1", "--ckpt-every", "2", "--device", dev.type]
-    t0 = time.perf_counter()
-    full = run_py(args + ["--updates", str(RUN_UPDATES), "--ckpt-dir", str(work / "full")])
-    t_full = time.perf_counter() - t0
-    (work / "resume").mkdir()
-    shutil.copytree(work / "full" / "step_2", work / "resume" / "step_2")
-    resumed = run_py(args + ["--updates", str(RUN_UPDATES), "--ckpt-dir", str(work / "resume"),
-                             "--resume"])
-    volatile = ("env_steps_per_s", "wall_s")
-    metrics = lambda recs: {r["update"]: {k: v for k, v in r.items() if k not in volatile}
-                            for r in recs if "loss" in r}
-    mf, mr = metrics(full), metrics(resumed)
-    check(set(mf) == set(range(RUN_UPDATES)) and set(mr) == {2, 3}, f"run.py updates {mf}, {mr}")
-    for u in (2, 3):
-        check(mr[u] == mf[u], f"run.py update {u} after the resume equals the uninterrupted "
-                              f"run's: {mr[u]} vs {mf[u]}")
-    rates = [r["env_steps_per_s"] for r in full if "env_steps_per_s" in r]
-    print(f"{tag} phase 21 run.py ({RUN_ENVS} envs, 21x21, mlp hidden 512, T=64; torchrun, one "
-          f"rank, deterministic algorithms): {RUN_UPDATES} updates in {t_full:.1f} s of command; "
-          f"env-steps/s {rates} (host clock between log lines); the resume from step_2 repeats "
-          f"updates 2-3 bit for bit: {json.dumps(mr[3])}")
+    del ref, ref1, ranks, whole, w1
 
     # the cost of deterministic algorithms, on train/ppo.py's mlp update
     cfg = cw.ray_config(max_steps=100)
     ppo = tppo.PPOConfig()
     g = torch.Generator(device=dev).manual_seed(0)
     st = {"ts": tppo.init_train_state(g, cfg, ppo),
-          "env": cw.reset_from_seed(cfg, 0, RUN_ENVS, device=dev)}
+          "env": cw.reset_from_seed(cfg, 0, RUN_ENVS, device=dev), "key": prng_key(1).to(dev)}
 
     def update():
-        st["ts"], st["env"], _, _ = tppo.train_step(cfg, ppo, st["ts"], st["env"], g)
+        st["ts"], st["env"], st["key"], _ = tppo.train_step(cfg, ppo, st["ts"], st["env"],
+                                                            st["key"])
 
     ms = {}
     for mode in (False, True, True, False):
@@ -3174,63 +3442,181 @@ EARLY_BAND = (0.70, 1.30)
 LEARN_SEEDS = (0, 1)
 
 
-def learning_phase(cw, dev, tag):
-    """Phase 22: fast PPO's learning on the card against the JAX record."""
+LEARN_RESULT = "phase 22 run result "  # the line that carries one run's tail to the parent
+
+
+def learning_run(cw, dev, tag, path: str, seed: int) -> None:
+    """One run of phase 22: fast PPO's learning on the card, through the
+    gradient kernel (``path`` "fused") or autograd, from JAX's keys of
+    ``seed``; prints its windows and, on the last line, its tails and the
+    bounds it missed (``learning_summary`` reads them)."""
     from gym_craftingworld_tpu_torch.tools import fast_ppo_sweep as sweep
-    from gym_craftingworld_tpu_torch.tools.fused_update_e2e import cross_path_summary
     from gym_craftingworld_tpu_torch.train import fast_ppo as fp
 
-    t_phase = time.perf_counter()
     fppo = fp.FastPPOConfig()
     n, B, W = sweep.LEARN_UPDATES, sweep.B_LEARN, sweep.WINDOW
     ref = sweep.jax_reference()["2ep_8mb (default)"]
     jax_tail, jax_early = ref["tail_seed_mean"], ref["early_seed_mean"]
-    tails, failed = {}, []
-    for path, fused in (("fused", True), ("autograd", False)):
-        tails[path] = {}
-        for seed in LEARN_SEEDS:
-            wrappers, plains = zero_counters()
-            t0 = time.perf_counter()
-            curve = sweep.learning_curve(fppo, seed, n, B, dev, fused_update=fused)
-            torch.cuda.synchronize()
-            seconds = time.perf_counter() - t0
-            launches = {k: w.launches for k, w in wrappers.items()}
-            calls = {f.__name__: f.calls for f in plains}
-            want = {k: 0 for k in launches}
-            want.update(pool=n, packed_actions=n * fppo.rollout_steps,
-                        ppo_grads_indexed=n * fppo.update_epochs * fppo.num_minibatches
-                        if fused else 0)
-            check(launches == want, f"phase 22 {path} seed {seed}: launches {launches}, "
-                  f"want {want}")
-            check(all(c == 0 for c in calls.values()), f"phase 22: no plain version ran: {calls}")
-            check(len(curve) == n and all(math.isfinite(x) for x in curve),
-                  f"phase 22 {path} seed {seed}: {n} finite success rates")
-            windows = sweep.window_means(curve, n, W)
-            tail, early = sweep.tail_mean(curve, n, W), windows[1]
-            tails[path][f"seed{seed}"] = tail
-            jax_w = ref["windows"][f"seed{seed}"]
-            print(f"{tag} phase 22 {path} seed {seed}: {n} updates at {B} envs in {seconds:.1f} s "
-                  f"(host clock); success per step by window of {W} updates, port against JAX "
-                  f"seed {seed}: " + ", ".join(f"{a:.6f} / {b:.6f}" for a, b in zip(windows, jax_w))
-                  + f"; half the tail first at update {sweep.half_tail_update(curve, n, W)} "
-                  f"(JAX {ref['half_tail_update'][f'seed{seed}']}); launches {launches}")
-            for what, got, jax, (lo, hi) in (("tail (updates 160-191)", tail, jax_tail, TAIL_BAND),
-                                             ("early (updates 32-63)", early, jax_early,
-                                              EARLY_BAND)):
-                ratio = got / jax
-                print(f"{tag} phase 22 {path} seed {seed} {what}: {got:.6f} = {ratio:.4f} x JAX's "
-                      f"seed mean {jax:.6f} (bound {lo}-{hi})")
-                if not lo <= ratio <= hi:
-                    failed.append(f"{path} seed {seed} {what} {ratio:.4f} x JAX, outside {lo}-{hi}")
+    fused = path == "fused"
+    wrappers, plains = zero_counters()
+    keyed, keyed_plains = zero_keyed()
+    t0 = time.perf_counter()
+    curve = sweep.learning_curve(fppo, seed, n, B, dev, fused_update=fused)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in (*wrappers.items(), *keyed.items())}
+    calls = {f.__name__: f.calls for f in (*plains, *keyed_plains)}
+    want = {k: 0 for k in launches}
+    # the key chain: the init (split 4 and 4 normals) and the first envs
+    # (split 2, scores, split B, their tasks), then each update's draws
+    want.update(pool=n, packed_actions=n * fppo.rollout_steps,
+                ppo_grads_indexed=n * fppo.update_epochs * fppo.num_minibatches
+                if fused else 0, keyed_counter=5 + 3 + n * keyed_update_launches(fppo, B),
+                keyed_reset=1)
+    check(launches == want, f"phase 22 {path} seed {seed}: launches {launches}, want {want}")
+    check(all(c == 0 for c in calls.values()), f"phase 22: no plain version ran: {calls}")
+    check(len(curve) == n and all(math.isfinite(x) for x in curve),
+          f"phase 22 {path} seed {seed}: {n} finite success rates")
+    windows = sweep.window_means(curve, n, W)
+    tail, early = sweep.tail_mean(curve, n, W), windows[1]
+    jax_w = ref["windows"][f"seed{seed}"]
+    print(f"{tag} phase 22 {path} seed {seed}: {n} updates at {B} envs in {seconds:.1f} s "
+          f"(host clock); success per step by window of {W} updates, port against JAX "
+          f"seed {seed}: " + ", ".join(f"{a:.6f} / {b:.6f}" for a, b in zip(windows, jax_w))
+          + f"; half the tail first at update {sweep.half_tail_update(curve, n, W)} "
+          f"(JAX {ref['half_tail_update'][f'seed{seed}']}); launches {launches}")
+    failed = []
+    for what, got, jax, (lo, hi) in (("tail (updates 160-191)", tail, jax_tail, TAIL_BAND),
+                                     ("early (updates 32-63)", early, jax_early, EARLY_BAND)):
+        ratio = got / jax
+        print(f"{tag} phase 22 {path} seed {seed} {what}: {got:.6f} = {ratio:.4f} x JAX's "
+              f"seed mean {jax:.6f} (bound {lo}-{hi})")
+        if not lo <= ratio <= hi:
+            failed.append(f"{path} seed {seed} {what} {ratio:.4f} x JAX, outside {lo}-{hi}")
+    print(LEARN_RESULT + json.dumps(dict(path=path, seed=seed, tail=tail, failed=failed)))
+
+
+def learning_summary(tag, results: list) -> None:
+    """Phase 22's verdict over its runs (``learning_run``'s last lines): every
+    run within its bounds, and the two paths' tails within JAX's noise rule."""
+    from gym_craftingworld_tpu_torch.tools.fused_update_e2e import cross_path_summary
+
+    got = {(r["path"], r["seed"]) for r in results}
+    check(got == {(p, s) for p in ("fused", "autograd") for s in LEARN_SEEDS},
+          f"phase 22: one run a path and seed: {sorted(got)}")
+    tails = {p: {f"seed{r['seed']}": r["tail"] for r in results if r["path"] == p}
+             for p in ("fused", "autograd")}
+    failed = [f for r in results for f in r["failed"]]
     summary = cross_path_summary(tails)
     print(f"{tag} phase 22 fused against autograd: tails {json.dumps(tails)}; cross-path gap "
           f"{summary['cross_path_gap']:.6f}, cross-seed noise {summary['cross_seed_noise']:.6f}, "
-          f"within noise {summary['within_noise']} (JAX's rule); phase 22 took "
-          f"{time.perf_counter() - t_phase:.1f} s")
+          f"within noise {summary['within_noise']} (JAX's rule)")
     if not summary["within_noise"]:
         failed.append(f"cross-path gap {summary['cross_path_gap']:.6f} beyond max(2 x noise "
                       f"{summary['cross_seed_noise']:.6f}, 0.1 x the largest tail)")
     check(not failed, "phase 22 learning bounds: " + "; ".join(failed))
+
+
+LEARN_JOBS = tuple(f"22:{p}:{s}" for p in ("fused", "autograd") for s in LEARN_SEEDS)
+
+
+# ---------------------------------------------------------------------------
+# phases side by side (19, 20, 21c, 22, 23 and 25)
+# ---------------------------------------------------------------------------
+
+# Phases that time no kernel, have no time budget and are paced by the host:
+# each runs as ``chip_smoke.py --worker JOB`` in a process of its own (phase
+# 22 one a path and seed), all started together on the one card, so that the
+# script waits for the longest of them and not for their sum. Each holds its
+# own counters, as it did in this process.
+SIDE_BY_SIDE = ("19", "20", "21c", *LEARN_JOBS, "23a", "23b", "25")
+SIDE_TIMEOUT_S = 600
+# Phases 24 and 26 keep their time budgets and run alone, each in a fresh
+# process: at the end of this process host-paced work steps ~1.75x slower
+# than in a fresh one (on the H100: phase 24 took 62.1 s with phase 1 alone,
+# 102.4 s at the end of the script)
+
+
+def phase_worker(cw, job: str, argv) -> int:
+    """One job of ``side_by_side``, in this process: phase ``job``, or for
+    "22:PATH:SEED" one learning run. ``--long-t-rate B=RATE`` gives phase 24
+    phase 6's rate."""
+    from gym_craftingworld_tpu_torch.ops import _build
+
+    card = card_line().splitlines()[0].strip()
+    tag = f"[{card}]"
+    dev = torch.device(DEVICE, 0)
+    _build.load()  # built by the parent: the library of these sources is loaded as it is
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if "--long-t-rate" in argv:
+        envs, rate = argv[argv.index("--long-t-rate") + 1].split("=")
+        LONG_T_RATE[int(envs)] = float(rate)
+    phase, *rest = job.split(":")
+    phases = {"19": imitation_phase, "20": recurrent_phase, "21c": run_py_phase,
+              "23a": pixel_curve_phase, "23b": canonical_tools_phase, "24": cpv_phase,
+              "25": distill_phase}
+    if phase == "22":
+        learning_run(cw, dev, tag, rest[0], int(rest[1]))
+    elif phase == "26":
+        tools_phase(cw, dev, tag, card)
+    else:
+        phases[phase](cw, dev, tag)
+    torch.cuda.synchronize()
+    print(f"{tag} phase {job}: peak device memory {torch.cuda.max_memory_reserved(dev) / 2**30:.2f} "
+          f"GiB reserved")
+    return 0
+
+
+def side_by_side(tag, jobs, args=(), timeout: float = SIDE_TIMEOUT_S) -> None:
+    """Run ``jobs`` (``phase_worker``'s names) each in a process of its own,
+    all started together, with ``args`` after each job's name; print each
+    one's output in order, fail if any failed, and give phase 22's verdict
+    over its runs. A job still running after ``timeout`` s, and every job if
+    this process is interrupted, is killed with its process group."""
+    import shutil
+    import signal
+
+    out_dir = HERE / "build" / "side_by_side"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    env = {**os.environ, "PYTHONUNBUFFERED": "1"}  # a killed job keeps what it printed
+    procs, seconds = {}, {}
+    t0 = time.perf_counter()
+    try:
+        for job in jobs:
+            with open(out_dir / f"{job}.out", "w") as out, open(out_dir / f"{job}.err", "w") as err:
+                procs[job] = subprocess.Popen(
+                    [sys.executable, str(HERE / "chip_smoke.py"), "--worker", job, *args], stdout=out,
+                    stderr=err, cwd=HERE, env=env, start_new_session=True)
+        while len(seconds) < len(procs) and time.perf_counter() - t0 < timeout:
+            time.sleep(0.25)
+            for job, proc in procs.items():
+                if job not in seconds and proc.poll() is not None:
+                    seconds[job] = time.perf_counter() - t0
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+    failed, learned = [], []
+    for job in jobs:
+        out = (out_dir / f"{job}.out").read_text()
+        err = (out_dir / f"{job}.err").read_text()
+        sys.stdout.write(out)
+        sys.stderr.write(err)
+        code = procs[job].returncode
+        took = f"{seconds[job]:.1f} s" if job in seconds else f"killed after {timeout} s"
+        print(f"{tag} phase {job} (a process of its own): exit {code}, {took}")
+        if code != 0:
+            failed.append(f"phase {job} exited {code} ({took}): {err[-3000:]}")
+        learned += [json.loads(line[len(LEARN_RESULT):]) for line in out.splitlines()
+                    if line.startswith(LEARN_RESULT)]
+    shutil.rmtree(out_dir, ignore_errors=True)
+    check(not failed, "; ".join(failed))
+    if any(job.startswith("22:") for job in jobs):
+        learning_summary(tag, learned)
+    print(f"{tag} phases {', '.join(jobs)}, each in a process of its own, took "
+          f"{time.perf_counter() - t0:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -3257,35 +3643,28 @@ CANON_TARGETED = ["--rounds", "1", "--episodes", "512", "--steps", "100", "--eva
                   "--final-eval-episodes", "1024", "--capacity", "1000000"]
 
 
-def canonical_phase(cw, dev, tag):
-    """Phase 23: the pixel tool's curve against the JAX record (23a), and the
-    three canonical tools end to end at a small size (23b)."""
-    import tempfile
-
-    import numpy as np
-
-    from gym_craftingworld_tpu_torch.tools import _canonical
-    from gym_craftingworld_tpu_torch.tools import collect_canonical_demos as demos_tool
+def pixel_curve_phase(cw, dev, tag):
+    """Phase 23a: the pixel tool's curve against the JAX record."""
     from gym_craftingworld_tpu_torch.tools import fast_pixel_canonical as fpc
-    from gym_craftingworld_tpu_torch.tools import targeted_dagger as targeted_tool
-    from gym_craftingworld_tpu_torch.tools import train_canonical as train_tool
-    from gym_craftingworld_tpu_torch.models.grid_policy import init_grid_policy
-    from gym_craftingworld_tpu_torch.train.demos import SnapDataset
 
-    # ---- 23a. pixel PPO's curve, counted ---------------------------------------
-    t_phase = time.perf_counter()
     _, preset = fpc.configs()
     jax_curve = fpc.jax_record()["throughput_preset"]["single_task_curve"]
     wrappers, plains = zero_counters()
+    keyed, keyed_plains = zero_keyed()
     t0 = time.perf_counter()
     curve = fpc.run_curve(cw.ray_config(stacking=False), preset, 0, PIXEL_UPDATES, B_MAIN, dev,
                           tag)
     torch.cuda.synchronize()
     t_pixel = time.perf_counter() - t0
-    launches = {k: w.launches for k, w in wrappers.items()}
-    calls = {f.__name__: f.calls for f in plains}
+    launches = {k: w.launches for k, w in (*wrappers.items(), *keyed.items())}
+    calls = {f.__name__: f.calls for f in (*plains, *keyed_plains)}
     want = {k: 0 for k in launches}
     want["packed_actions"] = PIXEL_UPDATES * preset.rollout_steps
+    # the key chain: the init (split 5 and 5 normals), the first envs (split 2,
+    # scores, split B; their tasks), then each update's draws
+    per_update = pixel_keyed_launches(preset, B_MAIN)
+    want["keyed_counter"] = 6 + 3 + PIXEL_UPDATES * per_update["keyed_counter"]
+    want["keyed_reset"] = 1 + PIXEL_UPDATES * per_update["keyed_reset"]
     check(launches == want, f"phase 23a launches {launches}, want {want}")
     check(all(c == 0 for c in calls.values()), f"phase 23a: no plain version ran: {calls}")
     check(len(curve) == PIXEL_UPDATES and all(math.isfinite(x) for x in curve),
@@ -3305,8 +3684,23 @@ def canonical_phase(cw, dev, tag):
         failed.append(f"first window {first:.4f} x JAX, outside {PIXEL_FIRST_BAND}")
     if not PIXEL_DIP_BAND[0] <= dip <= PIXEL_DIP_BAND[1]:
         failed.append(f"dip {dip:.4f}, outside {PIXEL_DIP_BAND}")
+    check(not failed, "phase 23a pixel bounds: " + "; ".join(failed))
 
-    # ---- 23b. the canonical tools end to end, small --------------------------------
+
+def canonical_tools_phase(cw, dev, tag):
+    """Phase 23b: the three canonical tools end to end at a small size."""
+    import tempfile
+
+    import numpy as np
+
+    from gym_craftingworld_tpu_torch.tools import _canonical
+    from gym_craftingworld_tpu_torch.tools import collect_canonical_demos as demos_tool
+    from gym_craftingworld_tpu_torch.tools import targeted_dagger as targeted_tool
+    from gym_craftingworld_tpu_torch.tools import train_canonical as train_tool
+    from gym_craftingworld_tpu_torch.models.grid_policy import init_grid_policy
+    from gym_craftingworld_tpu_torch.train.demos import SnapDataset
+
+    t_phase = time.perf_counter()
     wrappers, plains = zero_counters()
     seconds = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -3371,8 +3765,7 @@ def canonical_phase(cw, dev, tag):
           + ", ".join(f"{k} {v['success_rate']:.4f} over {v['episodes']}"
                       for k, v in finals.items())
           + f"; seconds by tool (host clock) {json.dumps({k: round(v, 1) for k, v in seconds.items()})}; "
-          f"phase 23 took {time.perf_counter() - t_phase:.1f} s")
-    check(not failed, "phase 23a pixel bounds: " + "; ".join(failed))
+          f"phase 23b took {time.perf_counter() - t_phase:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -3842,38 +4235,99 @@ def tools_phase(cw, dev, tag, card):
 
 KEYED_SOURCE = "gym_craftingworld_tpu_torch/csrc/keyed_draws.cu"
 KEYED_DIGESTS = "gym_craftingworld_tpu_torch/tools/records/keyed_digests.json"
-# 32-bit integer operations of one Threefry-2x32 draw: 20 rounds of add,
-# funnel-shift rotate and xor, 5 key injections of two adds, the words' xor;
-# a uniform float adds a shift and an or (its subtraction is on the FMA pipe)
-THREEFRY_OPS, UNIFORM_OPS = 20 * 3 + 5 * 2 + 1, 2
-INT_LANES = 64  # 32-bit integer results a clock an SM (compute capability 9.0)
-# Threefry draws a reset makes per env besides its cells: split(key, 4), the
-# 7 goal keys, split(k_task), randint's 2 keys and 2 words, the permutation's
-# split and one word a selected task
-ENV_DRAWS = 4 + 7 + 2 + 4 + 2
+CW_KEYED_CELLS = 128  # keyed_draws.cu: a reset block's cells
 KEYED_POOL = 256  # pool size of 27a's pool-mode check
+# The keyed kernels' bounds are the two-rate issue bound of the SASS each warp
+# issues (``warps_bound_ms``) at the launches that 27c times. Source lines
+# whose branches those launches decide, for ``sass_under``: the counter
+# kernel's columns in range, 4 a thread (c < width, j < n), and the plane
+# key's derivation when the planes are split from a parent; the reset
+# kernel's mode (a fresh reset) and cells, in a block's first warp the env's
+# subkeys (lanes 0-3) and goal keys (lanes 0-6, lane 6 one more), and in the
+# last thread of an env's first block its task draws (stacked tasks; one
+# trip of each loop, the least there is).
+COUNTER_LINES, DERIVE_LINE = r"c >= a\.width|j < n\)", r"a\.derive"
+CELL_LINES = (r"mode == CW_KEYED_(WORLD|TASKS)\)|j < n && mode"
+              r"|mode != CW_KEYED_(POOL|WORLD)\)")
+KEY_LINES = r"t < 4\)|t < CW_GOAL_ROWS\)|t < 6 \?"
+TASK_LINES = r"t != blockDim\.x - 1\) return|stacking \?|round < rounds|i < n_sel"
+NO_LINE = r"(?!)"
+# SASS instructions of one Threefry-2x32 at the least (20 rounds of an add,
+# a rotate and an xor): a path that counts fewer for its draws missed them
+THREEFRY_FLOOR = 60
 
 
-def keyed_bound(draws: float, cell_draws: float, nbytes: float):
-    """(bound_ms, bound_by) of ``draws`` Threefry draws, ``cell_draws`` of
-    them made uniform floats, moving ``nbytes``: integer operations over 64
-    lanes an SM-clock on 132 SMs at the max SM clock, or bytes over 3.35 TB/s."""
-    ops = draws * THREEFRY_OPS + cell_draws * UNIFORM_OPS
-    return bound(ops / (INT_LANES * SMS * SM_CLOCK_HZ) * 1e3, nbytes)
+def counter_bound(mode: int, warps: int, threefry: int, derive: bool, nbytes: float):
+    """(bound_ms, bound_by, path) of a counter-kernel launch of ``mode``
+    (``CW_COUNTER_*``) whose ``warps`` warps each make one trip of its loop,
+    each thread ``threefry`` Threefry calls, moving ``nbytes``."""
+    p = sass_under(f"cw_keyed_counter_kernelILi{mode}E",
+                   COUNTER_LINES + (f"|{DERIVE_LINE}" if derive else ""))
+    check(p.pro + p.body + p.epi >= THREEFRY_FLOOR * threefry,
+          f"the counter kernel's path ({p.pro}, {p.body}, {p.epi}) holds its {threefry} "
+          f"Threefry calls of at least {THREEFRY_FLOOR} instructions")
+    return (*bound(warps_bound_ms([(warps, p, 1)]), nbytes), p)
 
 
-def events_ms(fn, n: int = 20) -> float:
-    """Device ms a call of ``fn()``: CUDA events around ``n`` calls launched
-    back to back after a warm-up, so the card never waits on the host."""
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(n):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / n
+def reset_bound(B: int, n: int, nbytes: float):
+    """(bound_ms, bound_by, {kind: (warps, path)}) of a fresh reset of B envs
+    of n cells by the reset kernel: blocks of 128 cells (an env's chunk) of
+    four kinds of warp, the first of a block, the last of an env's first
+    block, the others with cells, and those past the env's last cell."""
+    threads = CW_KEYED_CELLS if n >= CW_KEYED_CELLS else -(-n // 32) * 32
+    chunks, per_block = -(-n // threads), threads // 32
+    check(per_block >= 2, f"a block of {threads} threads holds a first and a last warp")
+    with_cells = sum(y * threads + w * 32 < n for y in range(chunks) for w in range(per_block))
+    name = "cw_keyed_reset_kernel"
+    cells = sass_under(name, CELL_LINES, loop=False)
+    kinds = {"first": (chunks, sass_under(name, f"{CELL_LINES}|{KEY_LINES}", loop=False)),
+             "tasks": (1, sass_under(name, f"{CELL_LINES}|{TASK_LINES}", loop=False)),
+             "cells": (with_cells - chunks - 1, cells),
+             "idle": (chunks * per_block - with_cells, sass_under(name, NO_LINE, loop=False))}
+    issued = lambda k: kinds[k][1].pro
+    check(issued("cells") >= 8 * THREEFRY_FLOOR and issued("first") - issued("cells")
+          >= 3 * THREEFRY_FLOOR and issued("tasks") - issued("cells") >= 2 * THREEFRY_FLOOR,
+          f"the reset kernel's paths hold a cell's 8 Threefry calls, a block's 3 key "
+          f"derivations and the task draws' 2: {({k: issued(k) for k in kinds})}")
+    ms = warps_bound_ms([(B * w, p, 0) for w, p in kinds.values()])
+    return (*bound(ms, nbytes), kinds)
+
+
+def path_line(p) -> str:
+    return ", ".join(f"{k} {p.on_pipe(k, 1)}" for k in PIPES)
+
+
+def counter_cases(B, key, planes, half):
+    """(label, args, kwargs) of ``counter_draws`` over every mode: one key,
+    P plane keys given ([P, 2]) or split from a parent (``derive``), whole
+    rows and a rank's column box, widths a multiple of 4 and ragged."""
+    from gym_craftingworld_tpu_torch.ops import threefry as tf
+
+    T, n_pool = 64, 2 * B
+    c0, w = half.start, half.stop - half.start
+    return [
+        ("split of B keys", (key, "split", 1, B, 0, B), {}),
+        ("split, rank 1 of 2's keys", (key, "split", 1, B, c0, w), {}),
+        ("split of 4 from 64 derived planes", (key, "split", 1, 4, 0, 4), {"derive": T}),
+        ("randint (64, B)", (key, "randint", T, B, 0, B, 0, 6), {}),
+        ("randint (64, B) rank 1 of 2", (key, "randint", T, B, c0, w, 0, 6), {}),
+        ("randint (2,) in [0, 2**31 - 1)", (key, "randint", 1, 2, 0, 2, 0, 2**31 - 1), {}),
+        ("randint (7, 1001) in [-3, 70000)", (key, "randint", 7, 1001, 0, 1001, -3, 70000), {}),
+        ("randint of 64 given planes (6, B)", (planes, "randint", 6, B, 0, B, 0, 6), {}),
+        ("bits of 512 (an epoch permutation's keys)", (key, "bits", 1, 512, 0, 512), {}),
+        ("bits of 262,144", (key, "bits", 1, 262144, 0, 262144), {}),
+        ("uniform [1e-7, 1) of 64 derived planes (6, B)",
+         (key, "uniform", 6, B, 0, B, 1e-7, 1.0), {"derive": T}),
+        ("uniform [1e-7, 1) of 64 derived planes (6, B), rank 1 of 2",
+         (key, "uniform", 6, B, c0, w, 1e-7, 1.0), {"derive": T}),
+        ("uniform [tiny, 1) of 64 given planes (1, 6B), rank 1 of 2's envs",
+         (planes, "uniform", 1, 6 * B, 6 * c0, 6 * w, tf.TINY, 1.0), {}),
+        ("uniform [0, 1) (2B, 441): fresh_packed_batch's scores, ragged rows",
+         (key, "uniform", n_pool, 441, 0, 441), {}),
+        ("uniform [nextafter(-1, 0), 1) (1, 196,608): normal's",
+         (key, "uniform", 1, 196608, 0, 196608, tf.NORMAL_LOW, 1.0), {}),
+        ("uniform [-2.5, 3.7) (3, 1003) ragged", (key, "uniform", 3, 1003, 5, 998, -2.5, 3.7), {}),
+    ]
 
 
 def keys_phase(cw, dev, tag):
@@ -3888,6 +4342,8 @@ def keys_phase(cw, dev, tag):
     from gym_craftingworld_tpu_torch import api, interop
     from gym_craftingworld_tpu_torch.core.rollout import rollout
     from gym_craftingworld_tpu_torch.ops import keyed_draws as kd
+    from gym_craftingworld_tpu_torch.train import fast_ppo as fp
+    from gym_craftingworld_tpu_torch.utils.profiling import graph_ms
 
     t_phase = time.perf_counter()
     ray, flat = cw.ray_config(), cw.flat_config()
@@ -3921,19 +4377,31 @@ def keys_phase(cw, dev, tag):
                    kd.reset_draws_plain(cfg, keys, mode, pool), f"reset kernel {label} B={B}")
         print(f"{tag} keyed reset kernel == plain: {label} B={B} n={cfg.n_cells}, every draw "
               f"bit for bit; split kernel == plain")
+    for cfg, B in ((ray, 2 * B_MAIN), (sel, B_SMALL)):  # fresh_packed_batch's task draws
+        keys = kd.split_keys(prng_key(28).to(dev), B)
+        same_draws(kd.reset_draws_kernel(cfg, keys, "tasks"),
+                   kd.reset_draws_plain(cfg, keys, "tasks"), f"reset kernel tasks B={B}")
+    print(f"{tag} keyed reset kernel == plain: tasks mode (sample_desired of each key) at "
+          f"{2 * B_MAIN} keys on 21x21 and {B_SMALL} of tasks (1, 4, 7), bit for bit")
     key = prng_key(3).to(dev)
-    for label, cols in (("whole", slice(None)), ("rank 1 of 2", slice(B_MAIN // 2, B_MAIN))):
-        got = kd.randint_cols(key, (64, B_MAIN), 0, 6, cols, dev)
-        c0, width = kd._bounds(cols, B_MAIN)
-        want = kd.counter_draws_plain(key, "randint", 64, B_MAIN, c0, width, 0, 6)
-        check(torch.equal(got, want), f"counter kernel randint (64, {B_MAIN}) {label} == plain")
-        keys = kd.split_keys(key, B_MAIN, cols, dev)
-        check(torch.equal(keys, kd.counter_draws_plain(key, "split", 1, B_MAIN, c0, width)[0]),
-              f"counter kernel split {label} == plain")
+    planes = kd.split_keys(prng_key(4).to(dev), 64)  # 64 given plane keys, as train/ppo.py's chain
+    half = slice(B_MAIN // 2, B_MAIN)
+    for label, args, kw in counter_cases(B_MAIN, key, planes, half):
+        got = kd.counter_draws_kernel(*args, **kw)
+        want = kd.counter_draws_plain(*args, **kw)
+        check(got.dtype == want.dtype and got.shape == want.shape, f"counter {label}: dtype, shape")
+        bits = lambda t: t.view(torch.int32) if t.dtype == torch.float32 else t
+        worst = max(worst, float((got.double() - want.double()).abs().max()))
+        check(torch.equal(bits(got), bits(want)), f"counter kernel {label} == plain, tolerance 0")
+        print(f"{tag} keyed counter kernel == plain, bit for bit: {label} "
+              f"{list(got.shape)} {got.dtype}")
+    got = kd.randint_cols(key, (64, B_MAIN), 0, 6, device=dev)
     freq = torch.bincount(got.reshape(-1).to(torch.int64), minlength=6).double() / got.numel()
-    print(f"{tag} keyed counter kernel == plain: randint (64, {B_MAIN}) in [0, 6) whole and "
-          f"rank 1 of 2's columns, split keys likewise; max |freq - 1/6| "
-          f"{float((freq - 1 / 6).abs().max()):.2e}")
+    u = kd.uniform_cols(key, (6, B_MAIN), minval=1e-7, planes=64)
+    print(f"{tag} randint (64, {B_MAIN}) in [0, 6): max |freq - 1/6| "
+          f"{float((freq - 1 / 6).abs().max()):.2e}; uniform [1e-7, 1) of 64 planes: min "
+          f"{float(u.min()):.3e}, max {float(u.max()):.7f}, mean {float(u.double().mean()):.5f}")
+    check(float(u.min()) >= 1e-7 and float(u.max()) < 1.0, "uniforms on [1e-7, 1)")
 
     # ---- 27b. the keyed main path, counted, against JAX's digests ------------------
     digests = json.loads((HERE / KEYED_DIGESTS).read_text())
@@ -3967,30 +4435,55 @@ def keys_phase(cw, dev, tag):
           f"restarts) hash to JAX's digests, every field incl. rng; launches {launches}")
     del state, start, rolled, out
 
-    # ---- 27c. times by CUDA events ---------------------------------------------------
+    # ---- 27c. times: one call, and a CUDA graph of 20 ------------------------------
     B, n = B_MAIN, ray.n_cells
     keys = kd.split_keys(prng_key(5), B, device=dev)
     reset_ms = dict(ms=time_ms(lambda: kd.reset_draws_kernel(ray, keys)),
-                    device_ms=events_ms(lambda: kd.reset_draws_kernel(ray, keys)),
+                    device_ms=graph_ms(lambda: kd.reset_draws_kernel(ray, keys)),
                     plain_ms=time_ms(lambda: kd.reset_draws_plain(ray, keys)))
     n_sel = len(ray.selected_task_indices)
-    reset_bound = keyed_bound(B * (8 * n + ENV_DRAWS + n_sel), B * 8 * n,
-                              B * (16 + 8 * n * 4 + 4 + 4 * n_sel + 16))
+    *reset_b, kinds = reset_bound(B, n, B * (16 + 8 * n * 4 + 4 + 4 * n_sel + 16))
+    print(f"{tag} keyed_reset B={B} on 21x21, SASS a warp issues by kind (warps an env: "
+          f"path by pipe): " + "; ".join(f"{k} ({w}: {path_line(p)})"
+                                         for k, (w, p) in kinds.items()))
     T = 64
     counter_ms = dict(ms=time_ms(lambda: kd.randint_cols(key, (T, B), 0, 6, device=dev)),
-                      device_ms=events_ms(lambda: kd.randint_cols(key, (T, B), 0, 6, device=dev)),
+                      device_ms=graph_ms(lambda: kd.randint_cols(key, (T, B), 0, 6, device=dev)),
                       plain_ms=time_ms(lambda: kd.counter_draws_plain(key, "randint", T, B, 0, B,
                                                                       0, 6)))
-    counter_bound = keyed_bound(2 * T * B + 2, 0, 16 + 4 * T * B)
-    split_ms = events_ms(lambda: kd.split_keys(key, B, device=dev))
-    for name, r, (b_ms, b_by), shape in (
-            ("keyed_reset", reset_ms, reset_bound, f"B={B} on 21x21"),
-            ("keyed_counter", counter_ms, counter_bound, f"randint (T={T}, B={B})")):
+    # a warp a 128 columns of a row; a thread's 4 columns of 2 draws and its
+    # warp's subkey, and 4 bytes out an element
+    warps = lambda rows: rows * -(-B // 1024) * 8
+    *counter_b, counter_path = counter_bound(1, warps(T), 9, False, 16 + 4 * T * B)
+    uniforms = lambda: kd.uniform_cols(key, (6, B), minval=1e-7, planes=T)
+    uniform_ms = dict(ms=time_ms(uniforms), device_ms=graph_ms(uniforms),
+                      plain_ms=time_ms(lambda: kd.counter_draws_plain(
+                          key, "uniform", 6, B, 0, B, 1e-7, 1.0, derive=T)))
+    # a thread's 4 draws and its plane's key
+    *uniform_b, uniform_path = counter_bound(3, warps(6 * T), 5, True, 16 + 4 * T * 6 * B)
+    split_ms = graph_ms(lambda: kd.split_keys(key, B, device=dev))
+    for name, r, (b_ms, b_by), shape, path in (
+            ("keyed_reset", reset_ms, reset_b, f"B={B} on 21x21", None),
+            ("keyed_counter", counter_ms, counter_b, f"randint (T={T}, B={B})", counter_path),
+            ("keyed_counter", uniform_ms, uniform_b,
+             f"uniform [1e-7, 1) of {T} planes split from a key x (6, B={B}), fast PPO's",
+             uniform_path)):
         print(f"{tag} {name} {shape}: kernel {r['ms']:.4f} ms (CUDA events, one call, median "
-              f"of 5), device {r['device_ms']:.4f} ms (CUDA events over 20 back-to-back "
-              f"launches), plain {r['plain_ms']:.4f} ms; bound {b_ms:.5f} ms ({b_by}), share "
+              f"of 5), device {r['device_ms']:.5f} ms (a CUDA graph of 20 launches, the "
+              f"median of 5 replays), plain {r['plain_ms']:.4f} ms; bound {b_ms:.5f} ms "
+              f"({b_by}; two-rate issue of the SASS path"
+              + (f" a warp: {path_line(path)}" if path else "") + "), share "
               f"{b_ms / r['device_ms']:.1%} of the device time, {b_ms / r['ms']:.1%} of one call")
+        check(b_ms <= 1.02 * r["device_ms"], f"{name} {shape} beat its bound: the SASS path "
+              f"or the pipe classes are wrong")
     print(f"{tag} keyed_counter split of {B} keys: device {split_ms:.4f} ms")
+    k_pool = prng_key(29).to(dev)  # fast PPO's pool of 2B worlds, as a step draws it
+    pools = {"keyed fresh_packed_batch (a step over several ranks)":
+             time_ms(lambda: fp._fresh_pool(ray, k_pool, 2 * B, fused=False)),
+             "randint seeds and the pool kernel (one rank)":
+             time_ms(lambda: fp._fresh_pool(ray, k_pool, 2 * B))}
+    print(f"{tag} fast PPO's pool of {2 * B} worlds on 21x21, one call (CUDA events, median of "
+          f"5): " + "; ".join(f"{k} {v:.4f} ms" for k, v in pools.items()))
     ms = time_ms(lambda: cw.reset_from_seed(ray, 6, B, device=dev))
     print(f"{tag} reset_from_seed B={B} 21x21: {ms:.4f} ms (CUDA events, median of 5; the "
           f"generator reset read 3.7172 ms in PR 7's phase 6)")
@@ -4017,12 +4510,12 @@ def keys_phase(cw, dev, tag):
     del env
     print(f"{tag} phase 27 took {time.perf_counter() - t_phase:.1f} s")
     replaces = {"keyed_reset": "gym_craftingworld_tpu/core/reset.py:75",
-                "keyed_counter": "gym_craftingworld_tpu/core/reset.py:178"}
+                "keyed_counter": "gym_craftingworld_tpu/train/fast_ppo.py:300"}
     return [dict(name=name, route="cuda", source=KEYED_SOURCE, replaces=replaces[name],
                  launches=launches[name], max_abs_err=worst, ms=r["ms"], plain_ms=r["plain_ms"],
                  bound_ms=b[0], bound_by=b[1], library_ms=None)
-            for name, r, b in (("keyed_reset", reset_ms, reset_bound),
-                               ("keyed_counter", counter_ms, counter_bound))]
+            for name, r, b in (("keyed_reset", reset_ms, reset_b),
+                               ("keyed_counter", uniform_ms, uniform_b))]
 
 
 def free_port() -> int:

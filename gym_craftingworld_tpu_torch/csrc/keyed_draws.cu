@@ -22,12 +22,26 @@
 // per-env task draws (randint k, a permutation of the selected tasks by
 // rounds of a stable insertion sort, the pool pick) and k_next are written
 // by the last thread of the env's first block, which holds fewer cells.
+// The tasks mode makes those task draws alone, from each key itself, one
+// warp an env.
 //
-// cw_keyed_counter_kernel: one thread per element of a rows x width box of
-// counters (row r, column c at index r * row_stride + col0 + c): the keys of
-// a split (a rank's columns of split(key, B)) or randint over the box (a
-// rank's columns of randint(key, (T, B))), randint's two keys derived once
-// a block.
+// cw_keyed_counter_kernel (redesigned for this card): the draws of P key
+// planes over a rows x width box of counters (plane p, row r, column c at
+// index r * row_stride + col0 + c under plane p's key): the keys of a
+// split, randint, the raw 32 bits (permutations' sort keys) or uniform
+// floats on [minval, maxval). So one launch draws fast PPO's uniforms of
+// T steps (plane t's key split(k_roll, T)[t], rows 6, a rank's columns) or
+// a rank's columns of randint(key, (T, B)). What bounds it is integer
+// issue, ~75 operations a Threefry call; the design spends as little else:
+// a 2-D grid (blockIdx.y the plane and row, x the columns), 32-bit index
+// arithmetic inside a row with the high counter word once a row, randint's
+// modulo by a reciprocal computed on the host (three multiply-highs, no
+// division), 4 consecutive columns a thread and one 16-byte store, the keys
+// loaded once as 16-byte read-only loads and derived by each warp (the
+// plane's split key, and randint's two subkeys in lanes 0 and 1 passed by
+// __shfl_sync) with no block barrier. uniform's f * span + minval is one
+// __fmaf_rn: the rounding JAX's CPU backend gives, which nvcc's default
+// contraction would give too, but only by its choice.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -38,8 +52,19 @@
 #define CW_KEYED_CELLS 128
 #define CW_COUNTER_THREADS 256
 
-enum { CW_KEYED_FRESH = 0, CW_KEYED_POOL = 1, CW_KEYED_WORLD = 2 };
-enum { CW_COUNTER_SPLIT = 0, CW_COUNTER_RANDINT = 1 };
+enum { CW_KEYED_FRESH = 0, CW_KEYED_POOL = 1, CW_KEYED_WORLD = 2, CW_KEYED_TASKS = 3 };
+enum { CW_COUNTER_SPLIT = 0, CW_COUNTER_RANDINT = 1, CW_COUNTER_BITS = 2, CW_COUNTER_UNIFORM = 3 };
+
+// cw_keyed_counter's launch, by value (host-computed constants included).
+struct CwCounterArgs {
+  uint32_t plane_rows, rows, width;
+  uint64_t row_stride, col0;
+  int derive, vec;
+  uint32_t span, multiplier, magic;
+  int32_t minval;
+  int s1, s2;
+  float fmin, fspan;
+};
 
 __device__ __forceinline__ uint2 cw_load_key(const int64_t* keys, int64_t b) {
   return make_uint2((uint32_t)keys[2 * b], (uint32_t)keys[2 * b + 1]);
@@ -58,18 +83,20 @@ __global__ void __launch_bounds__(CW_KEYED_CELLS)
   const uint2 key = cw_load_key(keys, b);
   if (mode == CW_KEYED_WORLD) {
     if (t == 0) sub[1] = key;  // the key itself places the world
+  } else if (mode == CW_KEYED_TASKS) {
+    if (t == 0) sub[0] = key;  // the key itself draws the tasks
   } else if (t < 4) {
     sub[t] = cw_key_at(key, (uint32_t)t);
   }
   __syncthreads();
-  if (mode != CW_KEYED_WORLD && t < CW_GOAL_ROWS) {
+  if (mode < CW_KEYED_WORLD && t < CW_GOAL_ROWS) {
     const uint2 g = cw_key_at(sub[2], (uint32_t)(t < 6 ? t : 5));
     gk[t] = t < 6 ? g : cw_key_at(g, 1u);
   }
   __syncthreads();
 
   const int j = blockIdx.y * blockDim.x + t;
-  if (j < n) {
+  if (j < n && mode != CW_KEYED_TASKS) {
     if (mode != CW_KEYED_POOL)
       world[b * n + j] = cw_uniform(cw_bits_at(sub[1], 0u, (uint32_t)j));
     if (mode != CW_KEYED_WORLD) {
@@ -106,48 +133,107 @@ __global__ void __launch_bounds__(CW_KEYED_CELLS)
   }
   for (int i = 0; i < n_sel; ++i) perm_out[b * n_sel + i] = v[i];
   if (mode == CW_KEYED_POOL) pick[b] = cw_randint_at(sub[1], 0u, 0u, pool_span, 0);
+  if (mode == CW_KEYED_TASKS) return;
   k_next[2 * b] = sub[3].x;
   k_next[2 * b + 1] = sub[3].y;
 }
 
-__global__ void __launch_bounds__(CW_COUNTER_THREADS)
-    cw_keyed_counter_kernel(const int64_t* __restrict__ key, int mode, int64_t rows,
-                            int64_t row_stride, int64_t col0, int64_t width, uint32_t span,
-                            int32_t minval, void* __restrict__ out) {
-  __shared__ uint2 k[2];
-  const uint2 key0 = cw_load_key(key, 0);
-  if (mode == CW_COUNTER_RANDINT && threadIdx.x < 2) k[threadIdx.x] = cw_key_at(key0, threadIdx.x);
-  __syncthreads();
-  const int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= rows * width) return;
-  const int64_t r = e / width;
-  const uint64_t idx = (uint64_t)(r * row_stride + col0 + (e - r * width));
-  const uint32_t hi = (uint32_t)(idx >> 32), lo = (uint32_t)idx;
-  if (mode == CW_COUNTER_SPLIT) {
-    const uint2 y = threefry2x32(key0, make_uint2(hi, lo));
-    ((int64_t*)out)[2 * e] = y.x;
-    ((int64_t*)out)[2 * e + 1] = y.y;
+// One thread's 4 consecutive elements of one plane's row: counters (hi,
+// lo + j) under the key k (and k2, randint's second key), written with
+// one 16-byte store (four in split mode, one a key).
+template <int MODE>
+__device__ __forceinline__ void cw_counter_four(uint2 k, uint2 k2, uint32_t hi, uint32_t lo,
+                                                const CwCounterArgs& a, void* out, int64_t e,
+                                                int n) {
+  if (MODE == CW_COUNTER_SPLIT) {
+    longlong2* o = (longlong2*)out + e;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (j < n) {
+        const uint32_t l = lo + (uint32_t)j;
+        const uint2 y = threefry2x32(k, make_uint2(hi + (l < lo), l));
+        o[j] = make_longlong2((long long)y.x, (long long)y.y);
+      }
+    }
+    return;
+  }
+  uint32_t v[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint32_t l = lo + (uint32_t)j;
+    const uint32_t h = hi + (l < lo);
+    const uint32_t bits = cw_bits_at(k, h, l);
+    if (MODE == CW_COUNTER_RANDINT) {
+      const uint32_t lower = cw_bits_at(k2, h, l);
+      const uint32_t x = cw_fastmod(bits, a.span, a.magic, a.s1, a.s2) * a.multiplier +
+                         cw_fastmod(lower, a.span, a.magic, a.s1, a.s2);
+      v[j] = (uint32_t)a.minval + cw_fastmod(x, a.span, a.magic, a.s1, a.s2);
+    } else if (MODE == CW_COUNTER_UNIFORM) {
+      v[j] = __float_as_uint(cw_uniform_scaled(bits, a.fmin, a.fspan));
+    } else {
+      v[j] = bits;
+    }
+  }
+  uint32_t* o = (uint32_t*)out + e;
+  if (n == 4 && a.vec) {
+    *(uint4*)o = make_uint4(v[0], v[1], v[2], v[3]);
   } else {
-    const uint32_t higher = cw_bits_at(k[0], hi, lo), lower = cw_bits_at(k[1], hi, lo);
-    ((int32_t*)out)[e] = minval + (int32_t)cw_randint_offset(higher, lower, span);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (j < n) o[j] = v[j];
+  }
+}
+
+// blockIdx.y walks (plane, row) pairs, blockIdx.x and the thread the row's
+// columns, 4 a thread. Each warp makes its own keys: the plane's key
+// (loaded, or split(parent, planes)[p]) and, for randint, split(plane key)'s
+// two keys, one in each of lanes 0 and 1, passed to the warp by
+// __shfl_sync; no barrier.
+template <int MODE>
+__global__ void __launch_bounds__(CW_COUNTER_THREADS)
+    cw_keyed_counter_kernel(const longlong2* __restrict__ keys, CwCounterArgs a,
+                            void* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const uint32_t c = (blockIdx.x * CW_COUNTER_THREADS + threadIdx.x) * 4u;
+  for (uint32_t pr = blockIdx.y; pr < a.plane_rows; pr += gridDim.y) {
+    const uint32_t p = pr / a.rows, r = pr - p * a.rows;
+    const longlong2 kd = __ldg(keys + (a.derive ? 0 : p));
+    uint2 k = make_uint2((uint32_t)kd.x, (uint32_t)kd.y);
+    if (a.derive) k = cw_key_at(k, p);
+    uint2 k2 = k;
+    if (MODE == CW_COUNTER_RANDINT) {
+      const uint2 sk = cw_key_at(k, (uint32_t)(lane & 1));
+      k = make_uint2(__shfl_sync(0xffffffffu, sk.x, 0), __shfl_sync(0xffffffffu, sk.y, 0));
+      k2 = make_uint2(__shfl_sync(0xffffffffu, sk.x, 1), __shfl_sync(0xffffffffu, sk.y, 1));
+    }
+    if (c >= a.width) continue;
+    // the row's first counter, 64-bit once a row; the row's columns in 32 bits
+    const uint64_t base = (uint64_t)r * a.row_stride + a.col0;
+    const uint32_t lo0 = (uint32_t)base + c;
+    const uint32_t hi = (uint32_t)(base >> 32) + (lo0 < (uint32_t)base);
+    const int n = min(4, (int)(a.width - c));
+    cw_counter_four<MODE>(k, k2, hi, lo0, a, out, (int64_t)pr * a.width + c, n);
   }
 }
 
 // keys: device int64[B, 2]; outputs (device, NULL where the mode writes
 // none): k int32[B], perm int32[B, n_sel], world f32[B, n], pick int32[B],
 // goal f32[B, 7, n], k_next int64[B, 2]. mode 0 fresh reset, 1 pool reset,
-// 2 the world scores of each key alone (generate_pool).
+// 2 the world scores of each key alone (generate_pool), 3 the tasks of each
+// key alone (sample_desired's k and perm: fresh_packed_batch).
 extern "C" int cw_keyed_reset(const void* keys, int B, int n, int mode, int n_sel,
                               uint32_t task_span, int stacking, uint32_t pool_span, int rounds,
                               void* k_out, void* perm_out, void* world, void* pick, void* goal,
                               void* k_next, void* stream) {
   cudaGetLastError();
   if (B <= 0 || n <= 0) return 0;
-  if (n_sel < 0 || n_sel > CW_KEYED_MAX_SEL || mode < 0 || mode > 2 || task_span == 0 ||
+  if (n_sel < 0 || n_sel > CW_KEYED_MAX_SEL || mode < 0 || mode > 3 || task_span == 0 ||
       pool_span == 0)
     return (int)cudaErrorInvalidValue;
-  const int threads = n < CW_KEYED_CELLS ? ((n + 31) / 32) * 32 : CW_KEYED_CELLS;
-  const dim3 grid(B, (n + threads - 1) / threads);
+  // the tasks mode draws no cell: one warp an env, whose last lane draws
+  const int cells = mode == CW_KEYED_TASKS ? 1 : n;
+  const int threads = cells < CW_KEYED_CELLS ? ((cells + 31) / 32) * 32 : CW_KEYED_CELLS;
+  const dim3 grid(B, (cells + threads - 1) / threads);
   cw_keyed_reset_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
       (const int64_t*)keys, n, mode, n_sel, task_span, stacking, pool_span, rounds,
       (int32_t*)k_out, (int32_t*)perm_out, (float*)world, (int32_t*)pick, (float*)goal,
@@ -155,17 +241,58 @@ extern "C" int cw_keyed_reset(const void* keys, int B, int n, int mode, int n_se
   return (int)cudaGetLastError();
 }
 
-// key: device int64[2]; out: device int64[rows * width, 2] (mode 0, split)
-// or int32[rows * width] (mode 1, randint in [minval, minval + span)).
-extern "C" int cw_keyed_counter(const void* key, int mode, long long rows, long long row_stride,
-                                long long col0, long long width, uint32_t span, int32_t minval,
-                                void* out, void* stream) {
+// keys: device int64[planes, 2] (derive 0) or the parent int64[2] (derive
+// 1: plane p's key is split(parent, planes)[p]), each 16-byte aligned. out:
+// device [planes, rows, width] of int64 pairs (mode 0, split), int32
+// (1, randint in [minval, minval + span)), uint32 bits (2) or float32 (3,
+// uniform on [fmin, fmin + fspan)); element (p, r, c) is counter r *
+// row_stride + col0 + c of plane p's key. magic, s1, s2: span's reciprocal
+// (ops/keyed_draws.fastmod_magic); multiplier: randint's (2**16 % span)**2 %
+// span, wrapped at 2**32.
+extern "C" int cw_keyed_counter(const void* keys, int planes, int derive, int mode,
+                                long long rows, long long row_stride, long long col0,
+                                long long width, uint32_t span, int32_t minval,
+                                uint32_t multiplier, uint32_t magic, int s1, int s2, float fmin,
+                                float fspan, void* out, void* stream) {
   cudaGetLastError();
-  const long long total = rows * width;
-  if (total <= 0) return 0;
-  if (mode < 0 || mode > 1 || span == 0) return (int)cudaErrorInvalidValue;
-  const long long blocks = (total + CW_COUNTER_THREADS - 1) / CW_COUNTER_THREADS;
-  cw_keyed_counter_kernel<<<(unsigned)blocks, CW_COUNTER_THREADS, 0, (cudaStream_t)stream>>>(
-      (const int64_t*)key, mode, rows, row_stride, col0, width, span, minval, out);
+  if (planes <= 0 || rows <= 0 || width <= 0) return 0;
+  const long long plane_rows = (long long)planes * rows;
+  if (mode < 0 || mode > 3 || span == 0 || plane_rows > 0xFFFFFFFFll || width > 0x7FFFFFFFll ||
+      ((uintptr_t)keys & 15) || ((uintptr_t)out & 15))
+    return (int)cudaErrorInvalidValue;
+  CwCounterArgs a;
+  a.plane_rows = (uint32_t)plane_rows;
+  a.rows = (uint32_t)rows;
+  a.row_stride = (uint64_t)row_stride;
+  a.col0 = (uint64_t)col0;
+  a.width = (uint32_t)width;
+  a.derive = derive;
+  a.vec = (width & 3) == 0;
+  a.span = span;
+  a.minval = minval;
+  a.multiplier = multiplier;
+  a.magic = magic;
+  a.s1 = s1;
+  a.s2 = s2;
+  a.fmin = fmin;
+  a.fspan = fspan;
+  const long long per_block = 4ll * CW_COUNTER_THREADS;
+  const dim3 grid((unsigned)((width + per_block - 1) / per_block),
+                  (unsigned)(plane_rows < 65535 ? plane_rows : 65535));
+  const cudaStream_t st = (cudaStream_t)stream;
+  const longlong2* k = (const longlong2*)keys;
+  switch (mode) {
+    case CW_COUNTER_SPLIT:
+      cw_keyed_counter_kernel<CW_COUNTER_SPLIT><<<grid, CW_COUNTER_THREADS, 0, st>>>(k, a, out);
+      break;
+    case CW_COUNTER_RANDINT:
+      cw_keyed_counter_kernel<CW_COUNTER_RANDINT><<<grid, CW_COUNTER_THREADS, 0, st>>>(k, a, out);
+      break;
+    case CW_COUNTER_BITS:
+      cw_keyed_counter_kernel<CW_COUNTER_BITS><<<grid, CW_COUNTER_THREADS, 0, st>>>(k, a, out);
+      break;
+    default:
+      cw_keyed_counter_kernel<CW_COUNTER_UNIFORM><<<grid, CW_COUNTER_THREADS, 0, st>>>(k, a, out);
+  }
   return (int)cudaGetLastError();
 }

@@ -63,3 +63,21 @@ __device__ __forceinline__ int32_t cw_randint_at(uint2 k, uint32_t hi, uint32_t 
   const uint32_t lower = cw_bits_at(cw_key_at(k, 1u), hi, lo);
   return minval + (int32_t)cw_randint_offset(higher, lower, span);
 }
+
+// n % d for a runtime d, by a reciprocal computed on the host
+// (ops/keyed_draws.fastmod_magic): the quotient is umulhi(magic, n) corrected
+// by an add, exact for every 32-bit n (Granlund and Montgomery, "Division by
+// invariant integers using multiplication", PLDI'94, fig. 4.1).
+__device__ __forceinline__ uint32_t cw_fastmod(uint32_t n, uint32_t d, uint32_t magic, int s1,
+                                               int s2) {
+  const uint32_t t = __umulhi(magic, n);
+  const uint32_t q = (t + ((n - t) >> s1)) >> s2;
+  return n - q * d;
+}
+
+// jax.random.uniform(minval, maxval)'s float32 from 32 bits: f * span +
+// minval in one fused multiply-add (XLA's CPU backend contracts it so; the
+// explicit intrinsic leaves nvcc no choice), then max(minval, .).
+__device__ __forceinline__ float cw_uniform_scaled(uint32_t bits, float fmin, float fspan) {
+  return fmaxf(fmin, __fmaf_rn(cw_uniform(bits), fspan, fmin));
+}

@@ -64,8 +64,10 @@ _SIGNATURES = {
     # keys, B, n, mode, n_sel, task_span, stacking, pool_span, rounds, k, perm,
     # world, pick, goal, k_next, stream
     "cw_keyed_reset": (_P, _I, _I, _I, _I, _U32, _I, _U32, _I, _P, _P, _P, _P, _P, _P, _P),
-    # key, mode, rows, row_stride, col0, width, span, minval, out, stream
-    "cw_keyed_counter": (_P, _I, _LL, _LL, _LL, _LL, _U32, _I, _P, _P),
+    # keys, planes, derive, mode, rows, row_stride, col0, width, span, minval,
+    # multiplier, magic, s1, s2, fmin, fspan, out, stream
+    "cw_keyed_counter": (_P, _I, _I, _I, _LL, _LL, _LL, _LL, _U32, _I, _U32, _U32, _I, _I, _F, _F,
+                         _P, _P),
 }
 
 

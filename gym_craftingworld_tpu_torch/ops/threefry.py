@@ -15,11 +15,24 @@ a counter, so these functions reproduce its draws bit for bit on any device
   element's row-major linear index. So the ``i``-th key of a split, or the
   bits of one element, need nothing of the others (``keys_at``,
   ``bits_at``): a rank of a mesh derives only its own envs' keys.
-* ``uniform``: ``(bits >> 9) | 0x3F800000`` read as a float32, minus 1.
+* ``uniform``: ``(bits >> 9) | 0x3F800000`` read as a float32, minus 1,
+  then ``max(minval, f * (maxval - minval) + minval)`` in float32, where
+  XLA's CPU backend contracts the product and the sum into one fused
+  multiply-add, rounded once (``fma_f32``; measured against JAX 0.9).
+* ``gumbel`` (JAX's default ``"low"`` mode): ``-log(-log(u))`` of uniforms
+  on ``[tiny, 1)``; ``categorical``: the argmax over the last axis of
+  ``gumbel(key, logits.shape) + logits``; ``normal``: ``sqrt(2) *
+  erfinv(u)`` of uniforms on ``[nextafter(-1, 0), 1)``. Their bits are
+  JAX's; the logarithms and ``erfinv`` are torch's, which agree with XLA's
+  to a few ulp (``tests/test_torch_threefry.py`` states the tolerance).
 * ``randint``: two bit draws from ``split(key)`` folded into the span with
   32-bit unsigned arithmetic.
 * ``permutation``: ``ceil(3 ln n / ln(2**32 - 1))`` rounds of a stable sort
   by fresh 32-bit keys.
+
+Every draw has a form addressed by linear index (``bits_at``,
+``uniform_at``, ``keys_at``), so that a rank of a mesh draws only its own
+columns of a draw and gets the whole draw's values there.
 
 Key data is an int64 tensor ``[..., 2]`` holding two words in ``[0,
 2**32)``, as ``ops/philox.py`` carries its words and as ``interop.py``
@@ -32,6 +45,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 MASK32 = 0xFFFFFFFF
@@ -122,9 +136,84 @@ def uniform_from_bits(bits: torch.Tensor) -> torch.Tensor:
     return ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
 
 
-def uniform(key: torch.Tensor, shape=()) -> torch.Tensor:
-    """``jax.random.uniform(key, shape)`` (float32 on [0, 1))."""
-    return uniform_from_bits(random_bits(key, shape))
+def uniform_span(minval: float = 0.0, maxval: float = 1.0):
+    """(minval, maxval - minval) as JAX's ``_uniform`` takes them: each
+    bound rounded to float32, their difference taken in float32."""
+    lo, hi = np.float32(minval), np.float32(maxval)
+    return lo, np.float32(hi - lo)
+
+
+def fma_f32(a: torch.Tensor, b: float, c: float) -> torch.Tensor:
+    """``a * b + c`` of float32 ``a`` and float32 scalars, rounded once to
+    float32, as a fused multiply-add rounds it.
+
+    The product is exact in float64 (24 + 24 bits); the float64 sum is
+    rounded to odd (its exact error, by TwoSum, moves an inexact even result
+    one ulp towards the true sum), and a round-to-odd result of 53 bits
+    rounds to 24 bits as the exact sum would.
+    """
+    f64 = torch.float64
+    p = a.to(f64) * float(b)
+    c64 = torch.tensor(float(c), dtype=f64, device=a.device)
+    s = p + c64
+    bv = s - p
+    err = (p - (s - bv)) + (c64 - bv)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.inf, -torch.inf).to(f64)
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.to(torch.float32)
+
+
+def scale_uniform(floats: torch.Tensor, minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
+    """``max(minval, floats * (maxval - minval) + minval)`` in float32, as
+    JAX's ``_uniform`` ends, the product and sum fused (``fma_f32``)."""
+    lo, span = uniform_span(minval, maxval)
+    if lo == 0.0 and span == 1.0:
+        return floats  # f * 1 + 0 and max(0, f) are f
+    return torch.clamp_min(fma_f32(floats, span, lo), float(lo))
+
+
+def uniform_at(key: torch.Tensor, index: torch.Tensor, minval: float = 0.0,
+               maxval: float = 1.0) -> torch.Tensor:
+    """The elements at row-major linear ``index`` of ``jax.random.uniform(key,
+    shape, minval=minval, maxval=maxval)`` for any ``shape`` holding them."""
+    return scale_uniform(uniform_from_bits(bits_at(key, index)), minval, maxval)
+
+
+def uniform(key: torch.Tensor, shape=(), minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, minval=minval, maxval=maxval)`` (float32)."""
+    return scale_uniform(uniform_from_bits(random_bits(key, shape)), minval, maxval)
+
+
+TINY = float(np.finfo(np.float32).tiny)
+NORMAL_LOW = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+SQRT2 = np.float32(np.sqrt(2))
+
+
+def gumbel_from_uniform(u: torch.Tensor) -> torch.Tensor:
+    """``-log(-log(u))`` of uniforms on [tiny, 1)."""
+    return -torch.log(-torch.log(u))
+
+
+def gumbel(key: torch.Tensor, shape=()) -> torch.Tensor:
+    """``jax.random.gumbel(key, shape)`` in its default ``"low"`` mode."""
+    return gumbel_from_uniform(uniform(key, shape, TINY, 1.0))
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical(key, logits)`` over the last axis: int64
+    indices, the first on ties as ``jnp.argmax``."""
+    return torch.argmax(gumbel(key, tuple(logits.shape)) + logits, dim=-1)
+
+
+def normal_from_uniform(u: torch.Tensor) -> torch.Tensor:
+    """``sqrt(2) * erfinv(u)`` of uniforms on [nextafter(-1, 0), 1)."""
+    return torch.tensor(SQRT2, device=u.device) * torch.erfinv(u)
+
+
+def normal(key: torch.Tensor, shape=()) -> torch.Tensor:
+    """``jax.random.normal(key, shape)`` (float32)."""
+    return normal_from_uniform(uniform(key, shape, NORMAL_LOW, 1.0))
 
 
 def randint_from_bits(higher: torch.Tensor, lower: torch.Tensor, minval: int,

@@ -15,8 +15,10 @@ held to what the JAX dry run checks it against:
 
 Shapes are the JAX dry run's where the port's blocks allow (its shuffle
 blocks are 128 rows, so a rank holds 128 envs in paths 3 and 5), and so
-are the resets and the actions of paths 1, 2 and 4 (``PRNGKey(3)``,
-``PRNGKey(7)``).
+are the keys: ``PRNGKey(n)`` of the JAX dry run for the resets, the
+actions, the fast and pixel trainers' envs, parameters and step keys (paths
+1-5); the flax family's parameters of path 1 and the random minibatch of
+path 6 come from generators seeded alike.
 
     torchrun --standalone --nproc_per_node 2 -m gym_craftingworld_tpu_torch.parallel.dryrun
     python -m gym_craftingworld_tpu_torch.parallel.dryrun --device cpu   # one rank
@@ -68,7 +70,8 @@ def dryrun_multichip(n_devices: int, device=None) -> str:
     B = 2 * n_devices
     env_state = reset_sharded(cfg, 0, B, mesh)
     ts = init_train_state(gen(1), cfg, ppo)
-    ts, env_state, _, metrics = ppo_train_step_sharded(cfg, ppo, mesh)(ts, env_state, gen(2))
+    key = lambda seed: prng_key(seed, device=dev)
+    ts, env_state, _, metrics = ppo_train_step_sharded(cfg, ppo, mesh)(ts, env_state, key(2))
     _check(env_state.objects.shape[0] == B // n_devices, "the env batch lost its split")
     _check(math.isfinite(float(metrics["loss"])), "train/ppo.py loss is finite")
 
@@ -86,9 +89,9 @@ def dryrun_multichip(n_devices: int, device=None) -> str:
     # 3) fast PPO with the batch split on the lane axis
     fppo = fp.FastPPOConfig(rollout_steps=4, num_minibatches=2, update_epochs=1, hidden=32)
     Bp = 128 * n_devices
-    envp = se.shard_packed(fp.fresh_packed_batch(cfg_r, gen(4), Bp), mesh)
-    fts = fp.init_fast_train_state(gen(5), cfg_r, fppo)
-    fts, envp, _, fmetrics = se.fast_train_step_sharded(cfg_r, fppo, mesh)(fts, envp, gen(6))
+    envp = se.shard_packed(fp.fresh_packed_batch(cfg_r, key(4), Bp), mesh)
+    fts = fp.init_fast_train_state(key(5), cfg_r, fppo)
+    fts, envp, _, fmetrics = se.fast_train_step_sharded(cfg_r, fppo, mesh)(fts, envp, key(6))
     _check(math.isfinite(float(fmetrics["loss"])), "fast-PPO loss is finite")
     _check(envp.slot_key.shape[-1] == Bp // n_devices and envp.agent_r.shape[-1] == Bp // n_devices,
            "the packed batch lost its lane split")
@@ -108,15 +111,15 @@ def dryrun_multichip(n_devices: int, device=None) -> str:
     pppo = fpx.PixelPPOConfig(rollout_steps=4, num_minibatches=2, update_epochs=1,
                               conv1=8, conv2=8, hidden=32)
     Bx = 128 * n_devices
-    envx = se.shard_packed(fp.fresh_packed_batch(cfg_r, gen(8), Bx), mesh)
-    xts = fpx.init_pixel_train_state(gen(9), cfg_r, pppo)
-    xts, envx, _, xmetrics = se.pixel_train_step_sharded(cfg_r, pppo, mesh)(xts, envx, gen(10))
+    envx = se.shard_packed(fp.fresh_packed_batch(cfg_r, key(8), Bx), mesh)
+    xts = fpx.init_pixel_train_state(key(9), cfg_r, pppo)
+    xts, envx, _, xmetrics = se.pixel_train_step_sharded(cfg_r, pppo, mesh)(xts, envx, key(10))
     _check(math.isfinite(float(xmetrics["loss"])), "pixel-PPO loss is finite")
     _check(envx.slot_key.shape[-1] == Bx // n_devices, "the pixel batch lost its lane split")
 
     # 6) the gradient kernel per shard, summed over the ranks / ranks
     fppo_k = fp.FastPPOConfig(hidden=32)
-    params_k = fp.init_params(gen(11), cfg_r, fppo_k)
+    params_k = fp.init_params(key(11), cfg_r, fppo_k)
     n_shard = 256
     Nk, Fk = n_shard * n_devices, fp.feature_rows(cfg_r)
     g = gen(12)

@@ -230,14 +230,15 @@ def reset_sharded(cfg: EnvConfig, seed: int, batch_size: int, mesh: EnvMesh) -> 
 def ppo_train_step_sharded(cfg: EnvConfig, ppo, mesh: EnvMesh):
     """``train/ppo.train_step`` over this rank's envs of the mesh.
 
-    Returns ``step(ts, env_state, generator) -> (ts, env_state, generator,
-    metrics)``: ``env_state`` is this rank's columns, the train state,
-    generator and metrics are the same on every rank (see ``train/ppo.py``).
+    Returns ``step(ts, env_state, key) -> (ts, env_state, key, metrics)``:
+    ``env_state`` is this rank's columns, the train state, key and metrics
+    are the same on every rank, and a rank draws its own envs' noise only
+    (see ``train/ppo.py``).
     """
     from gym_craftingworld_tpu_torch.train.ppo import train_step
 
-    def step(ts, env_state, generator):
-        return train_step(cfg, ppo, ts, env_state, generator, mesh=mesh)
+    def step(ts, env_state, key):
+        return train_step(cfg, ppo, ts, env_state, key, mesh=mesh)
 
     return step
 

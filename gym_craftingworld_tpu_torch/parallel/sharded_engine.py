@@ -13,9 +13,15 @@ TPU kernel is: a rank passes the index of its first env (``env0``) and
 draws the stream of the whole batch's envs. Its checksum is an int64
 ``all_reduce`` sum, the counterpart of JAX's ``psum``.
 
-The trainers keep their fused pool and gradient kernels under a mesh (JAX
-turns them off there only because its raw ``pallas_call`` is not
-``shard_map``-wrapped); each rank launches its own.
+The trainers keep their gradient kernel under a mesh (JAX turns it off
+there only because its raw ``pallas_call`` is not ``shard_map``-wrapped);
+each rank launches its own. The auto-reset pool follows JAX's choice
+(``gym_craftingworld_tpu/parallel/sharded_engine.py:83``): over several
+ranks the keyed ``fresh_packed_batch``, drawn whole on each rank from the
+replicated key, since its windows move across every column; on one rank the
+pool kernel. Every rank holds the same key data and splits it alike; the
+per-env draws (the Gumbel uniforms) are the rank's columns only, the same
+values as the whole draw's there (``ops/keyed_draws.uniform_cols``).
 """
 
 from __future__ import annotations
@@ -93,11 +99,11 @@ def fused_rollout_packed_bench_sharded(cfg: EnvConfig, slots: SlotState, seed: i
 
 def fast_train_step_sharded(cfg: EnvConfig, fppo, mesh: EnvMesh):
     """``train/fast_ppo.train_step_fast`` over this rank's columns of the
-    packed batch; returns ``step(ts, env, generator)``."""
+    packed batch; returns ``step(ts, env, key) -> (ts, env, key, metrics)``."""
     from gym_craftingworld_tpu_torch.train.fast_ppo import train_step_fast
 
-    def step(ts, env, generator):
-        return train_step_fast(cfg, fppo, ts, env, generator, mesh=mesh)
+    def step(ts, env, key):
+        return train_step_fast(cfg, fppo, ts, env, key, mesh=mesh)
 
     return step
 
@@ -106,7 +112,7 @@ def pixel_train_step_sharded(cfg: EnvConfig, pppo, mesh: EnvMesh):
     """``train/fast_pixel_ppo.train_step_pixel`` over this rank's columns."""
     from gym_craftingworld_tpu_torch.train.fast_pixel_ppo import train_step_pixel
 
-    def step(ts, env, generator):
-        return train_step_pixel(cfg, pppo, ts, env, generator, mesh=mesh)
+    def step(ts, env, key):
+        return train_step_pixel(cfg, pppo, ts, env, key, mesh=mesh)
 
     return step

@@ -37,6 +37,7 @@ import torch
 import gym_craftingworld_tpu_torch as cw
 from gym_craftingworld_tpu_torch import constants as C
 from gym_craftingworld_tpu_torch.ops.packed_fused import rollout_packed_actions
+from gym_craftingworld_tpu_torch.ops.threefry import prng_key
 from gym_craftingworld_tpu_torch.tools.fast_ppo_prof import arguments, profile_phases, sum_line
 from gym_craftingworld_tpu_torch.train import fast_ppo as fp
 from gym_craftingworld_tpu_torch.utils.profiling import card_identity
@@ -113,11 +114,11 @@ def main(argv=None) -> list:
     cfg = cw.ray_config()
     fppo = fp.FastPPOConfig()
     B, T, K = args.envs, fppo.rollout_steps, args.K
-    gen = torch.Generator(device=dev).manual_seed(0)
-    ts = fp.init_fast_train_state(gen, cfg, fppo)
-    env = fp.fresh_packed_batch(cfg, torch.Generator(device=dev).manual_seed(1), B)
-    pool = fp._fresh_pool(cfg, torch.Generator(device=dev).manual_seed(2), 2 * B)
-    u = fp.gumbel_uniforms(gen, (T, C.N_ACTIONS, B))
+    key = lambda seed: prng_key(seed, device=dev)
+    ts = fp.init_fast_train_state(key(0), cfg, fppo)
+    env = fp.fresh_packed_batch(cfg, key(1), B)
+    pool = fp._fresh_pool(cfg, key(2), 2 * B)
+    u = fp.gumbel_uniforms(key(3), T, B)
     setting = {"envs": B, "rollout_steps": T, "hidden": fppo.hidden, "device": args.device}
     print(f"[{card}] collect_prof " + " ".join(f"{k}={v}" for k, v in setting.items())
           + f" K={K}", flush=True)

@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 import gym_craftingworld_tpu_torch as cw
+from gym_craftingworld_tpu_torch.ops.threefry import fold_in, prng_key
 from gym_craftingworld_tpu_torch.tools.fast_ppo_bench import (arguments, loop_rates,
                                                                peak_memory_gib, report)
 from gym_craftingworld_tpu_torch.train import fast_pixel_ppo as fx
@@ -32,26 +33,27 @@ def main(argv=None) -> dict:
     cfg = cw.ray_config()
     ppo = fx.PixelPPOConfig.throughput() if args.preset == "preset" else fx.PixelPPOConfig()
     B, T, N = args.envs, ppo.rollout_steps, args.updates
-    gen = torch.Generator(device=dev).manual_seed(0)
-    state = {"ts": fx.init_pixel_train_state(gen, cfg, ppo),
-             "env": fp.fresh_packed_batch(cfg, torch.Generator(device=dev).manual_seed(1), B)}
+    key = lambda seed: prng_key(seed, device=dev)
+    # JAX's tool: PRNGKey(0) for the parameters and the training, fold_in(., 1) for the envs
+    state = {"ts": fx.init_pixel_train_state(key(0), cfg, ppo),
+             "env": fp.fresh_packed_batch(cfg, fold_in(key(0), 1), B), "key": key(0)}
 
     def run(n):
-        state["ts"], state["env"], _, _ = fx.train_many_pixel(cfg, ppo, state["ts"],
-                                                              state["env"], n, gen)
+        state["ts"], state["env"], state["key"], _ = fx.train_many_pixel(
+            cfg, ppo, state["ts"], state["env"], n, state["key"])
 
     rates = loop_rates(lambda: run(N), B, T, N, dev)
     ts, env0 = state["ts"], state["env"]
-    pool = fp.fresh_packed_batch(cfg, gen, 2 * B)
-    u = fp.gumbel_uniforms(gen, (T, 6, B))
+    k_pool = key(2)
+    pool = fp.fresh_packed_batch(cfg, k_pool, 2 * B)
+    u = fp.gumbel_uniforms(key(3), T, B)
     with torch.no_grad():
         _, traj = fx._collect_pixel(cfg, ppo, ts.params, env0, pool, u)
         _, last_value = fx._policy_tb(ts.params, cfg, env0, ppo.stride1)
         adv, ret = fx._gae(ppo.as_fast, traj, last_value)
-        perms = torch.stack([torch.randperm(T * B // fx.BLK, generator=gen, device=dev)
-                             for _ in range(ppo.update_epochs)])
+        perms = fp.epoch_perms(key(4), ppo.update_epochs, T * B // fx.BLK)
         stages = {
-            "pool": lambda: fp.fresh_packed_batch(cfg, gen, 2 * B),
+            "pool": lambda: fp.fresh_packed_batch(cfg, k_pool, 2 * B),
             "collect": lambda: fx._collect_pixel(cfg, ppo, ts.params, env0, pool, u),
             "gae": lambda: fx._gae(ppo.as_fast, traj, last_value),
             "update_phase": lambda: fx._update_phase(cfg, ppo, ts, traj, adv, ret, perms),

@@ -20,9 +20,10 @@ merges it into ``--out``, the JAX record's schema plus the card and a
 (``docs/pixel_canonical.json``, read as data) window by window
 (``compare_windows``). ``--updates`` defaults to the record's
 ``config.updates``, 400; the JAX code's default (600) is not the run it
-recorded. The curves take seed 0: parameters draw from a generator seeded
-``100 + seed``, the first envs from ``200 + seed`` and training from
-``300 + seed``, as JAX's keys do; the streams differ from JAX's. Each collect
+recorded. The curves take seed 0: parameters draw from JAX's
+``PRNGKey(100 + seed)``, the first envs from ``PRNGKey(200 + seed)`` and
+training from ``PRNGKey(300 + seed)``, JAX's keys and draws (the conv init's
+normals within a few ulp of JAX's). Each collect
 step launches the actions kernel at T = 1
 (``train/fast_pixel_ppo._collect_pixel``), 64 launches an update.
 
@@ -44,6 +45,7 @@ import numpy as np
 import torch
 
 import gym_craftingworld_tpu_torch as cw
+from gym_craftingworld_tpu_torch.ops.threefry import prng_key
 from gym_craftingworld_tpu_torch.tools.fast_ppo_sweep import window_means
 from gym_craftingworld_tpu_torch.train import fast_pixel_ppo as fx
 from gym_craftingworld_tpu_torch.utils.profiling import card_identity, timed_runs
@@ -82,15 +84,15 @@ def run_curve(cfg, ppo: fx.PixelPPOConfig, seed: int, updates: int, envs: int = 
               device="cuda", tag: str = "") -> list:
     """Success per step of each of ``updates`` updates of ``train_many_pixel``,
     in chunks of ``CHUNK``, printing each chunk's mean."""
-    gen = lambda s: torch.Generator(device=device).manual_seed(s)
-    ts = fx.init_pixel_train_state(gen(100 + seed), cfg, ppo)
-    env = fx.fresh_packed_batch(cfg, gen(200 + seed), envs)
-    g = gen(300 + seed)
+    key = lambda s: prng_key(s, device=device)
+    ts = fx.init_pixel_train_state(key(100 + seed), cfg, ppo)
+    env = fx.fresh_packed_batch(cfg, key(200 + seed), envs)
+    k = key(300 + seed)
     curve = []
     t0 = time.time()
     while len(curve) < updates:
         n = min(CHUNK, updates - len(curve))
-        ts, env, g, m = fx.train_many_pixel(cfg, ppo, ts, env, n, g)
+        ts, env, k, m = fx.train_many_pixel(cfg, ppo, ts, env, n, k)
         curve.extend(float(x) for x in m["success_per_step"].tolist())
         print(f"{tag}   {len(curve)}/{updates}: success/step {np.mean(curve[-CHUNK:]):.5f} "
               f"({time.time() - t0:.0f}s, host clock)", flush=True)
@@ -102,13 +104,14 @@ def loop_rate(cfg, ppo: fx.PixelPPOConfig, envs: int = B, updates: int = RATE_UP
     """Full-loop rate of ``train_many_pixel``: ``updates`` updates a run,
     timed (CUDA events) 3 times after ``RATE_WARMUP`` updates; the runs
     carry the training on."""
-    gen = lambda s: torch.Generator(device=device).manual_seed(s)
-    state = {"ts": fx.init_pixel_train_state(gen(0), cfg, ppo),
-             "env": fx.fresh_packed_batch(cfg, gen(1), envs), "gen": gen(7)}
+    key = lambda s: prng_key(s, device=device)
+    # the JAX tool's keys: PRNGKey(0), PRNGKey(1) and PRNGKey(7)
+    state = {"ts": fx.init_pixel_train_state(key(0), cfg, ppo),
+             "env": fx.fresh_packed_batch(cfg, key(1), envs), "key": key(7)}
 
     def run(n):
-        state["ts"], state["env"], state["gen"], _ = fx.train_many_pixel(
-            cfg, ppo, state["ts"], state["env"], n, state["gen"])
+        state["ts"], state["env"], state["key"], _ = fx.train_many_pixel(
+            cfg, ppo, state["ts"], state["env"], n, state["key"])
 
     run(min(RATE_WARMUP, updates))
     t = timed_runs(lambda: run(updates), device, reps=3, warmup=0)

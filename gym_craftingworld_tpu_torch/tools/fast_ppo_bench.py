@@ -19,6 +19,7 @@ import json
 import torch
 
 import gym_craftingworld_tpu_torch as cw
+from gym_craftingworld_tpu_torch.ops.threefry import fold_in, prng_key
 from gym_craftingworld_tpu_torch.train import fast_ppo as fp
 from gym_craftingworld_tpu_torch.utils.profiling import card_identity, timed_runs
 
@@ -79,27 +80,28 @@ def main(argv=None) -> dict:
     cfg = cw.ray_config()
     fppo = fp.FastPPOConfig.throughput() if args.preset == "preset" else fp.FastPPOConfig()
     B, T, N = args.envs, fppo.rollout_steps, args.updates
-    gen = torch.Generator(device=dev).manual_seed(0)
-    state = {"ts": fp.init_fast_train_state(gen, cfg, fppo),
-             "env": fp.fresh_packed_batch(cfg, torch.Generator(device=dev).manual_seed(1), B)}
+    key = lambda seed: prng_key(seed, device=dev)
+    # JAX's tool: PRNGKey(0) for the parameters and the training, fold_in(., 1) for the envs
+    state = {"ts": fp.init_fast_train_state(key(0), cfg, fppo),
+             "env": fp.fresh_packed_batch(cfg, fold_in(key(0), 1), B), "key": key(0)}
 
     def run(n):
-        state["ts"], state["env"], _, _ = fp.train_many_fast(cfg, fppo, state["ts"],
-                                                             state["env"], n, gen)
+        state["ts"], state["env"], state["key"], _ = fp.train_many_fast(
+            cfg, fppo, state["ts"], state["env"], n, state["key"])
 
     rates = loop_rates(lambda: run(N), B, T, N, dev)
     ts, env0 = state["ts"], state["env"]
-    pool = fp._fresh_pool(cfg, gen, 2 * B)
-    u = fp.gumbel_uniforms(gen, (T, 6, B))
+    k_pool = key(2)
+    pool = fp._fresh_pool(cfg, k_pool, 2 * B)
+    u = fp.gumbel_uniforms(key(3), T, B)
     with torch.no_grad():
         _, traj = fp._collect(cfg, fppo, ts.params, env0, pool, u)
         _, last_value = fp.apply_policy(ts.params, fp.features(cfg, env0))
         adv, ret = fp._gae(fppo, traj, last_value)
         NB = T * B // fp.shuffle_block(T, B, fppo.num_minibatches)
-        perms = torch.stack([torch.randperm(NB, generator=gen, device=dev)
-                             for _ in range(fppo.update_epochs)])
+        perms = fp.epoch_perms(key(4), fppo.update_epochs, NB)
         stages = {
-            "pool": lambda: fp._fresh_pool(cfg, gen, 2 * B),
+            "pool": lambda: fp._fresh_pool(cfg, k_pool, 2 * B),
             "collect": lambda: fp._collect(cfg, fppo, ts.params, env0, pool, u),
             "gae": lambda: fp._gae(fppo, traj, last_value),
             "update_phase": lambda: fp._update_phase(fppo, ts, traj, adv, ret, perms),

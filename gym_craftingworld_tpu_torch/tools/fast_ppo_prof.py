@@ -39,7 +39,7 @@ import statistics
 import torch
 
 import gym_craftingworld_tpu_torch as cw
-from gym_craftingworld_tpu_torch import constants as C
+from gym_craftingworld_tpu_torch.ops.threefry import prng_key
 from gym_craftingworld_tpu_torch.train import fast_ppo as fp
 from gym_craftingworld_tpu_torch.utils.profiling import (card_identity, counted, device_time_ms,
                                                           timed_runs)
@@ -118,26 +118,26 @@ def main(argv=None) -> list:
     cfg = cw.ray_config()
     fppo = fp.FastPPOConfig()
     B, T, K = args.envs, fppo.rollout_steps, args.K
-    gen = torch.Generator(device=dev).manual_seed(0)
-    ts = fp.init_fast_train_state(gen, cfg, fppo)
-    env = fp.fresh_packed_batch(cfg, torch.Generator(device=dev).manual_seed(1), B)
-    pool = fp._fresh_pool(cfg, torch.Generator(device=dev).manual_seed(2), 2 * B)
-    u = fp.gumbel_uniforms(gen, (T, C.N_ACTIONS, B))
+    key = lambda seed: prng_key(seed, device=dev)
+    ts = fp.init_fast_train_state(key(0), cfg, fppo)
+    env = fp.fresh_packed_batch(cfg, key(1), B)
+    k_pool = key(2)
+    pool = fp._fresh_pool(cfg, k_pool, 2 * B)
+    u = fp.gumbel_uniforms(key(3), T, B)
     with torch.no_grad():
         _, traj = fp._collect(cfg, fppo, ts.params, env, pool, u)
         _, last_value = fp.apply_policy(ts.params, fp.features(cfg, env))
         adv, ret = fp._gae(fppo, traj, last_value)
     NB = T * B // fp.shuffle_block(T, B, fppo.num_minibatches)
-    perms = torch.stack([torch.randperm(NB, generator=gen, device=dev)
-                         for _ in range(fppo.update_epochs)])
-    carry = {"ts": ts, "env": env}
+    perms = fp.epoch_perms(key(4), fppo.update_epochs, NB)
+    carry = {"ts": ts, "env": env, "key": key(7)}
 
     def full():
-        carry["ts"], carry["env"], _, _ = fp.train_step_fast(cfg, fppo, carry["ts"], carry["env"],
-                                                             gen)
+        carry["ts"], carry["env"], carry["key"], _ = fp.train_step_fast(
+            cfg, fppo, carry["ts"], carry["env"], carry["key"])
 
     phases = {
-        "pool": lambda: fp._fresh_pool(cfg, gen, 2 * B),
+        "pool": lambda: fp._fresh_pool(cfg, k_pool, 2 * B),
         "collect": torch.no_grad()(lambda: fp._collect(cfg, fppo, ts.params, env, pool, u)),
         "gae": lambda: fp._gae(fppo, traj, last_value),
         "update": torch.no_grad()(lambda: fp._update_phase(fppo, ts, traj, adv, ret, perms)),

@@ -31,9 +31,9 @@ import json
 from pathlib import Path
 
 import numpy as np
-import torch
 
 import gym_craftingworld_tpu_torch as cw
+from gym_craftingworld_tpu_torch.ops.threefry import fold_in, prng_key
 from gym_craftingworld_tpu_torch.train import fast_ppo as fp
 from gym_craftingworld_tpu_torch.utils.profiling import card_identity, timed_runs
 
@@ -68,16 +68,17 @@ def learning_curve(fppo: fp.FastPPOConfig, seed: int, n_updates: int = LEARN_UPD
     """Success per step of each of ``n_updates`` updates of ``train_many_fast``
     on single-task 8x8 at ``envs`` envs.
 
-    Parameters draw from a generator seeded ``100 + seed``, the first envs
-    from ``200 + seed`` and training from ``300 + seed``, as JAX's keys do
-    (the streams differ). ``fused_update`` as ``train_step_fast`` takes it:
+    Parameters draw from JAX's ``PRNGKey(100 + seed)``, the first envs from
+    ``PRNGKey(200 + seed)`` and training from ``PRNGKey(300 + seed)``, as the
+    JAX tool's do (the pool kernel's Philox stream is the port's own).
+    ``fused_update`` as ``train_step_fast`` takes it:
     None or True through the gradient kernel, False through autograd.
     """
     cfg = learning_config()
-    gen = lambda s: torch.Generator(device=device).manual_seed(s)
-    ts = fp.init_fast_train_state(gen(100 + seed), cfg, fppo)
-    env = fp.fresh_packed_batch(cfg, gen(200 + seed), envs)
-    _, _, _, m = fp.train_many_fast(cfg, fppo, ts, env, n_updates, gen(300 + seed),
+    key = lambda s: prng_key(s, device=device)
+    ts = fp.init_fast_train_state(key(100 + seed), cfg, fppo)
+    env = fp.fresh_packed_batch(cfg, key(200 + seed), envs)
+    _, _, _, m = fp.train_many_fast(cfg, fppo, ts, env, n_updates, key(300 + seed),
                                     fused_update=fused_update)
     return [float(x) for x in m["success_per_step"].tolist()]
 
@@ -126,13 +127,14 @@ def throughput(fppo: fp.FastPPOConfig, envs: int = B_BENCH, updates: int = BENCH
     stacked: ``updates`` updates a run, timed (CUDA events) 3 times after
     ``warmup`` updates. The runs carry the training on."""
     cfg = cw.ray_config()
-    gen = lambda s: torch.Generator(device=device).manual_seed(s)
-    state = {"ts": fp.init_fast_train_state(gen(0), cfg, fppo),
-             "env": fp.fresh_packed_batch(cfg, gen(1), envs), "gen": gen(7)}
+    key = lambda s: prng_key(s, device=device)
+    # the JAX tool's keys: PRNGKey(0), fold_in(PRNGKey(0), 1) and PRNGKey(7)
+    state = {"ts": fp.init_fast_train_state(key(0), cfg, fppo),
+             "env": fp.fresh_packed_batch(cfg, fold_in(key(0), 1), envs), "key": key(7)}
 
     def run(n):
-        state["ts"], state["env"], state["gen"], _ = fp.train_many_fast(
-            cfg, fppo, state["ts"], state["env"], n, state["gen"])
+        state["ts"], state["env"], state["key"], _ = fp.train_many_fast(
+            cfg, fppo, state["ts"], state["env"], n, state["key"])
 
     run(warmup)
     t = timed_runs(lambda: run(updates), device, reps=3, warmup=0)

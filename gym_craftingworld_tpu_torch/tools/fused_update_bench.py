@@ -28,6 +28,7 @@ import torch
 
 import gym_craftingworld_tpu_torch as cw
 from gym_craftingworld_tpu_torch.ops import fused_update as fu
+from gym_craftingworld_tpu_torch.ops.threefry import prng_key
 from gym_craftingworld_tpu_torch.train import fast_ppo as fp
 from gym_craftingworld_tpu_torch.utils.profiling import card_identity, device_time_ms, timed_runs
 
@@ -62,7 +63,7 @@ def main(argv=None) -> dict:
     fppo = fp.FastPPOConfig(hidden=args.hidden)
     N, H, F = args.rows, args.hidden, fp.feature_rows(cfg)
     gen = torch.Generator(device=dev).manual_seed(0)
-    params = fp.init_params(gen, cfg, fppo)
+    params = fp.init_params(prng_key(0, device=dev), cfg, fppo)
     # the update phase's layout: blocks of BLK rows, this minibatch's blocks
     # picked out of MINIBATCHES minibatches' worth by a permutation
     BLK = fp.shuffle_block(1, N, 1)

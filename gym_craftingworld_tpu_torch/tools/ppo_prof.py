@@ -14,8 +14,10 @@ between CUDA events:
 * ``update_epoch``: one epoch of 4 minibatch updates (autograd, clip and
   Adam) on a synthetic batch of T x B rows, as the JAX tool builds it.
 
-Prints a line a stage with the card and one JSON line a stage. No
-hand-written kernel runs on this path.
+Prints a line a stage with the card and one JSON line a stage. Of the
+hand-written kernels only the keyed draws' run on this path: the resets'
+and the step's draws from JAX's key chain (``train_step`` from
+``PRNGKey(0)``, the collect's noise from ``PRNGKey(1)``).
 
     python -m gym_craftingworld_tpu_torch.tools.ppo_prof
     B=16 python -m gym_craftingworld_tpu_torch.tools.ppo_prof --device cpu --reps 1
@@ -33,6 +35,7 @@ import gym_craftingworld_tpu_torch as cw
 from gym_craftingworld_tpu_torch import constants as C
 from gym_craftingworld_tpu_torch.core.reset import reset
 from gym_craftingworld_tpu_torch.core.step import step
+from gym_craftingworld_tpu_torch.ops.threefry import prng_key
 from gym_craftingworld_tpu_torch.train import fast_ppo
 from gym_craftingworld_tpu_torch.train import ppo as P
 from gym_craftingworld_tpu_torch.utils.profiling import card_identity, counted, timed_runs
@@ -77,17 +80,19 @@ def main(argv=None) -> list:
     cfg = cw.flat_config()
     ppo = P.PPOConfig()
     T = ppo.rollout_steps
-    gen = torch.Generator(device=dev).manual_seed(0)
+    gen = torch.Generator(device=dev).manual_seed(0)  # the init, the synthetic draws
     _, apply_fn = P.make_policy(ppo)
     ts = P.init_train_state(gen, cfg, ppo)
-    carry = {"ts": ts, "env": cw.reset_from_seed(cfg, 0, B, device=dev)}
+    carry = {"ts": ts, "env": cw.reset_from_seed(cfg, 0, B, device=dev),
+             "key": prng_key(0, device=dev)}
 
     def train_step():
-        carry["ts"], carry["env"], _, _ = P.train_step(cfg, ppo, carry["ts"], carry["env"], gen)
+        carry["ts"], carry["env"], carry["key"], _ = P.train_step(cfg, ppo, carry["ts"],
+                                                                  carry["env"], carry["key"])
 
     st1 = cw.reset_from_seed(cfg, 1, B, device=dev)
     st2 = cw.reset_from_seed(cfg, 2, B, device=dev)
-    noise = P.gumbel(gen, (T, B, C.N_ACTIONS))
+    noise = P.collect_noise(prng_key(1, device=dev), T, B)
 
     @torch.no_grad()
     def collect():

@@ -2,9 +2,10 @@
 
 Counterpart of ``gym_craftingworld_tpu/train/checkpoint.py`` (Orbax there).
 A checkpoint holds the learner's parameters and optimizer state, the env
-batch, the generator's state (the counterpart of the JAX key: every draw
-of the run comes from it) and the update index, so a run resumes
-bit-identically: its continuation is the same function of the same inputs.
+batch, the key data int64[2] of JAX's key chain (as JAX's ``_as_ckpt``
+stores ``key_data``: every draw of the run comes from it) and the update
+index, so a run resumes bit-identically: its continuation is the same
+function of the same inputs.
 
 A checkpoint is a directory. Under a mesh every rank writes its own columns
 of the env batch (``env.rank<r>.pt``); then rank 0 writes the shared state
@@ -47,10 +48,10 @@ def _env_fields(env_state) -> dict:
     return env_state._asdict()
 
 
-def save(path: str, ts, env_state, generator: torch.Generator, step: int, mesh=None) -> None:
+def save(path: str, ts, env_state, key: torch.Tensor, step: int, mesh=None) -> None:
     """Checkpoint ``ts`` (a trainer state: ``params`` module, ``AdamState``,
     ``update_idx``), this rank's ``env_state`` (``EnvState`` or
-    ``PackedState``), the generator's state and ``step`` into directory
+    ``PackedState``), the key data ``key`` and ``step`` into directory
     ``path``. Under a mesh every rank calls it."""
     rank, world = (0, 1) if mesh is None else (mesh.rank, mesh.size)
     os.makedirs(path, exist_ok=True)
@@ -65,7 +66,7 @@ def save(path: str, ts, env_state, generator: torch.Generator, step: int, mesh=N
             "params": {k: v.detach() for k, v in ts.params.state_dict().items()},
             "opt_state": {"count": opt.count, "mu": opt.mu, "nu": opt.nu},
             "update_idx": int(ts.update_idx),
-            "generator": generator.get_state(),
+            "key": key.detach().cpu(),
             "step": int(step),
             "world": world,
         }, os.path.join(path, STATE_FILE))
@@ -73,12 +74,12 @@ def save(path: str, ts, env_state, generator: torch.Generator, step: int, mesh=N
         mesh.all_reduce(torch.zeros(1, device=mesh.device))
 
 
-def restore(path: str, ts, generator: torch.Generator, mesh=None):
-    """Load checkpoint ``path`` into ``ts``'s parameter module (in place) and
-    ``generator``; returns (ts, env_state, step) with this rank's columns of
-    the env batch on the generator's device. The batch is reassembled from
-    the shards of the run that saved it, which may have had other ranks."""
-    device = generator.device
+def restore(path: str, ts, device, mesh=None):
+    """Load checkpoint ``path`` into ``ts``'s parameter module (in place);
+    returns (ts, env_state, key, step) with this rank's columns of the env
+    batch and the key data on ``device``. The batch is reassembled from the
+    shards of the run that saved it, which may have had other ranks."""
+    device = torch.device(device)
     state = torch.load(os.path.join(path, STATE_FILE), map_location="cpu", weights_only=True)
     shards = [torch.load(os.path.join(path, _env_file(r)), map_location="cpu", weights_only=True)
               for r in range(state["world"])]
@@ -92,5 +93,5 @@ def restore(path: str, ts, generator: torch.Generator, mesh=None):
     o = state["opt_state"]
     on = lambda d: {k: v.to(device) for k, v in d.items()}
     opt_state = AdamState(o["count"].to(device), on(o["mu"]), on(o["nu"]))
-    generator.set_state(state["generator"])
-    return type(ts)(ts.params, opt_state, state["update_idx"]), env_state, state["step"]
+    return (type(ts)(ts.params, opt_state, state["update_idx"]), env_state,
+            state["key"].to(device), state["step"])

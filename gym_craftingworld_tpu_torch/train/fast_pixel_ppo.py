@@ -15,9 +15,11 @@ surrogate, block-shuffled minibatches) with two changes:
   dense layer, f32 heads.
 
 What the port does differently, as in ``train/fast_ppo.py``: draws come from
-an explicit ``torch.Generator`` and the pure functions take them as
-arguments (``u`` Gumbel uniforms, ``perms`` epoch permutations of the
-minibatch blocks); the collect steps through the fused actions kernel at
+JAX's key chain bit for bit (``split(key, 4)`` a step: the pool of
+``fresh_packed_batch``, the Gumbel uniforms, the epoch permutations;
+``split(key, 5)`` for the conv init, whose normals are within a few ulp),
+and the pure functions take them as arguments (``u`` Gumbel uniforms,
+``perms`` epoch permutations of the minibatch blocks); the collect steps through the fused actions kernel at
 T = 1 (``ops/packed_fused.rollout_packed_actions``: the kernel on the card,
 its plain version on the CPU); the optimizer is the hand-written clip + Adam
 on the ``ConvParams`` tensors; the gradient is autograd of ``_pixel_loss``;
@@ -25,7 +27,8 @@ on the card the collect's forward runs in chunks of ``POLICY_CHUNK`` rows,
 so that its columns do not depend on the batch's width, replayed from a CUDA
 graph so that the chunks cost the host one replay.
 Under a ``mesh`` a rank steps its own columns and computes the unsharded
-step's function, as ``train/fast_ppo.py`` says: whole-batch draws, shuffle
+step's function, as ``train/fast_ppo.py`` says: the whole pool and
+permutations and its own columns of the uniforms, shuffle
 blocks of ``BLK`` rows that lie on one rank, advantages normalised over the
 whole minibatch, each rank's autograd of its rows' share of the means, and
 one ``all_reduce`` of the gradients and loss terms a minibatch.
@@ -33,7 +36,6 @@ one ``all_reduce`` of the gradients and loss terms a minibatch.
 
 from __future__ import annotations
 
-import math
 from typing import NamedTuple
 
 import torch
@@ -42,6 +44,7 @@ from torch import nn
 from gym_craftingworld_tpu_torch import constants as C
 from gym_craftingworld_tpu_torch.config import EnvConfig
 from gym_craftingworld_tpu_torch.models.layers import conv_nhwc
+from gym_craftingworld_tpu_torch.ops import keyed_draws as kd
 from gym_craftingworld_tpu_torch.ops.fused_update import normalize_adv
 from gym_craftingworld_tpu_torch.ops.packed_fused import rollout_packed_actions
 from gym_craftingworld_tpu_torch.ops.packed_rollout import PackedState
@@ -55,8 +58,10 @@ from gym_craftingworld_tpu_torch.train.fast_ppo import (
     _window,
     apply_updates,
     check_blocks,
+    epoch_perms,
     fresh_packed_batch,
     gumbel_uniforms,
+    he_normal,
     make_optimizer,
     rollout_metrics,
     shard_mean,
@@ -181,19 +186,18 @@ def _flat_dim(cfg: EnvConfig, ppo: PixelPPOConfig) -> int:
     return h * w * ppo.conv2
 
 
-def init_pixel_params(generator: torch.Generator, cfg: EnvConfig,
-                      ppo: PixelPPOConfig) -> ConvParams:
-    """He-normal weights drawn from ``generator``, zero biases, on its device."""
+def init_pixel_params(key: torch.Tensor, cfg: EnvConfig, ppo: PixelPPOConfig) -> ConvParams:
+    """He-normal weights from ``split(key, 5)`` as JAX's
+    ``init_pixel_params``, zero biases, on the key's device."""
     flat = _flat_dim(cfg, ppo)
-    p = ConvParams(ppo.conv1, ppo.conv2, flat, ppo.hidden, device=generator.device)
-    he = lambda shp, fan: torch.randn(shp, generator=generator,
-                                      device=generator.device) * math.sqrt(2.0 / fan)
+    p = ConvParams(ppo.conv1, ppo.conv2, flat, ppo.hidden, device=key.device)
+    ks = kd.split_keys(key, 5)
     with torch.no_grad():
-        p.k1.copy_(he(p.k1.shape, 9 * C.N_CHANNELS))
-        p.k2.copy_(he(p.k2.shape, 9 * ppo.conv1))
-        p.w1.copy_(he(p.w1.shape, flat + 22))
-        p.wl.copy_(0.01 * he(p.wl.shape, ppo.hidden))
-        p.wv.copy_(he(p.wv.shape, ppo.hidden))
+        p.k1.copy_(he_normal(ks[0], p.k1.shape, 9 * C.N_CHANNELS))
+        p.k2.copy_(he_normal(ks[1], p.k2.shape, 9 * ppo.conv1))
+        p.w1.copy_(he_normal(ks[2], p.w1.shape, flat + 22))
+        p.wl.copy_(0.01 * he_normal(ks[3], p.wl.shape, ppo.hidden))
+        p.wv.copy_(he_normal(ks[4], p.wv.shape, ppo.hidden))
     return p
 
 
@@ -257,9 +261,9 @@ class _PTraj(NamedTuple):
     raw_reward: torch.Tensor  # int32[T, B] (reference scale, for metrics)
 
 
-def init_pixel_train_state(generator: torch.Generator, cfg: EnvConfig,
+def init_pixel_train_state(key: torch.Tensor, cfg: EnvConfig,
                            ppo: PixelPPOConfig) -> PixelTrainState:
-    params = init_pixel_params(generator, cfg, ppo)
+    params = init_pixel_params(key, cfg, ppo)
     return PixelTrainState(params, make_optimizer(ppo.as_fast).init(params.tensors()), 0)
 
 
@@ -470,10 +474,12 @@ def _update_phase(cfg: EnvConfig, ppo: PixelPPOConfig, ts: PixelTrainState, traj
 
 @torch.no_grad()
 def rollout_phase(cfg: EnvConfig, ppo: PixelPPOConfig, ts: PixelTrainState, env: PackedState,
-                  generator: torch.Generator, mesh=None):
+                  key: torch.Tensor, mesh=None):
     """The draws, the collect and GAE of one iteration; (env, (traj, adv,
-    ret, perms)). Draws as ``train/fast_ppo.rollout_phase`` takes them, the
-    pool from ``fresh_packed_batch``."""
+    ret, perms), next key). ``key, k_pool, k_roll, k_perm = split(key, 4)``
+    as JAX's ``train_step_pixel``; the pool is ``fresh_packed_batch(k_pool,
+    2B)``, the uniforms and permutations as ``train/fast_ppo.rollout_phase``
+    draws them."""
     T, Bl = ppo.rollout_steps, env.agent_r.shape[-1]
     B = Bl if mesh is None else Bl * mesh.size
     if (T * B) % (BLK * ppo.num_minibatches):
@@ -481,38 +487,36 @@ def rollout_phase(cfg: EnvConfig, ppo: PixelPPOConfig, ts: PixelTrainState, env:
                          f"{BLK}*num_minibatches")
     check_blocks(Bl, BLK, mesh)
     NB = T * B // BLK
-    pool = fresh_packed_batch(cfg, generator, 2 * B)
-    u = gumbel_uniforms(generator, (T, C.N_ACTIONS, B))
-    if mesh is not None:
-        u = u[..., mesh.cols(B)]
+    key, k_pool, k_roll, k_perm = kd.split_keys(key, 4)
+    pool = fresh_packed_batch(cfg, k_pool, 2 * B)
+    u = gumbel_uniforms(k_roll, T, B, slice(None) if mesh is None else mesh.cols(B))
     env, traj = _collect_pixel(cfg, ppo, ts.params, env, pool, u, mesh)
     _, last_value = _policy_tb(ts.params, cfg, env, ppo.stride1)
     adv, ret = _gae(ppo.as_fast, traj, last_value)
-    perms = torch.stack([torch.randperm(NB, generator=generator, device=generator.device)
-                         for _ in range(ppo.update_epochs)])
-    return env, (traj, adv, ret, perms)
+    perms = epoch_perms(k_perm, ppo.update_epochs, NB)
+    return env, (traj, adv, ret, perms), key
 
 
 @torch.no_grad()
 def train_step_pixel(cfg: EnvConfig, ppo: PixelPPOConfig, ts: PixelTrainState,
-                     env: PackedState, generator: torch.Generator, mesh=None):
-    """One PPO iteration of the grid-observation CNN policy; (ts, env,
-    generator, metrics). Every draw comes from ``generator``, on the env's
-    device: the pool of 2B worlds, the Gumbel uniforms, the epoch
-    permutations. Under a ``mesh`` ``env`` is this rank's columns
+                     env: PackedState, key: torch.Tensor, mesh=None):
+    """One PPO iteration of the grid-observation CNN policy; (ts, env, key,
+    metrics). ``key`` is JAX's key data int64[2] on the env's device; every
+    draw comes from it as in JAX, and the next key is returned. Under a
+    ``mesh`` ``env`` is this rank's columns
     (``parallel/sharded_engine.pixel_train_step_sharded``)."""
-    env, (traj, adv, ret, perms) = rollout_phase(cfg, ppo, ts, env, generator, mesh)
+    env, (traj, adv, ret, perms), key = rollout_phase(cfg, ppo, ts, env, key, mesh)
     params, opt_state, losses, auxes = _update_phase(cfg, ppo, ts, traj, adv, ret, perms, mesh)
     metrics = rollout_metrics(cfg, traj, losses, auxes, mesh)
-    return PixelTrainState(params, opt_state, ts.update_idx + 1), env, generator, metrics
+    return PixelTrainState(params, opt_state, ts.update_idx + 1), env, key, metrics
 
 
 def train_many_pixel(cfg: EnvConfig, ppo: PixelPPOConfig, ts: PixelTrainState,
-                     env: PackedState, num_updates: int, generator: torch.Generator):
-    """``num_updates`` PPO iterations; metrics stacked [num_updates]."""
+                     env: PackedState, num_updates: int, key: torch.Tensor):
+    """``num_updates`` PPO iterations; (ts, env, key, metrics stacked [num_updates])."""
     history = []
     for _ in range(num_updates):
-        ts, env, generator, metrics = train_step_pixel(cfg, ppo, ts, env, generator)
+        ts, env, key, metrics = train_step_pixel(cfg, ppo, ts, env, key)
         history.append(metrics)
     metrics = {k: torch.stack([m[k] for m in history]) for k in history[0]}
-    return ts, env, generator, metrics
+    return ts, env, key, metrics

@@ -8,10 +8,17 @@ the update runs the clipped-surrogate loss over block-shuffled minibatches.
 
 What the port does differently:
 
-* Random draws come from an explicit ``torch.Generator`` on the training
-  device, and the pure functions take their draws explicitly (``u`` for the
-  Gumbel noise, ``perms`` for the epoch shuffles, ``scores``/``k``/``perm``
-  for ``fresh_packed_from_draws``), so tests feed them JAX's draws.
+* Random draws come from JAX's key chain, bit for bit: the step takes key
+  data int64[2] on the training device and splits it as JAX does
+  (``split(key, 4)``: the next key, the pool's, the collect's, the
+  permutations'), and every draw below is ``jax.random``'s from those keys
+  (``ops/keyed_draws.py``: the counter kernel on the card, ``ops/threefry``
+  on the CPU). The keys never leave the device. The pool kernel's own
+  in-kernel Philox stream stays the port's (JAX's is the TPU's hardware
+  generator): its two seeds are JAX's ``randint`` draws. The pure functions
+  still take their draws explicitly (``u`` for the Gumbel noise, ``perms``
+  for the epoch shuffles, ``scores``/``k``/``perm`` for
+  ``fresh_packed_from_draws``), so tests can feed them JAX's draws.
 * The collect steps each env through the fused actions kernel with T = 1
   (``ops/packed_fused.rollout_packed_actions``), which computes
   ``_step_p_unrolled`` in one launch instead of ~150 small ones.
@@ -28,14 +35,17 @@ What the port does differently:
   module it was given.
 * Under a ``mesh`` (``parallel/mesh.py``) each rank steps its own columns
   of the env batch and computes the unsharded step's function: every rank
-  takes the draws at the whole batch's shapes from one generator (the pool
-  of 2B worlds, the Gumbel uniforms, the permutations) and keeps its
-  columns; a shuffle block lies on one rank; each minibatch's advantages
-  are normalised over the whole minibatch (gathered by ``all_reduce``); a
-  rank launches the gradient kernel on its own blocks with the whole
-  minibatch's ``1/n``, and the ranks sum the gradients and loss terms in one
-  ``all_reduce`` before the clip and Adam, which every rank runs alike. Only
-  the order of the gradient sums differs from the unsharded step.
+  holds the same key and splits it alike; it draws the whole pool of 2B
+  worlds (its windows move across every column; over several ranks the
+  keyed ``fresh_packed_batch``, as JAX's sharded step takes it) and the
+  whole permutations, but only its own columns of the Gumbel uniforms (the
+  same values as the whole draw's there); a shuffle block lies on one rank;
+  each minibatch's advantages are normalised over the whole minibatch
+  (gathered by ``all_reduce``); a rank launches the gradient kernel on its
+  own blocks with the whole minibatch's ``1/n``, and the ranks sum the
+  gradients and loss terms in one ``all_reduce`` before the clip and Adam,
+  which every rank runs alike. Only the order of the gradient sums differs
+  from the unsharded step.
 
 Matmuls that JAX runs with ``preferred_element_type=f32`` round their
 operands to bf16 and multiply in f32; TF32 is switched off for them
@@ -56,6 +66,7 @@ from gym_craftingworld_tpu_torch import constants as C
 from gym_craftingworld_tpu_torch.config import EnvConfig
 from gym_craftingworld_tpu_torch.core.reset import ordered_cells, sample_desired
 from gym_craftingworld_tpu_torch.ops import fused_update as fu
+from gym_craftingworld_tpu_torch.ops import keyed_draws as kd
 from gym_craftingworld_tpu_torch.ops.fused_reset import assemble, fresh_packed_fused
 from gym_craftingworld_tpu_torch.ops.packed_fused import rollout_packed_actions
 from gym_craftingworld_tpu_torch.ops.packed_rollout import PackedState
@@ -111,16 +122,15 @@ def fresh_packed_from_draws(cfg: EnvConfig, scores: torch.Tensor, k: torch.Tenso
     return assemble(cfg, torch.cat([idx.T, desired[None]]))
 
 
-def fresh_packed_batch(cfg: EnvConfig, generator: torch.Generator, n: int) -> PackedState:
-    """``n`` fresh worlds, drawn from ``generator`` on its device."""
-    draw = dict(generator=generator, device=generator.device)
-    scores = torch.rand((n, cfg.n_cells), **draw)
-    if cfg.stacking:
-        k = torch.randint(0, cfg.number_of_tasks, (n,), **draw) + 1
-    else:
-        k = torch.ones((n,), dtype=torch.int64, device=generator.device)
-    perm = torch.argsort(torch.rand((n, len(cfg.selected_task_indices)), **draw), dim=1)
-    return fresh_packed_from_draws(cfg, scores, k, perm)
+def fresh_packed_batch(cfg: EnvConfig, key: torch.Tensor, n: int) -> PackedState:
+    """``n`` fresh worlds drawn from key data ``key`` on its device, bit for
+    bit JAX's ``fresh_packed_batch``: ``k_place, k_task = split(key)``, the
+    scores ``uniform(k_place, (n, H*W))`` and ``sample_desired`` over
+    ``split(k_task, n)`` (the reset kernel's tasks mode)."""
+    k_place, k_task = kd.split_keys(key, 2)
+    scores = kd.uniform_cols(k_place, (n, cfg.n_cells))
+    tasks = kd.reset_draws(cfg, kd.split_keys(k_task, n), "tasks")
+    return fresh_packed_from_draws(cfg, scores, tasks.k, tasks.perm)
 
 
 def _pool_take(pool: PackedState, idx: torch.Tensor) -> PackedState:
@@ -199,16 +209,22 @@ class MLPParams(nn.Module):
         return {k: getattr(self, k) for k in PARAM_NAMES}
 
 
-def init_params(generator: torch.Generator, cfg: EnvConfig, fppo: FastPPOConfig) -> MLPParams:
-    """He-normal weights drawn from ``generator``, zero biases, on its device."""
+def he_normal(key: torch.Tensor, shape, fan: int) -> torch.Tensor:
+    """JAX's ``normal(k, shape) * np.sqrt(2.0 / fan)``."""
+    return kd.normal(key, shape) * math.sqrt(2.0 / fan)
+
+
+def init_params(key: torch.Tensor, cfg: EnvConfig, fppo: FastPPOConfig) -> MLPParams:
+    """He-normal weights from ``split(key, 4)`` as JAX's ``init_params``,
+    zero biases, on the key's device."""
     F, H = feature_rows(cfg), fppo.hidden
-    p = MLPParams(F, H, device=generator.device)
-    he = lambda shp, fan: torch.randn(shp, generator=generator, device=generator.device) * math.sqrt(2.0 / fan)
+    p = MLPParams(F, H, device=key.device)
+    k1, k2, k3, k4 = kd.split_keys(key, 4)
     with torch.no_grad():
-        p.w1.copy_(he((H, F), F))
-        p.w2.copy_(he((H, H), H))
-        p.wl.copy_(0.01 * he((C.N_ACTIONS, H), H))
-        p.wv.copy_(he((1, H), H))
+        p.w1.copy_(he_normal(k1, (H, F), F))
+        p.w2.copy_(he_normal(k2, (H, H), H))
+        p.wl.copy_(0.01 * he_normal(k3, (C.N_ACTIONS, H), H))
+        p.wv.copy_(he_normal(k4, (1, H), H))
     return p
 
 
@@ -327,16 +343,26 @@ class _Traj(NamedTuple):
     raw_reward: torch.Tensor  # int32[T, B] (reference scale, for metrics)
 
 
-def init_fast_train_state(generator: torch.Generator, cfg: EnvConfig,
+def init_fast_train_state(key: torch.Tensor, cfg: EnvConfig,
                           fppo: FastPPOConfig) -> FastTrainState:
-    params = init_params(generator, cfg, fppo)
+    params = init_params(key, cfg, fppo)
     return FastTrainState(params, make_optimizer(fppo).init(params.tensors()), 0)
 
 
-def gumbel_uniforms(generator: torch.Generator, shape) -> torch.Tensor:
-    """Uniforms on [1e-7, 1) as ``jax.random.uniform(minval=1e-7, maxval=1)``."""
-    u = torch.rand(shape, generator=generator, device=generator.device)
-    return torch.clamp_min(u * (1.0 - 1e-7) + 1e-7, 1e-7)
+GUMBEL_MIN = 1e-7  # _sample_action's uniform(minval=1e-7, maxval=1)
+
+
+def gumbel_uniforms(k_roll: torch.Tensor, T: int, B: int, cols: slice = slice(None)) -> torch.Tensor:
+    """The collect's uniforms f32[T, 6, len(cols)]: step ``t``'s are columns
+    ``cols`` of ``uniform(split(k_roll, T)[t], (6, B), minval=1e-7,
+    maxval=1)``, JAX's draws bit for bit, in one launch on the card."""
+    return kd.uniform_cols(k_roll, (C.N_ACTIONS, B), cols, GUMBEL_MIN, 1.0, planes=T)
+
+
+def epoch_perms(k_perm: torch.Tensor, epochs: int, n: int) -> torch.Tensor:
+    """``permutation(k_e, n)`` for each ``k_e`` of ``split(k_perm, epochs)``:
+    int32[epochs, n], sorted on the key's device."""
+    return torch.stack([kd.permutation(k, n) for k in kd.split_keys(k_perm, epochs)])
 
 
 def _sample_action(u: torch.Tensor, logits: torch.Tensor):
@@ -591,15 +617,14 @@ def _update_phase(fppo: FastPPOConfig, ts: FastTrainState, traj: _Traj, adv, ret
             {k: stack([a[k] for a in auxes]) for k in auxes[0]})
 
 
-def _fresh_pool(cfg: EnvConfig, generator: torch.Generator, n: int,
+def _fresh_pool(cfg: EnvConfig, key: torch.Tensor, n: int,
                 fused: bool | None = None) -> PackedState:
-    """The auto-reset pool: the pool kernel's wrapper by default (two fresh
-    31-bit seed words, drawn on the device), ``fresh_packed_batch`` when
-    ``fused`` is False."""
+    """The auto-reset pool from ``k_pool``: the pool kernel's wrapper by
+    default, seeded by ``randint(key, (2,), 0, 2**31 - 1)`` as JAX's fused
+    pool is, or JAX's keyed ``fresh_packed_batch`` when ``fused`` is False."""
     if fused is False:
-        return fresh_packed_batch(cfg, generator, n)
-    seeds = torch.randint(0, 2**31 - 1, (2,), generator=generator,
-                          device=generator.device, dtype=torch.int32)
+        return fresh_packed_batch(cfg, key, n)
+    seeds = kd.randint(key, (2,), 0, 2**31 - 1)
     return fresh_packed_fused(cfg, seeds[0], n, seed2=seeds[1])
 
 
@@ -612,14 +637,25 @@ class Rollout(NamedTuple):
     perms: torch.Tensor  # int64[update_epochs, NB], the whole batch's blocks
 
 
+def pool_choice(fused_pool: bool | None, mesh) -> bool | None:
+    """JAX's sharded step draws the keyed ``fresh_packed_batch`` over several
+    ranks (``parallel/sharded_engine.py:83``), the pool kernel otherwise."""
+    if fused_pool is None and mesh is not None and mesh.size > 1:
+        return False
+    return fused_pool
+
+
 @torch.no_grad()
 def rollout_phase(cfg: EnvConfig, fppo: FastPPOConfig, ts: FastTrainState, env: PackedState,
-                  generator: torch.Generator, *, fused_pool: bool | None = None, mesh=None):
-    """The draws, the collect and GAE of one PPO iteration; (env, Rollout).
+                  key: torch.Tensor, *, fused_pool: bool | None = None, mesh=None):
+    """The draws, the collect and GAE of one PPO iteration; (env, Rollout,
+    next key).
 
-    Draws, in order: the pool of 2B worlds, the Gumbel uniforms [T, 6, B],
-    the epoch permutations, all at the whole batch's shapes (under a mesh
-    each rank keeps its columns of the uniforms and windows of the pool).
+    ``key, k_pool, k_roll, k_perm = split(key, 4)`` as JAX's
+    ``train_step_fast``; then the pool of 2B worlds from ``k_pool``, the
+    Gumbel uniforms [T, 6, B] from ``k_roll`` and the epoch permutations from
+    ``k_perm``. Under a mesh a rank draws the whole pool and permutations and
+    its own columns of the uniforms.
     """
     Bl = env.agent_r.shape[-1]
     B = Bl if mesh is None else Bl * mesh.size
@@ -627,16 +663,14 @@ def rollout_phase(cfg: EnvConfig, fppo: FastPPOConfig, ts: FastTrainState, env: 
     BLK = shuffle_block(T, B, fppo.num_minibatches)  # raises if shapes don't tile
     check_blocks(Bl, BLK, mesh)
     NB = T * B // BLK
-    pool = _fresh_pool(cfg, generator, 2 * B, fused=fused_pool)
-    u = gumbel_uniforms(generator, (T, C.N_ACTIONS, B))
-    if mesh is not None:
-        u = u[..., mesh.cols(B)]
+    key, k_pool, k_roll, k_perm = kd.split_keys(key, 4)
+    pool = _fresh_pool(cfg, k_pool, 2 * B, fused=pool_choice(fused_pool, mesh))
+    u = gumbel_uniforms(k_roll, T, B, slice(None) if mesh is None else mesh.cols(B))
     env, traj = _collect(cfg, fppo, ts.params, env, pool, u, mesh)
     _, last_value = apply_policy(ts.params, features(cfg, env))
     adv, ret = _gae(fppo, traj, last_value)
-    perms = torch.stack([torch.randperm(NB, generator=generator, device=generator.device)
-                         for _ in range(fppo.update_epochs)])
-    return env, Rollout(traj, adv, ret, perms)
+    perms = epoch_perms(k_perm, fppo.update_epochs, NB)
+    return env, Rollout(traj, adv, ret, perms), key
 
 
 def rollout_metrics(cfg: EnvConfig, traj, losses, auxes: dict, mesh=None) -> dict:
@@ -661,31 +695,33 @@ def rollout_metrics(cfg: EnvConfig, traj, losses, auxes: dict, mesh=None) -> dic
 
 @torch.no_grad()
 def train_step_fast(cfg: EnvConfig, fppo: FastPPOConfig, ts: FastTrainState,
-                    env: PackedState, generator: torch.Generator, *,
+                    env: PackedState, key: torch.Tensor, *,
                     fused_pool: bool | None = None, fused_update: bool | None = None,
                     mesh=None):
-    """One PPO iteration on the packed engine; (ts, env, generator, metrics).
+    """One PPO iteration on the packed engine; (ts, env, key, metrics).
 
-    Every draw comes from ``generator``, which must live on the env's
-    device. Metrics are 0-dim tensors on that device. Under a ``mesh``
+    ``key`` is JAX's key data, int64[2] on the env's device; every draw
+    comes from it as in JAX, and the next key is returned. Metrics are 0-dim
+    tensors on that device. Under a ``mesh``
     (``parallel/sharded_engine.fast_train_step_sharded``), ``env`` is this
-    rank's columns and every rank ends with the same parameters.
+    rank's columns, every rank holds the same key, and every rank ends with
+    the same parameters.
     """
-    env, r = rollout_phase(cfg, fppo, ts, env, generator, fused_pool=fused_pool, mesh=mesh)
+    env, r, key = rollout_phase(cfg, fppo, ts, env, key, fused_pool=fused_pool, mesh=mesh)
     params, opt_state, losses, auxes = _update_phase(
         fppo, ts, r.traj, r.adv, r.ret, r.perms, use_fused_kernel=fused_update, mesh=mesh)
     metrics = rollout_metrics(cfg, r.traj, losses, auxes, mesh)
-    return FastTrainState(params, opt_state, ts.update_idx + 1), env, generator, metrics
+    return FastTrainState(params, opt_state, ts.update_idx + 1), env, key, metrics
 
 
 def train_many_fast(cfg: EnvConfig, fppo: FastPPOConfig, ts: FastTrainState,
-                    env: PackedState, num_updates: int, generator: torch.Generator, *,
+                    env: PackedState, num_updates: int, key: torch.Tensor, *,
                     fused_pool: bool | None = None, fused_update: bool | None = None):
-    """``num_updates`` PPO iterations; metrics stacked [num_updates]."""
+    """``num_updates`` PPO iterations; (ts, env, key, metrics stacked [num_updates])."""
     history = []
     for _ in range(num_updates):
-        ts, env, generator, metrics = train_step_fast(
-            cfg, fppo, ts, env, generator, fused_pool=fused_pool, fused_update=fused_update)
+        ts, env, key, metrics = train_step_fast(
+            cfg, fppo, ts, env, key, fused_pool=fused_pool, fused_update=fused_update)
         history.append(metrics)
     metrics = {k: torch.stack([m[k] for m in history]) for k in history[0]}
-    return ts, env, generator, metrics
+    return ts, env, key, metrics

@@ -11,18 +11,24 @@ What the port does differently:
 
 * Stepping is the port's batched grid step (``core/step.step``); a done env
   restarts from its own ``rng`` key, as in JAX (``core/rollout.py``).
-* Actions are ``jax.random.categorical``'s Gumbel-argmax over explicit
-  Gumbel noise ``noise`` f32[T, B, 6], and the epoch shuffles are explicit
-  permutations ``perms`` int[update_epochs, T*B], so a test can pass JAX's
-  draws in.
+* The step takes JAX's key data int64[2] on the env's device and draws as
+  JAX does: ``key, k_roll, k_perm = split(key, 3)``, the collect's chain
+  ``k, k_act = split(k)`` a step (advanced on the device by the counter
+  kernel), ``categorical(k_act, logits)`` as the argmax of Gumbel noise plus
+  the logits (the noise's uniforms bit for bit, its logarithms torch's),
+  and ``permutation(k_e, T*B)`` over ``split(k_perm, update_epochs)``, sorted
+  on the device. The pure functions take the noise ``noise`` f32[T, B, 6]
+  and the permutations ``perms`` int[update_epochs, T*B] explicitly, so a
+  test can pass JAX's draws in. The parameters' init stays on a
+  ``torch.Generator`` (flax's truncated-normal ``lecun_normal``).
 * A policy is a ``torch.nn.Module`` holding its parameters (flax's names and
   layouts, ``models/layers.py``); the optimizer is the hand-written clip +
   Adam of ``train/fast_ppo.py`` on its named parameters, applied in place.
 * Under a ``mesh`` (``parallel/mesh.ppo_train_step_sharded``) a rank steps
   its own columns of the batch and computes the unsharded step's function:
   its envs restart from their own keys, so it builds and draws only its own
-  worlds; the noise and the permutations are drawn at the whole batch's
-  shapes and the rank keeps its columns; minibatch row
+  worlds; it draws only its own envs' noise (the whole draw's values
+  there) and the whole permutations; minibatch row
   ``t*B + b`` belongs to rank ``b // (B / world)``; each minibatch's
   advantages are normalised over all its rows; each rank differentiates its
   rows' share of the means, and one ``all_reduce`` a minibatch sums the
@@ -42,6 +48,8 @@ from gym_craftingworld_tpu_torch.core.reset import reset
 from gym_craftingworld_tpu_torch.core.rollout import _select
 from gym_craftingworld_tpu_torch.core.state import EnvState
 from gym_craftingworld_tpu_torch.core.step import step
+from gym_craftingworld_tpu_torch.ops import keyed_draws as kd
+from gym_craftingworld_tpu_torch.ops import threefry as tf
 from gym_craftingworld_tpu_torch.ops.fused_update import normalize_adv
 from gym_craftingworld_tpu_torch.parallel.mesh import sum_over_ranks
 from gym_craftingworld_tpu_torch.render.raster import render_onehot, render_ray
@@ -149,11 +157,28 @@ def init_train_state(generator: torch.Generator, cfg: EnvConfig, ppo: PPOConfig)
     return TrainState(params, make_optimizer(ppo).init(dict(params.named_parameters())), 0)
 
 
-def gumbel(generator: torch.Generator, shape) -> torch.Tensor:
-    """Standard Gumbel noise as ``jax.random.gumbel``: ``-log(-log(u))`` of
-    uniforms on [tiny, 1)."""
-    u = torch.rand(shape, generator=generator, device=generator.device)
-    return -torch.log(-torch.log(torch.clamp_min(u, torch.finfo(f32).tiny)))
+def gumbel_noise(keys: torch.Tensor, B: int, cols: slice = slice(None),
+                 planes: int = 0) -> torch.Tensor:
+    """``jax.random.categorical``'s Gumbel noise f32[T, len(cols), 6] of the
+    envs ``cols`` of a batch of B: ``gumbel(k_t, (B, 6))`` for each key
+    ``k_t`` of ``keys`` [T, 2] or, with ``planes`` T, of ``split(keys, T)``;
+    one launch on the card. Env ``b``'s row is counters ``6b .. 6b + 5``."""
+    r = range(B)[cols]
+    u = kd.uniform_cols(keys, (1, B * C.N_ACTIONS), slice(r.start * C.N_ACTIONS,
+                                                          r.stop * C.N_ACTIONS),
+                        tf.TINY, 1.0, planes=planes)
+    return tf.gumbel_from_uniform(u.reshape(u.shape[0], len(r), C.N_ACTIONS))
+
+
+def collect_noise(k_roll: torch.Tensor, T: int, B: int, cols: slice = slice(None)) -> torch.Tensor:
+    """The collect's noise from ``k_roll``: the chain ``k, k_act = split(k)``
+    a step (the counter kernel's split on the device), then ``gumbel_noise``
+    of the T ``k_act``s."""
+    k, acts = k_roll, []
+    for _ in range(T):
+        k, k_act = kd.split_keys(k, 2)
+        acts.append(k_act)
+    return gumbel_noise(torch.stack(acts), B, cols)
 
 
 def _collect(cfg: EnvConfig, ppo: PPOConfig, apply_fn, params: nn.Module,
@@ -293,34 +318,36 @@ def _update_phase(ppo: PPOConfig, apply_fn, ts: TrainState, traj: Transition, ad
 
 @torch.no_grad()
 def rollout_phase(cfg: EnvConfig, ppo: PPOConfig, ts: TrainState, env_state: EnvState,
-                  generator: torch.Generator, mesh=None):
+                  key: torch.Tensor, mesh=None):
     """The draws, the collect and GAE of one iteration; (env_state, (traj,
-    adv, ret, perms)). ``generator`` draws, in order: the Gumbel noise [T,
-    B, 6] and the epoch permutations, at the whole batch's shapes."""
+    adv, ret, perms), next key). ``key, k_roll, k_perm = split(key, 3)`` as
+    JAX's ``train_step``; the noise [T, B, 6] from ``k_roll``'s chain (under
+    a mesh, the rank's envs only) and the epoch permutations of the whole
+    batch from ``k_perm``."""
     _, apply_fn = make_policy(ppo)
     T, Bl = ppo.rollout_steps, env_state.objects.shape[0]
     B = Bl if mesh is None else Bl * mesh.size
-    noise = gumbel(generator, (T, B, C.N_ACTIONS))
-    if mesh is not None:
-        noise = noise[:, mesh.cols(B)]
+    key, k_roll, k_perm = kd.split_keys(key, 3)
+    noise = collect_noise(k_roll, T, B, slice(None) if mesh is None else mesh.cols(B))
     env_state, traj = _collect(cfg, ppo, apply_fn, ts.params, env_state, noise)
     _, last_value = apply_fn(ts.params, snapshot(env_state))
     adv, ret = _gae(ppo, traj, last_value)
-    perms = torch.stack([torch.randperm(T * B, generator=generator, device=generator.device)
-                         for _ in range(ppo.update_epochs)])
-    return env_state, (traj, adv, ret, perms)
+    perms = fast_ppo.epoch_perms(k_perm, ppo.update_epochs, T * B)
+    return env_state, (traj, adv, ret, perms), key
 
 
 @torch.no_grad()
 def train_step(cfg: EnvConfig, ppo: PPOConfig, ts: TrainState, env_state: EnvState,
-               generator: torch.Generator, mesh=None):
+               key: torch.Tensor, mesh=None):
     """One PPO iteration: rollout -> GAE -> minibatched clipped updates;
-    (ts, env_state, generator, metrics). The auto-reset worlds come from
-    the envs' keys; ``generator``, on the env's device, draws the Gumbel
-    noise and the epoch permutations. Under a ``mesh`` ``env_state`` is this
-    rank's columns and the metrics' sums run over every rank."""
+    (ts, env_state, key, metrics). The auto-reset worlds come from the envs'
+    keys; ``key``, JAX's key data int64[2] on the env's device, draws the
+    noise and the epoch permutations as JAX's ``train_step`` does, and the
+    next key is returned. Under a ``mesh`` ``env_state`` is this rank's
+    columns, every rank holds the same key, and the metrics' sums run over
+    every rank."""
     _, apply_fn = make_policy(ppo)
-    env_state, (traj, adv, ret, perms) = rollout_phase(cfg, ppo, ts, env_state, generator, mesh)
+    env_state, (traj, adv, ret, perms), key = rollout_phase(cfg, ppo, ts, env_state, key, mesh)
     params, opt_state, losses, auxes = _update_phase(ppo, apply_fn, ts, traj, adv, ret, perms,
                                                      mesh)
     T, Bl = traj.action.shape
@@ -336,4 +363,4 @@ def train_step(cfg: EnvConfig, ppo: PPOConfig, ts: TrainState, env_state: EnvSta
         "success_rate": successes / dones.clamp_min(1),
         **{k: v.mean() for k, v in auxes.items()},
     }
-    return TrainState(params, opt_state, ts.update_idx + 1), env_state, generator, metrics
+    return TrainState(params, opt_state, ts.update_idx + 1), env_state, key, metrics

@@ -11,10 +11,14 @@ the feed-forward path (``train/ppo.py``):
 
 What the port does differently, as ``train/ppo.py`` does:
 
-* Actions are ``jax.random.categorical``'s Gumbel-argmax over explicit
-  Gumbel noise ``noise`` f32[T, B, 6], and the epoch shuffles over the env
-  axis are explicit permutations ``perms`` int[update_epochs, B]; both are
-  drawn from the generator unless passed in, so a test can pass JAX's draws.
+* The step takes JAX's key data int64[2] on the env's device and draws as
+  JAX does: ``key, k_roll, k_perm = split(key, 3)``, step ``t``'s
+  ``categorical(split(k_roll, T)[t], logits)`` as the argmax of Gumbel
+  noise ``noise`` f32[T, B, 6] plus the logits (one launch of the counter
+  kernel for the T steps' uniforms), and ``permutation(k_e, B)`` over the
+  env axis for each ``k_e`` of ``split(k_perm, update_epochs)``. Both are
+  drawn from the key unless passed in, so a test can pass JAX's draws. The
+  GRU's init stays on a ``torch.Generator``.
 
 A done env restarts from its own ``rng`` key, as in JAX (``ppo_rnn.py:100``).
 """
@@ -25,7 +29,6 @@ from typing import NamedTuple
 
 import torch
 
-from gym_craftingworld_tpu_torch import constants as C
 from gym_craftingworld_tpu_torch.config import EnvConfig
 from gym_craftingworld_tpu_torch.core.reset import reset
 from gym_craftingworld_tpu_torch.core.rollout import _select
@@ -36,7 +39,14 @@ from gym_craftingworld_tpu_torch.models.rnn import RecurrentActorCritic, init_pa
 from gym_craftingworld_tpu_torch.ops.fused_update import normalize_adv
 from gym_craftingworld_tpu_torch.render.raster import render_onehot
 from gym_craftingworld_tpu_torch.train import fast_ppo
-from gym_craftingworld_tpu_torch.train.ppo import PPOConfig, Snapshot, gumbel, make_optimizer, snapshot
+from gym_craftingworld_tpu_torch.ops import keyed_draws as kd
+from gym_craftingworld_tpu_torch.train.ppo import (
+    PPOConfig,
+    Snapshot,
+    gumbel_noise,
+    make_optimizer,
+    snapshot,
+)
 
 f32 = torch.float32
 
@@ -160,24 +170,25 @@ def _update_phase(ppo: PPOConfig, ts: RnnTrainState, traj: RnnTransition, adv, r
 
 @torch.no_grad()
 def train_step_rnn(cfg: EnvConfig, ppo: PPOConfig, ts: RnnTrainState, env_state: EnvState,
-                   generator: torch.Generator, noise: torch.Tensor | None = None,
+                   key: torch.Tensor, noise: torch.Tensor | None = None,
                    perms: torch.Tensor | None = None):
     """One recurrent PPO iteration: rollout -> GAE -> minibatched sequence
-    updates; (ts, env_state, generator, metrics). The Gumbel ``noise`` f32[T,
-    B, 6] and the env permutations ``perms`` int[update_epochs, B] come from
-    ``generator``, on the env's device, unless they are passed in; the
-    auto-reset worlds come from the envs' keys."""
+    updates; (ts, env_state, key, metrics). ``key`` is JAX's key data
+    int64[2] on the env's device; the Gumbel ``noise`` f32[T, B, 6] and the
+    env permutations ``perms`` int[update_epochs, B] are drawn from it as
+    JAX's ``train_step_rnn`` draws them unless they are passed in, and the
+    next key is returned. The auto-reset worlds come from the envs' keys."""
     T, B = ppo.rollout_steps, env_state.objects.shape[0]
+    key, k_roll, k_perm = kd.split_keys(key, 3)
     if noise is None:
-        noise = gumbel(generator, (T, B, C.N_ACTIONS))
+        noise = gumbel_noise(k_roll, B, planes=T)
     h0 = ts.hidden
     env_state, hidden, prev_done, traj = _collect(cfg, ppo, ts.params, env_state, h0,
                                                   ts.prev_done, noise)
     _, _, last_value = ts.params(hidden, _features(snapshot(env_state)), prev_done)
     adv, ret = fast_ppo._gae(ppo, traj, last_value)  # generalised advantages, f32[T, B]
     if perms is None:
-        perms = torch.stack([torch.randperm(B, generator=generator, device=generator.device)
-                             for _ in range(ppo.update_epochs)])
+        perms = fast_ppo.epoch_perms(k_perm, ppo.update_epochs, B)
     params, opt_state, losses = _update_phase(ppo, ts, traj, adv, ret, h0, perms)
     metrics = {
         "loss": losses.mean(),
@@ -185,4 +196,4 @@ def train_step_rnn(cfg: EnvConfig, ppo: PPOConfig, ts: RnnTrainState, env_state:
         "success_rate": (traj.reward > 0.5).sum() / traj.done.sum().clamp_min(1),
     }
     ts = RnnTrainState(params, opt_state, hidden, prev_done, ts.update_idx + 1)
-    return ts, env_state, generator, metrics
+    return ts, env_state, key, metrics

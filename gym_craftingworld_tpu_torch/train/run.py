@@ -63,6 +63,7 @@ def main(argv=None):
     import torch
 
     from gym_craftingworld_tpu_torch.config import EnvConfig, resolve_selected_tasks
+    from gym_craftingworld_tpu_torch.ops.threefry import prng_key
     from gym_craftingworld_tpu_torch.parallel.mesh import (
         initialize_distributed,
         make_env_mesh,
@@ -90,8 +91,10 @@ def main(argv=None):
                     policy=args.policy)
 
     env_state = reset_sharded(cfg, args.seed, args.envs, mesh)
+    # the flax families' init stays on a generator (flax's truncated normal
+    # is not ported); the step key is JAX's PRNGKey(seed + 1), on the device
     ts = init_train_state(torch.Generator(device=mesh.device).manual_seed(args.seed), cfg, ppo)
-    generator = torch.Generator(device=mesh.device).manual_seed(args.seed + 1)
+    key = prng_key(args.seed + 1, device=mesh.device)
 
     start_u = 0
     if args.resume:
@@ -107,7 +110,7 @@ def main(argv=None):
         if not steps:
             raise SystemExit(f"--resume: no step_* checkpoints in {ckpt_root}")
         path = os.path.join(ckpt_root, f"step_{steps[-1]}")
-        ts, env_state, start_u = checkpoint.restore(path, ts, generator, mesh)
+        ts, env_state, key, start_u = checkpoint.restore(path, ts, mesh.device, mesh)
         if lead:
             print(json.dumps({"resumed_from": path, "update": start_u}), flush=True)
 
@@ -118,7 +121,7 @@ def main(argv=None):
     last_log_t, last_log_u = None, 0
     for u in range(start_u, args.updates):
         with trace("train_step"):
-            ts, env_state, generator, metrics = step(ts, env_state, generator)
+            ts, env_state, key, metrics = step(ts, env_state, key)
         tput.tick(steps_per_update)
         if u % args.log_every == 0 or u == args.updates - 1:
             # the host reads the metrics, which waits for the card: the rate
@@ -141,7 +144,7 @@ def main(argv=None):
             print(json.dumps({"eval": report}), flush=True)
         if args.ckpt_dir and (u + 1) % args.ckpt_every == 0:
             path = os.path.join(os.path.abspath(args.ckpt_dir), f"step_{u + 1}")
-            checkpoint.save(path, ts, env_state, generator, step=u + 1, mesh=mesh)
+            checkpoint.save(path, ts, env_state, key, step=u + 1, mesh=mesh)
             if lead:
                 print(json.dumps({"checkpoint": path}), flush=True)
 

@@ -8,8 +8,9 @@ package's framework-free counter.
 
 The port adds what its tools (``gym_craftingworld_tpu_torch/tools/``) share:
 ``card_identity`` names the card and its power limit, ``timed_runs`` times a
-function with CUDA events (median and spread of n runs after a warm-up), and
-``device_time_ms`` reads a call's device time from ``torch.profiler``;
+function with CUDA events (median and spread of n runs after a warm-up),
+``graph_ms`` times a short call's device work from a CUDA graph of n calls,
+and ``device_time_ms`` reads a call's device time from ``torch.profiler``;
 ``kernel_wrappers`` and ``plain_versions`` name the hand-written kernels'
 wrappers and their plain versions, whose ``launches`` and ``calls`` counters
 ``counted`` reads around a call.
@@ -111,6 +112,34 @@ def timed_runs(fn, device, reps: int = 5, warmup: int = 1) -> dict:
             runs.append(1e3 * (time.perf_counter() - t0))
     return {"median_ms": statistics.median(runs), "min_ms": min(runs), "max_ms": max(runs),
             "runs_ms": runs}
+
+
+def graph_ms(fn, n: int = 20, replays: int = 5) -> float:
+    """Device ms a call of ``fn()`` on the card: ``n`` calls captured in one
+    CUDA graph, replayed ``replays`` times, each between CUDA events; the
+    median replay over ``n``. CUDA events around calls made one by one read
+    the host's pace instead when a call's Python outlasts its kernel."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(replays):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        runs.append(start.elapsed_time(end) / n)
+    return statistics.median(runs)
 
 
 def device_time_ms(fn, reps: int = 10) -> dict:

@@ -175,11 +175,10 @@ def test_collect_prof_variants_from_fast_ppo_s_pieces(monkeypatch):
     same uniforms, so it reaches the same env; ``policyonly`` steps nothing;
     each variant but ``policyonly`` steps every env T times."""
     cfg, fppo = cw.ray_config(), fp.FastPPOConfig(hidden=32, rollout_steps=8)
-    gen = torch.Generator().manual_seed(0)
-    ts = fp.init_fast_train_state(gen, cfg, fppo)
-    env = fp.fresh_packed_batch(cfg, torch.Generator().manual_seed(1), 64)
-    pool = fp._fresh_pool(cfg, torch.Generator().manual_seed(2), 128)
-    u = fp.gumbel_uniforms(gen, (8, 6, 64))
+    ts = fp.init_fast_train_state(prng_key(0), cfg, fppo)
+    env = fp.fresh_packed_batch(cfg, prng_key(1), 64)
+    pool = fp._fresh_pool(cfg, prng_key(2), 128)
+    u = fp.gumbel_uniforms(prng_key(3), 8, 64)
     v = collect_prof.variants(cfg, fppo, ts.params, pool, u)
     assert list(v) == ["full", "nostore", "noreset", "nosample", "policyonly", "steponly"]
     with torch.no_grad():

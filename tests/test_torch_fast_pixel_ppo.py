@@ -25,6 +25,7 @@ from gym_craftingworld_tpu.train import fast_pixel_ppo as jfx
 from gym_craftingworld_tpu.train import fast_ppo as jfp
 from gym_craftingworld_tpu_torch import interop
 from gym_craftingworld_tpu_torch.ops import packed_fused as pf
+from gym_craftingworld_tpu_torch.ops.threefry import prng_key
 from gym_craftingworld_tpu_torch.train import fast_pixel_ppo as fx
 
 from test_torch_fast_ppo import SINGLE, f32, jax_gumbel_uniforms, to_port
@@ -85,8 +86,7 @@ def test_config_and_shapes_equal_jax():
         assert fx.PixelPPOConfig(**ppo._asdict()) == port_ppo(ppo)
         assert port_ppo(ppo).as_fast._asdict() == ppo.as_fast._asdict()
         assert fx._flat_dim(tcfg(cfg), port_ppo(ppo)) == jfx._flat_dim(cfg, ppo)
-        g = torch.Generator().manual_seed(0)
-        got = fx.init_pixel_params(g, tcfg(cfg), port_ppo(ppo))
+        got = fx.init_pixel_params(prng_key(0), tcfg(cfg), port_ppo(ppo))
         want = jfx.init_pixel_params(jax.random.PRNGKey(0), cfg, ppo)
         for k in fx.CONV_NAMES:
             assert tuple(getattr(got, k).shape) == getattr(want, k).shape, k
@@ -304,16 +304,16 @@ def test_collect_replays_jax_step_by_step():
 
 def test_train_many_pixel_equals_sequential_steps():
     """Three updates in ``train_many_pixel`` equal three ``train_step_pixel``
-    calls on the same generator, exactly (as tests/test_fast_pixel_ppo.py
-    holds JAX's); every draw comes from the generator."""
+    calls from the same key, exactly (as tests/test_fast_pixel_ppo.py holds
+    JAX's); every draw comes from the key chain."""
     cfg = tcfg(jcw.flat_config())
     ppo = fx.PixelPPOConfig(rollout_steps=4, num_minibatches=2, update_epochs=1, conv1=8,
                             conv2=8, hidden=32)
     runs = []
     for many in (True, False):
-        g = torch.Generator().manual_seed(7)
+        g = prng_key(7)
         ts = fx.init_pixel_train_state(g, cfg, ppo)
-        env = fx.fresh_packed_batch(cfg, g, 64)
+        env = fx.fresh_packed_batch(cfg, prng_key(8), 64)
         if many:
             ts, env, g, m = fx.train_many_pixel(cfg, ppo, ts, env, 3, g)
         else:
@@ -340,10 +340,10 @@ def test_throughput_preset_trains():
     ppo = fx.PixelPPOConfig.throughput(rollout_steps=8)
     assert (ppo.stride1, ppo.conv1, ppo.conv2, ppo.hidden, ppo.update_epochs,
             ppo.num_minibatches) == (3, 16, 32, 192, 1, 8)
-    g = torch.Generator().manual_seed(0)
+    g = prng_key(0)
     ts = fx.init_pixel_train_state(g, cfg, ppo)
     w0 = ts.params.w1.detach().clone()
-    env = fx.fresh_packed_batch(cfg, g, 128)
+    env = fx.fresh_packed_batch(cfg, prng_key(1), 128)
     ts, env, g, m = fx.train_step_pixel(cfg, ppo, ts, env, g)
     assert ts.update_idx == 1 and int(ts.opt_state.count) == 8
     assert all(np.isfinite(float(v)) for v in m.values())

@@ -23,6 +23,7 @@ from gym_craftingworld_tpu_torch import interop
 from gym_craftingworld_tpu_torch.ops import fused_reset as fr
 from gym_craftingworld_tpu_torch.ops import fused_update as fu
 from gym_craftingworld_tpu_torch.ops import packed_rollout as tpr
+from gym_craftingworld_tpu_torch.ops.threefry import prng_key
 from gym_craftingworld_tpu_torch.train import fast_ppo as fp
 
 from test_torch_packed_rollout import assert_tree_equal, crafting_actions, np_tree, tcfg
@@ -287,9 +288,9 @@ def test_autoreset_pulls_fresh_state():
     cfg = tcfg(jcw.flat_config())  # max_steps 100
     g = torch.Generator().manual_seed(0)
     B = 64
-    env = fp.fresh_packed_batch(cfg, g, B)
+    env = fp.fresh_packed_batch(cfg, prng_key(0), B)
     env = env._replace(step_num=torch.full((B,), cfg.max_steps - 1, dtype=torch.int16))
-    pool = fp.fresh_packed_batch(cfg, g, 128)
+    pool = fp.fresh_packed_batch(cfg, prng_key(1), 128)
     st, res = tpr._step_p(cfg, env, torch.zeros((B,), dtype=torch.int16))
     assert bool(res.done.all())
     idx = torch.randint(0, 128, (B,), generator=g)
@@ -305,13 +306,12 @@ def test_autoreset_pulls_fresh_state():
 def test_train_step_fast_runs_and_updates(fused):
     cfg = tcfg(jcw.ray_config())
     fppo = fp.FastPPOConfig(rollout_steps=8, num_minibatches=2, update_epochs=1, hidden=64)
-    g = torch.Generator().manual_seed(0)
-    env = fp.fresh_packed_batch(cfg, g, 128)
-    ts = fp.init_fast_train_state(g, cfg, fppo)
+    env = fp.fresh_packed_batch(cfg, prng_key(1), 128)
+    ts = fp.init_fast_train_state(prng_key(0), cfg, fppo)
     w0 = ts.params.w1.detach().clone()
     pool_calls, grad_calls = fr.fresh_packed_plain.calls, fu.ppo_grads_plain.calls
-    ts, env, g, metrics = fp.train_step_fast(cfg, fppo, ts, env, g,
-                                             fused_pool=fused, fused_update=fused)
+    ts, env, key, metrics = fp.train_step_fast(cfg, fppo, ts, env, prng_key(2),
+                                               fused_pool=fused, fused_update=fused)
     # the default path runs the kernels' wrappers: their plain versions here
     assert fr.fresh_packed_plain.calls - pool_calls == (fused is None)
     assert fu.ppo_grads_plain.calls - grad_calls == (2 if fused is None else 0)
@@ -327,10 +327,9 @@ def test_throughput_preset_trains():
     cfg = tcfg(SINGLE)
     fppo = fp.FastPPOConfig.throughput(rollout_steps=8, num_minibatches=2, hidden=48)
     assert fppo.update_epochs == 1 and fp.FastPPOConfig.throughput().hidden == 384
-    g = torch.Generator().manual_seed(0)
-    ts = fp.init_fast_train_state(g, cfg, fppo)
-    env = fp.fresh_packed_batch(cfg, g, 256)
-    ts, env, g, m = fp.train_step_fast(cfg, fppo, ts, env, g)
+    ts = fp.init_fast_train_state(prng_key(0), cfg, fppo)
+    env = fp.fresh_packed_batch(cfg, prng_key(1), 256)
+    ts, env, key, m = fp.train_step_fast(cfg, fppo, ts, env, prng_key(2))
     assert np.isfinite(float(m["loss"]))
 
 
@@ -350,10 +349,9 @@ def test_fast_ppo_learns_single_task():
     cfg = tcfg(SINGLE)
     fppo = fp.FastPPOConfig(rollout_steps=32, num_minibatches=4, update_epochs=2,
                             hidden=128, lr=1e-3, ent_coef=0.003)
-    g = torch.Generator().manual_seed(0)
-    env = fp.fresh_packed_batch(cfg, g, 512)
-    ts = fp.init_fast_train_state(g, cfg, fppo)
-    ts, env, g, m = fp.train_many_fast(cfg, fppo, ts, env, 64, g)
+    env = fp.fresh_packed_batch(cfg, prng_key(1), 512)
+    ts = fp.init_fast_train_state(prng_key(0), cfg, fppo)
+    ts, env, key, m = fp.train_many_fast(cfg, fppo, ts, env, 64, prng_key(2))
     rm, sps = m["reward_mean"].numpy(), m["success_per_step"].numpy()
     assert rm.shape == (64,) and np.isfinite(rm).all()
     early, late = rm[:16].mean(), rm[-16:].mean()

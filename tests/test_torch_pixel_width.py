@@ -18,6 +18,7 @@ import torch
 
 import gym_craftingworld_tpu as jcw
 from gym_craftingworld_tpu.train import fast_pixel_ppo as jfx
+from gym_craftingworld_tpu_torch.ops.threefry import prng_key
 from gym_craftingworld_tpu_torch.train import fast_pixel_ppo as fx
 
 from test_torch_fast_pixel_ppo import (
@@ -47,7 +48,7 @@ def test_chunked_policy_is_width_independent(preset):
     the same columns computed as two halves and as a ragged 200 + 56 (each
     part's last chunk zero-padded)."""
     cfg, ppo = jcw.ray_config(), port_ppo(PRESETS[preset])
-    params = fx.init_pixel_params(torch.Generator().manual_seed(4), tcfg(cfg), ppo)
+    params = fx.init_pixel_params(prng_key(4), tcfg(cfg), ppo)
     st = to_port(random_packed(cfg, 6, 256))
     with torch.no_grad():
         policy = lambda s: fx._policy_tb(params, tcfg(cfg), s, ppo.stride1, chunk=CHUNK)
@@ -80,7 +81,7 @@ def test_chunked_forward_pads_a_narrow_batch(monkeypatch):
     """A batch narrower than one chunk is one call of the chunk's width (zero
     rows padded), and its rows are the unchunked forward's."""
     cfg, ppo = jcw.flat_config(), port_ppo(PRESETS["throughput"])
-    params = fx.init_pixel_params(torch.Generator().manual_seed(1), tcfg(cfg), ppo)
+    params = fx.init_pixel_params(prng_key(1), tcfg(cfg), ppo)
     grid, bits = fx.render_grid_obs(tcfg(cfg), to_port(random_packed(cfg, 2, 10)))
     seen, real = [], fx.apply_pixel_policy
 

@@ -197,7 +197,7 @@ def test_train_step_runs_and_updates(policy):
     before = {k: p.detach().clone() for k, p in ts.params.named_parameters()}
     st = treset(cfg, split_keys(prng_key(0), 32))
     calls = pf.rollout_packed_actions_plain.calls
-    ts, st, g, m = tppo.train_step(cfg, tp, ts, st, g)
+    ts, st, key, m = tppo.train_step(cfg, tp, ts, st, prng_key(1))
     assert pf.rollout_packed_actions_plain.calls == calls  # the grid step, no kernel
     assert ts.update_idx == 1 and int(ts.opt_state.count) == 4
     assert set(m) == {"loss", "reward_mean", "episode_done_frac", "success_rate", "pg_loss",

@@ -4,7 +4,7 @@ Counterpart of ``tests/test_resume.py``: ``python -m
 gym_craftingworld_tpu_torch.train.run --device cpu`` is SIGKILLed right
 after it writes its update-2 checkpoint, resumed in a fresh process, and
 every metric of updates 2-3 must equal the uninterrupted run's bit for bit.
-Also: a checkpoint round trip with the generator's state, a JAX
+Also: a checkpoint round trip with the key data, a JAX
 ``TrainState`` carried across by ``interop.ppo_train_state_from_numpy``
 giving JAX's first-update loss, and two ranks of ``torch.distributed.run``
 giving the one-rank run's metrics within the tolerance stated below.
@@ -127,26 +127,23 @@ def test_two_ranks_give_the_one_rank_metrics(full, tmp_path):
     # the 2-rank checkpoint resumes in one process: its two env shards are one batch
     ts = tppo.init_train_state(torch.Generator().manual_seed(0), tcfg(jcw.EnvConfig(6, 6, 16)),
                                tppo.PPOConfig(rollout_steps=8, hidden=16))
-    g = torch.Generator()
-    ts, env, step = checkpoint.restore(str(tmp_path / "step_2"), ts, g)
+    ts, env, key, step = checkpoint.restore(str(tmp_path / "step_2"), ts, "cpu")
     assert step == 2 and ts.update_idx == 2 and tuple(env.objects.shape) == (32, 6, 6)
+    assert key.dtype == torch.int64 and tuple(key.shape) == (2,)
 
 
 def test_checkpoint_round_trip(tmp_path):
     cfg = tcfg(jcw.flat_config())
     ppo = tppo.PPOConfig(rollout_steps=4, num_minibatches=2, hidden=16)
-    g = torch.Generator().manual_seed(1)
-    ts = tppo.init_train_state(g, cfg, ppo)
+    ts = tppo.init_train_state(torch.Generator().manual_seed(1), cfg, ppo)
     env = tppo.reset(cfg, split_keys(prng_key(1), 8))
-    ts, env, g, _ = tppo.train_step(cfg, ppo, ts, env, g)
-    checkpoint.save(str(tmp_path / "step_1"), ts, env, g, step=1)
-    nxt = torch.rand(5, generator=g)  # the draws after the checkpoint
+    ts, env, key, _ = tppo.train_step(cfg, ppo, ts, env, prng_key(2))
+    checkpoint.save(str(tmp_path / "step_1"), ts, env, key, step=1)
 
     ts2 = tppo.init_train_state(torch.Generator().manual_seed(9), cfg, ppo)
-    g2 = torch.Generator().manual_seed(9)
-    ts2, env2, step = checkpoint.restore(str(tmp_path / "step_1"), ts2, g2)
+    ts2, env2, key2, step = checkpoint.restore(str(tmp_path / "step_1"), ts2, "cpu")
     assert step == 1 and ts2.update_idx == 1
-    assert torch.equal(torch.rand(5, generator=g2), nxt)
+    assert torch.equal(key2, key)  # the key data the run goes on from
     for k, v in ts.params.state_dict().items():
         assert torch.equal(ts2.params.state_dict()[k], v), k
     assert int(ts2.opt_state.count) == int(ts.opt_state.count)
@@ -156,9 +153,9 @@ def test_checkpoint_round_trip(tmp_path):
     for k, v in interop.env_state_to_numpy(env).items():
         np.testing.assert_array_equal(interop.env_state_to_numpy(env2)[k], v, err_msg=k)
     # packed batches (the fast trainers') round-trip too
-    pk = fp.fresh_packed_batch(cfg, g, 16)
-    checkpoint.save(str(tmp_path / "packed"), ts, pk, g, step=3)
-    _, pk2, _ = checkpoint.restore(str(tmp_path / "packed"), ts2, g2)
+    pk = fp.fresh_packed_batch(cfg, key, 16)
+    checkpoint.save(str(tmp_path / "packed"), ts, pk, key, step=3)
+    _, pk2, _, _ = checkpoint.restore(str(tmp_path / "packed"), ts2, "cpu")
     assert all(torch.equal(a, b) for a, b in zip(pk, pk2))
     # no temporary file is left beside the checkpoint
     assert sorted(os.listdir(tmp_path / "step_1")) == ["env.rank0.pt", "state.pt"]

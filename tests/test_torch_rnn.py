@@ -134,7 +134,7 @@ def test_train_step_rnn_matches_jax():
     perms = np.stack([np.asarray(jax.random.permutation(k, B))
                       for k in jax.random.split(k_perm, p.update_epochs)])
     jts2, jst2, _, jm = jpr.train_step_rnn(CFG, p, jts, st, key)
-    g = torch.Generator().manual_seed(0)
+    g = prng_key(3)  # the same key data; the noise and permutations passed in
     calls = pf.rollout_packed_actions_plain.calls
     tts2, tst2, _, tm = tpr.train_step_rnn(tcfg(CFG), tp, tts, tst, g, torch.as_tensor(noise),
                                            torch.as_tensor(perms))
@@ -159,8 +159,8 @@ def test_train_step_rnn_matches_jax():
 
 
 def test_train_step_rnn_draws_and_resets():
-    """The port's own draws: Gumbel noise and permutations from the
-    generator, auto-reset from the envs' keys (envs started near
+    """The port's own draws: Gumbel noise and permutations from the step's
+    key, auto-reset from the envs' keys (envs started near
     ``max_steps`` finish within T); every kernel changes and the metrics are
     finite."""
     cfg = tcfg(CFG)
@@ -171,11 +171,11 @@ def test_train_step_rnn_draws_and_resets():
     before = {k: v.detach().clone() for k, v in ts.params.named_parameters()}
     st = treset(cfg, split_keys(prng_key(4), 8))
     st.step_num[:] = CFG.max_steps - 2
-    ts, st, g, m = tpr.train_step_rnn(cfg, p, ts, st, g)
+    ts, st, key, m = tpr.train_step_rnn(cfg, p, ts, st, prng_key(5))
     assert bool((st.step_num < 6).all())  # every env restarted within T
     assert set(m) == {"loss", "reward_mean", "success_rate"}
     assert all(np.isfinite(float(x)) for x in m.values())
     after = dict(ts.params.named_parameters())
     assert all(not torch.equal(before[k], after[k]) for k in before if k.endswith("kernel"))
     with pytest.raises(ValueError):
-        tpr.train_step_rnn(cfg, p._replace(num_minibatches=3), ts, st, g)
+        tpr.train_step_rnn(cfg, p._replace(num_minibatches=3), ts, st, key)

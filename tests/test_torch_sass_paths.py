@@ -112,6 +112,49 @@ def test_a_function_without_a_loop(smoke):
     assert p.pro == 2
 
 
+def test_lines_the_launch_decides(smoke, monkeypatch):
+    """``sass_under``: the branches on lines a launch decides take their
+    longer side, each launch its own lines; with ``loop`` False the path is
+    the whole run of a warp that takes no backward branch."""
+    data = {**SOURCE, 3: "      if (key[j] > best) best = key[j];"}
+    monkeypatch.setattr(smoke, "DISASM", [
+        (LOOP, lambda w: data[w[1]] if w[0].endswith("demo.cu") else "")])
+    p = smoke.sass_under("demo", smoke.NO_LINE)
+    assert (p.pro, p.body, p.epi) == (2, 4, 2)
+    p = smoke.sass_under("demo", r"key\[j\] > best")
+    assert (p.pro, p.body, p.epi) == (2, 7, 2)
+    # past the early return, the loop's body once, the store and EXIT
+    p = smoke.sass_under("demo", r"b >= B|key\[j\] > best", loop=False)
+    assert (p.pro, p.body, p.epi, p.static_body) == (11, 0, 0, 8)
+    # the early return is a data branch: its shorter side
+    assert smoke.sass_under("demo", smoke.NO_LINE, loop=False).pro == 2
+
+
+def test_bound_of_warps_on_different_paths(smoke, monkeypatch):
+    """``warps_bound_ms``: the instructions and the integer-pipe ones summed
+    over every kind of warp, the larger of all and twice the integer ones;
+    one kind of warp gives ``pipe_bound_ms``."""
+    int_heavy = ["IADD3 R1, R1, 0x1, RZ", "LOP3.LUT R2, R2, R1, RZ, 0x3c, !PT",
+                 "SHF.L.W.U32.HI R3, R2, 0xd, R2"]
+    fma_heavy = ["IMAD R1, R1, R1, RZ", "IMAD.IADD R2, R1, 0x1, R2", "FFMA R3, R3, R3, R3",
+                 "IMAD.MOV.U32 R4, RZ, RZ, R3", "IADD3 R5, R4, R1, RZ"]
+    (a_name, a), = smoke.parse_nvdisasm(listing(int_heavy), lambda w: "").items()
+    (_, b), = smoke.parse_nvdisasm(listing(fma_heavy), lambda w: "").items()
+    monkeypatch.setattr(smoke, "SASS", {a_name: a})
+    monkeypatch.setattr(smoke, "SM_CLOCK_HZ", 1.98e9)
+    per_clock = 132 * 4 * 1.98e9
+    assert smoke.warps_bound_ms([(512, a, 9)]) == pytest.approx(
+        smoke.pipe_bound_ms("pipe", 512, 9), rel=1e-12)
+    n = lambda p, t: p.pro + p.body * t + p.epi
+    for wa, wb in ((512, 64), (64, 512)):
+        issued, integer = wa * n(a, 9) + wb * n(b, 9), wa * a.on_pipe("int", 9) + wb * b.on_pipe("int", 9)
+        assert smoke.warps_bound_ms([(wa, a, 9), (wb, b, 9)]) == pytest.approx(
+            max(issued, 2 * integer) / per_clock * 1e3, rel=1e-12)
+    # the integer-heavy warps alone are bound by their pipe, the mix by issue
+    assert 2 * a.on_pipe("int", 9) > n(a, 9)
+    assert 2 * (64 * a.on_pipe("int", 9) + 512 * b.on_pipe("int", 9)) < 64 * n(a, 9) + 512 * n(b, 9)
+
+
 def listing(body):
     """A canned ``nvdisasm -g`` listing of a kernel whose one loop issues ``body``."""
     ins = ["S2R R0, SR_TID.X"] + [".L_x_0:"] + body + ["@!P0 BRA `(.L_x_0)",

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 import gym_craftingworld_tpu_torch as cw
+from gym_craftingworld_tpu_torch.ops.threefry import prng_key
 from gym_craftingworld_tpu_torch.parallel import mesh as pm
 from gym_craftingworld_tpu_torch.parallel import sharded_engine as se
 from gym_craftingworld_tpu_torch.train import fast_pixel_ppo as fx
@@ -116,11 +117,40 @@ def test_sharded_update_metrics(runs, name):
             assert float(m[k]) == float(want[k]), k
 
 
+@pytest.mark.parametrize("name", TRAINERS)
+def test_sharded_draws_are_the_rank_s_columns(runs, name):
+    """Each rank's per-env draws (the fast trainers' Gumbel uniforms [T, 6,
+    B], ``train/ppo.py``'s noise [T, B, 6]) are its columns of the whole
+    draw, bit for bit, and the rank's rollout phase drew, of the counters,
+    the unsharded phase's less the other rank's columns of those draws: the
+    keys, the pool and the permutations whole, B / W envs' uniforms."""
+    whole, ranks = runs
+    axis = 1 if name == "ppo" else -1
+    want = whole[name]["draws"]
+    assert torch.equal(torch.cat([r[name]["draws"] for r in ranks], dim=axis), want)
+    for r in ranks:
+        assert r[name]["draws"].numel() * len(ranks) == want.numel()
+        assert whole[name]["drawn"] - r[name]["drawn"] == want.numel() - r[name]["draws"].numel()
+
+
+@pytest.mark.parametrize("world", [1, 2, 4])
+def test_fast_ppo_default_pool_follows_jax_s_sharded_step(world):
+    """Fast PPO's default pool under a mesh: the keyed ``fresh_packed_batch``
+    over several ranks (JAX's sharded step, ``parallel/sharded_engine.py``),
+    the pool kernel on one; an explicit ``fused_pool`` is kept. The ranks of
+    ``runs`` take the default and draw the unsharded keyed pool's counters
+    (``test_sharded_draws_are_the_rank_s_columns``)."""
+    mesh = pm.EnvMesh(0, world, torch.device("cpu"))
+    assert fp.pool_choice(None, mesh) is (False if world > 1 else None)
+    assert fp.pool_choice(None, None) is None
+    assert fp.pool_choice(True, mesh) is True and fp.pool_choice(False, mesh) is False
+
+
 @pytest.mark.parametrize("trainer", ["fast", "pixel"])
 def test_sharded_step_raises_unless_blocks_lie_on_one_rank(trainer):
     cfg = cw.flat_config()
     mesh = pm.EnvMesh(0, 2, torch.device("cpu"))  # the raise comes before any collective
-    g = torch.Generator().manual_seed(0)
+    g = prng_key(0)
     env = fp.fresh_packed_batch(cfg, g, 64)  # a rank's 64 envs, blocks of 128 rows
     if trainer == "fast":
         fppo = fp.FastPPOConfig(rollout_steps=16, num_minibatches=2, hidden=32)

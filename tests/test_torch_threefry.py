@@ -20,6 +20,7 @@ import gym_craftingworld_tpu as jcw
 import gym_craftingworld_tpu_torch as tcw
 from gym_craftingworld_tpu_torch.ops import keyed_draws as kd
 from gym_craftingworld_tpu_torch.ops import threefry as tf
+from gym_craftingworld_tpu_torch.train import fast_ppo as fp
 
 torch.set_num_threads(1)
 
@@ -179,3 +180,128 @@ def test_counter_draws_plain_equal_jax():
     assert kd.counter_draws_plain.elements == elements + 16 * 20
     with pytest.raises(ValueError):
         kd.split_keys(tkey, 40, slice(0, 40, 2))
+
+
+# ---------------------------------------------------------------------------
+# the draws the trainers take: uniform(minval, maxval), gumbel, categorical,
+# normal, bits, the column-addressed forms, and the counter kernel's modes
+# ---------------------------------------------------------------------------
+
+RANGES = [(0.0, 1.0), (1e-7, 1.0), (-2.5, 3.7), (tf.TINY, 1.0), (tf.NORMAL_LOW, 1.0)]
+
+
+def ulps(got: torch.Tensor, want) -> float:
+    """The largest difference in ulps of ``max(|want|, 1)`` (float32)."""
+    want = np.asarray(want, np.float32)
+    step = np.spacing(np.maximum(np.abs(want), 1).astype(np.float32))
+    return float((np.abs(got.numpy().astype(np.float64) - want) / step).max())
+
+
+@pytest.mark.parametrize("lo,hi", RANGES)
+def test_uniform_with_bounds_bit_exact(lo, hi):
+    """JAX's ``_uniform``: XLA's CPU backend fuses ``f * span + minval`` into
+    one multiply-add, and the plain version rounds once as it does; the
+    column form gives the same elements."""
+    key, tkey = jax.random.PRNGKey(5), tf.prng_key(5)
+    want = np.asarray(jax.random.uniform(key, (6, 3000), minval=lo, maxval=hi))
+    got = tf.uniform(tkey, (6, 3000), lo, hi)
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy().view(np.int32), want.view(np.int32))
+    idx = torch.arange(3000)[None, 100:900] + 3000 * torch.arange(6)[:, None]
+    np.testing.assert_array_equal(tf.uniform_at(tkey, idx, lo, hi).numpy().view(np.int32),
+                                  want[:, 100:900].view(np.int32))
+
+
+def test_fma_f32_rounds_once():
+    """``fma_f32`` is the float32 nearest the exact ``a * b + c`` (rational
+    arithmetic), ties to even, where a product and a sum rounded apart miss
+    it (fast PPO's ``f * 0.9999999 + 1e-7``)."""
+    from fractions import Fraction
+
+    rng = np.random.default_rng(0)
+    a = rng.random(3000, np.float32)
+    for b, c in ((np.float32(0.9999999), np.float32(1e-7)), (np.float32(6.2), np.float32(-2.5))):
+        got = tf.fma_f32(torch.as_tensor(a), float(b), float(c)).numpy()
+        twice = (a * b) + c
+        assert (twice != got).any()
+        for x, g in zip(a.tolist(), got.tolist()):
+            exact = Fraction(x) * Fraction(float(b)) + Fraction(float(c))
+            g32 = np.float32(g)
+            for nb in (np.nextafter(g32, np.float32(-np.inf)), np.nextafter(g32, np.float32(np.inf))):
+                d, dn = abs(Fraction(float(g32)) - exact), abs(Fraction(float(nb)) - exact)
+                assert d < dn or (d == dn and int(g32.view(np.int32)) % 2 == 0)
+
+
+def test_gumbel_categorical_normal_within_tolerance():
+    """Bits and uniforms are JAX's; ``log`` and ``erfinv`` are torch's.
+    Gumbel within 2 ulps of max(|x|, 1) (measured 1.0 over 6 keys x 24,576
+    draws); normal within 128 ulps (measured 91: torch's ``erfinv`` against
+    XLA's, ~1.1e-5 at |x| <= 1); ``categorical`` takes JAX's index wherever
+    the top two Gumbel scores are further apart than 1e-5 (everywhere here)."""
+    for seed in (0, 1):
+        key, tkey = jax.random.PRNGKey(seed), tf.prng_key(seed)
+        assert ulps(tf.gumbel(tkey, (4096, 6)), jax.random.gumbel(key, (4096, 6))) <= 2
+        assert ulps(tf.normal(tkey, (4096, 8)), jax.random.normal(key, (4096, 8))) <= 128
+        logits = np.random.default_rng(seed).standard_normal((4096, 6)).astype(np.float32)
+        g = np.sort(np.asarray(jax.random.gumbel(key, (4096, 6))) + logits, axis=1)
+        clear = g[:, -1] - g[:, -2] > 1e-5
+        got = tf.categorical(tkey, torch.as_tensor(logits)).numpy()
+        want = np.asarray(jax.random.categorical(key, logits))
+        assert clear.mean() > 0.999 and (got == want)[clear].all()
+
+
+def test_fastmod_magic_is_exact():
+    """The counter kernel's ``n % span`` by a reciprocal (``fastmod_plain``
+    repeats its arithmetic) equals ``%`` for every divisor class: small,
+    around 2**16 and 2**31, the top of uint32, random ones, and dividends at
+    both ends of uint32."""
+    rng = np.random.default_rng(1)
+    ds = [*range(1, 70), 2**16 - 1, 2**16, 2**16 + 1, 2**31 - 1, 2**31, 2**32 - 1,
+          *rng.integers(1, 2**32, 40).tolist()]
+    n = torch.as_tensor(np.concatenate([np.arange(2000), 2**32 - 1 - np.arange(2000),
+                                        rng.integers(0, 2**32, 20000)]))
+    for d in ds:
+        assert torch.equal(kd.fastmod_plain(n, int(d)), n % int(d)), d
+    assert kd.randint_multiplier(6) == (2**16 % 6) ** 2 % 6 and kd.randint_multiplier(2**20) == 0
+
+
+def test_counter_modes_equal_jax():
+    """Each mode of ``counter_draws`` (the kernel's plain version) against
+    ``jax.random``: bits, uniform over plane keys split from a parent or
+    given, fast PPO's uniforms, randint and permutation on the key's device,
+    and a column box equal to those columns of the whole draw."""
+    key, tkey = jax.random.PRNGKey(8), tf.prng_key(8)
+    want = np.asarray(jax.random.bits(key, (5, 40)))
+    got = kd.counter_draws(tkey, "bits", 5, 40, 0, 40)
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+    T, B = 6, 40
+    want = np.stack([np.asarray(jax.random.uniform(k, (6, B), minval=1e-7, maxval=1.0))
+                     for k in jax.random.split(key, T)])
+    for cols in (slice(None), slice(8, 28)):
+        got = fp.gumbel_uniforms(tkey, T, B, cols)
+        np.testing.assert_array_equal(got.numpy().view(np.int32), want[..., cols].view(np.int32))
+    planes = tf.split(tkey, T)
+    got = kd.uniform_cols(planes, (6, B), slice(8, 28), 1e-7, 1.0)
+    np.testing.assert_array_equal(got.numpy().view(np.int32), want[..., 8:28].view(np.int32))
+    same(kd.randint(tkey, (2,), 0, 2**31 - 1), jax.random.randint(key, (2,), 0, 2**31 - 1))
+    for n in (9, 512, 70000):
+        same(kd.permutation(tkey, n), jax.random.permutation(key, n))
+
+
+def test_reset_draws_tasks_mode_equal_jax():
+    """``"tasks"``: ``sample_desired``'s draws of each key itself, as JAX's
+    ``fresh_packed_batch`` takes them over ``split(k_task, n)``."""
+    for cfg in (jcw.ray_config(), dataclasses.replace(jcw.flat_config(), stacking=False)):
+        keys = jax.random.split(jax.random.PRNGKey(2), 50)
+
+        def one(k):
+            k_num, k_perm = jax.random.split(k)
+            num = (jax.random.randint(k_num, (), 0, cfg.number_of_tasks) + 1 if cfg.stacking
+                   else jnp.int32(1))
+            return num, jax.random.permutation(k_perm, len(cfg.selected_task_indices))
+
+        num, perm = jax.vmap(one)(keys)
+        d = kd.reset_draws(tcw.EnvConfig(**dataclasses.asdict(cfg)), np_key(keys), "tasks")
+        same(d.k, num)
+        same(d.perm, perm)
+        assert d.world is None and d.goal is None and d.k_next is None

@@ -170,12 +170,19 @@ def sharded_train_run(mesh) -> dict:
     """Fast PPO, pixel PPO and ``train/ppo.py`` (mlp), one update each over
     ``mesh`` (None: unsharded) from fixed seeds at small shapes: the
     trajectory and final env of the collect, the first minibatch's gradients
-    and loss terms, and the update's metrics. The test process calls it with
-    no mesh for the unsharded run."""
+    and loss terms, the update's metrics, the counters the collect's phase
+    drew (``drawn``) and its per-env draws alone (``draws``: the fast
+    trainers' Gumbel uniforms, ``train/ppo.py``'s noise, this rank's columns).
+    The test process calls it with no mesh for the unsharded run. Fast PPO
+    takes its default pool over the ranks (``fused_pool`` None: the keyed
+    pool, as JAX's sharded step over several ranks) and the keyed pool in
+    the unsharded run."""
     import copy
 
     from gym_craftingworld_tpu_torch import flat_config
     from gym_craftingworld_tpu_torch.core.reset import reset_from_seed
+    from gym_craftingworld_tpu_torch.ops import keyed_draws as kd
+    from gym_craftingworld_tpu_torch.ops.threefry import prng_key
     from gym_craftingworld_tpu_torch.parallel import sharded_engine as se
     from gym_craftingworld_tpu_torch.parallel.mesh import reset_sharded
     from gym_craftingworld_tpu_torch.train import fast_pixel_ppo as fx
@@ -185,33 +192,39 @@ def sharded_train_run(mesh) -> dict:
     cfg = flat_config()
     gen = lambda seed: torch.Generator().manual_seed(seed)
     local = (lambda env: env) if mesh is None else (lambda env: se.shard_packed(env, mesh))
+    cols = (lambda B: slice(None)) if mesh is None else mesh.cols
     res = {}
 
-    def run(name, ts, env, rollout_phase, first_grads, step):
+    def run(name, ts, env, rollout_phase, first_grads, step, draws):
         ts0 = copy.deepcopy(ts)
-        env1, rollout = rollout_phase(copy.deepcopy(ts0), env, gen(3))
+        before = kd.counter_draws_plain.elements
+        env1, rollout, _ = rollout_phase(copy.deepcopy(ts0), env, prng_key(3))
+        drawn = kd.counter_draws_plain.elements - before
         grads, aux = first_grads(ts0, rollout)
-        _, env2, _, metrics = step(ts0, env, gen(3))
+        _, env2, _, metrics = step(ts0, env, prng_key(3))
         res[name] = dict(env=env1, env_step=env2, traj=rollout[0], grads=grads, aux=aux,
-                         metrics=metrics)
+                         metrics=metrics, drawn=drawn, draws=draws())
 
     # fast PPO: 256 envs, T = 8, 2 x 2 minibatches of 128-row blocks
     fppo = fp.FastPPOConfig(rollout_steps=8, num_minibatches=2, hidden=32)
-    run("fast", fp.init_fast_train_state(gen(1), cfg, fppo),
-        local(fp.fresh_packed_batch(cfg, gen(2), 256)),
-        lambda ts, env, g: fp.rollout_phase(cfg, fppo, ts, env, g, mesh=mesh),
+    pool = False if mesh is None else None
+    run("fast", fp.init_fast_train_state(prng_key(1), cfg, fppo),
+        local(fp.fresh_packed_batch(cfg, prng_key(2), 256)),
+        lambda ts, env, k: fp.rollout_phase(cfg, fppo, ts, env, k, fused_pool=pool, mesh=mesh),
         lambda ts, r: fp.minibatch_grads(fppo, ts.params, next(fp.minibatches(
             fppo, r.traj, r.adv, r.ret, r.perms, mesh)), None, mesh),
-        lambda ts, env, g: fp.train_step_fast(cfg, fppo, ts, env, g, mesh=mesh))
+        lambda ts, env, k: fp.train_step_fast(cfg, fppo, ts, env, k, fused_pool=pool, mesh=mesh),
+        lambda: fp.gumbel_uniforms(prng_key(4), 8, 256, cols(256)))
 
     # pixel PPO: 256 envs, T = 4, 2 x 2 minibatches of 128-row blocks
     px = fx.PixelPPOConfig(rollout_steps=4, num_minibatches=2, conv1=8, conv2=8, hidden=32)
-    run("pixel", fx.init_pixel_train_state(gen(1), cfg, px),
-        local(fp.fresh_packed_batch(cfg, gen(2), 256)),
-        lambda ts, env, g: fx.rollout_phase(cfg, px, ts, env, g, mesh),
+    run("pixel", fx.init_pixel_train_state(prng_key(1), cfg, px),
+        local(fp.fresh_packed_batch(cfg, prng_key(2), 256)),
+        lambda ts, env, k: fx.rollout_phase(cfg, px, ts, env, k, mesh),
         lambda ts, r: fx.minibatch_grads(px, ts.params, cfg, *next(fx.minibatches(
             px, *r, mesh)), mesh),
-        lambda ts, env, g: fx.train_step_pixel(cfg, px, ts, env, g, mesh))
+        lambda ts, env, k: fx.train_step_pixel(cfg, px, ts, env, k, mesh),
+        lambda: fp.gumbel_uniforms(prng_key(4), 4, 256, cols(256)))
 
     # train/ppo.py, mlp: 32 envs, T = 8, 2 x 4 minibatches of single rows
     pp = tppo.PPOConfig(rollout_steps=8, hidden=32)
@@ -219,10 +232,11 @@ def sharded_train_run(mesh) -> dict:
            else reset_sharded(cfg, 2, 32, mesh))
     _, apply_fn = tppo.make_policy(pp)
     run("ppo", tppo.init_train_state(gen(1), cfg, pp), env,
-        lambda ts, env, g: tppo.rollout_phase(cfg, pp, ts, env, g, mesh),
+        lambda ts, env, k: tppo.rollout_phase(cfg, pp, ts, env, k, mesh),
         lambda ts, r: tppo.minibatch_grads(pp, apply_fn, ts.params, *next(tppo.minibatches(
             pp, *r, mesh)), mesh),
-        lambda ts, env, g: tppo.train_step(cfg, pp, ts, env, g, mesh))
+        lambda ts, env, k: tppo.train_step(cfg, pp, ts, env, k, mesh),
+        lambda: tppo.collect_noise(prng_key(4), 8, 32, cols(32)))
     return res
 
 
