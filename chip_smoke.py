@@ -452,11 +452,11 @@ def keyed_wrappers() -> dict:
     return {"keyed_reset": kd.reset_draws_kernel, "keyed_counter": kd.counter_draws_kernel}
 
 
-def prng_key(seed: int):
-    """``jax.random.PRNGKey(seed)``'s key data (``ops/threefry.py``)."""
+def prng_key(seed: int, device=None):
+    """``jax.random.PRNGKey(seed)``'s key data (``ops/threefry.py``) on ``device``."""
     from gym_craftingworld_tpu_torch.ops.threefry import prng_key as key
 
-    return key(seed)
+    return key(seed, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -894,7 +894,7 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     tag = f"[{card}]"
-    if "--imitation" in sys.argv[1:]:  # phases 19-20 alone: they launch no kernel
+    if "--imitation" in sys.argv[1:]:  # phases 19-20 alone: the keyed kernels build at first use
         torch.backends.cuda.matmul.allow_tf32 = False
         imitation_phase(cw, dev, tag)
         recurrent_phase(cw, dev, tag)
@@ -2466,22 +2466,23 @@ def policy_families_phase(cw, dev, tag):
         w.launches = 0
     for f in (*plains, kd.counter_draws_plain, kd.reset_draws_plain):
         f.calls = 0
-    gen = torch.Generator(device=dev).manual_seed(18)
     st, _ = cw.rollout_random(cfg, cw.reset_from_seed(cfg, 18, 256, device=dev), prng_key(18), 40)
     host = on_host(st)
-    g = torch.Generator().manual_seed(18)  # drawn on the CPU, carried to the card by interop
+    k18 = prng_key(18, device=dev)  # flax's init on the card, carried to the CPU by interop
     images = lambda s: (cnn.student_images(cfg, s.objects, s.agent, s.holding, s.goal_objects,
                                            s.goal_agent, s.init_objects, s.init_agent),)
     models = {
-        "ActorCritic": (ac.init_params(g), interop.actor_critic_from_numpy,
+        "ActorCritic": (ac.init_params(k18), interop.actor_critic_from_numpy,
                         lambda s: (ac.obs_features(s),)),
-        "PixelActorCritic": (cnn.init_params(g), interop.pixel_actor_critic_from_numpy, cnn.pixel_obs),
-        "PixelDistillStudent": (cnn.init_student(g, cfg), interop.pixel_distill_student_from_numpy,
+        "PixelActorCritic": (cnn.init_params(k18), interop.pixel_actor_critic_from_numpy,
+                             cnn.pixel_obs),
+        "PixelDistillStudent": (cnn.init_student(k18, cfg), interop.pixel_distill_student_from_numpy,
                                 images),
-        "GridActorCritic": (vit.init_params(g), interop.grid_actor_critic_from_numpy, vit.grid_tokens),
+        "GridActorCritic": (vit.init_params(k18), interop.grid_actor_critic_from_numpy,
+                            vit.grid_tokens),
     }
-    for name, (m_host, from_numpy, inputs) in models.items():
-        m_card = from_numpy(interop.flax_params_to_numpy(m_host), device=dev)
+    for name, (m_card, from_numpy, inputs) in models.items():
+        m_host = from_numpy(interop.flax_params_to_numpy(m_card), device="cpu")
         with torch.no_grad():
             card, want = m_card(*inputs(st)), m_host(*inputs(host))
         err = max(float((a.cpu() - b).abs().max()) for a, b in zip(card, want))
@@ -2494,8 +2495,7 @@ def policy_families_phase(cw, dev, tag):
 
     for policy, B in FAMILY_B.items():
         p = ppo.PPOConfig(policy=policy)
-        gen.manual_seed(18)
-        ts = ppo.init_train_state(gen, cfg, p)  # flax's init stays on a generator
+        ts = ppo.init_train_state(k18, cfg, p)  # flax's init from PRNGKey(18), on the card
         before = {k: v.detach().clone() for k, v in ts.params.named_parameters()}
         env = cw.reset_from_seed(cfg, 18, B, device=dev)
         torch.cuda.synchronize()
@@ -2544,7 +2544,7 @@ def policy_families_phase(cw, dev, tag):
           and kd.counter_draws_plain.calls == kd.reset_draws_plain.calls == 0,
           f"the keyed draws ran on their kernels, no plain version: {keyed_launches}")
     print(f"{tag} launch counters over phase 18: {launches}; keyed draws {keyed_launches} "
-          f"(the resets, the key chain, the noise, the permutations)")
+          f"(the inits, the resets, the key chain, the noise, the permutations)")
 
 
 # ---------------------------------------------------------------------------
@@ -2575,6 +2575,16 @@ def zero_counters():
     for f in plains:
         f.calls = 0
     return wrappers, plains
+
+
+def keyed_ran(keyed, plains, what: str) -> None:
+    """Both keyed-draw kernels launched and neither plain version ran
+    (``zero_keyed``'s wrappers and plain versions)."""
+    launches = {k: w.launches for k, w in keyed.items()}
+    calls = {f.__name__: f.calls for f in plains}
+    check(all(n > 0 for n in launches.values()) and not any(calls.values()),
+          f"{what}: the keyed draws ran on their kernels, no plain version: {launches}, {calls}")
+    print(f"{what}: keyed draws {launches}")
 
 
 def no_kernel_ran(wrappers, plains, what: str) -> None:
@@ -2616,12 +2626,14 @@ def imitation_phase(cw, dev, tag):
     from gym_craftingworld_tpu_torch import interop
     from gym_craftingworld_tpu_torch.models import cpv
     from gym_craftingworld_tpu_torch.models import grid_policy as gp
+    from gym_craftingworld_tpu_torch.ops import keyed_draws as kd
     from gym_craftingworld_tpu_torch.train import dagger, demos
 
     t_phase = time.perf_counter()
     cfg = cw.EnvConfig(height=21, width=21, max_steps=300, stacking=True)
     wrappers, plains = zero_counters()
-    gen = torch.Generator(device=dev)
+    keyed, keyed_plains = zero_keyed()
+    k19 = prng_key(19, device=dev)
 
     # ---- snapshot demos ----------------------------------------------------------
     t0 = time.perf_counter()
@@ -2640,7 +2652,6 @@ def imitation_phase(cw, dev, tag):
           "expert_relabel of 256 collected rows reproduces their labels")
 
     # ---- features on the card -----------------------------------------------------
-    gen.manual_seed(19)
     st, _ = cw.rollout_random(cfg, cw.reset_from_seed(cfg, 19, CHECK_B, device=dev), prng_key(19),
                               60)
     cols = gp.snap_columns_from_state(cfg, st)
@@ -2682,23 +2693,22 @@ def imitation_phase(cw, dev, tag):
     n_mb = snaps.num_rows // BC_BATCH
     states = {}
     for name, widths, make, from_numpy in (
-            ("GridPolicy", GRID_WIDTHS, lambda g: gp.init_grid_policy(g, cfg, *GRID_WIDTHS),
+            ("GridPolicy", GRID_WIDTHS, lambda k: gp.init_grid_policy(k, cfg, *GRID_WIDTHS),
              interop.grid_policy_from_numpy),
-            ("CPVGridPolicy", CPV_WIDTHS, lambda g: cpv.init_cpv_grid(g, cfg, *CPV_WIDTHS),
+            ("CPVGridPolicy", CPV_WIDTHS, lambda k: cpv.init_cpv_grid(k, cfg, *CPV_WIDTHS),
              interop.cpv_grid_policy_from_numpy)):
-        gen.manual_seed(19)
-        state = dagger.init_bc_state(make(gen))
+        state = dagger.init_bc_state(make(k19))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
-        ts, hist = dagger.bc_train_snaps(cfg, snaps, gen, state=state, epochs=BC_EPOCHS,
+        ts, hist = dagger.bc_train_snaps(cfg, snaps, k19, state=state, epochs=BC_EPOCHS,
                                          batch_size=BC_BATCH, lr=1e-3)
         torch.cuda.synchronize()
         t_bc = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated(dev)
         check(all(math.isfinite(h["loss"]) for h in hist) and hist[-1]["loss"] < hist[0]["loss"],
               f"{name}: the BC loss falls {hist}")
-        perm1 = torch.randperm(snaps.num_rows, generator=gen, device=dev)[:BC_BATCH]
+        perm1 = kd.permutation(k19, snaps.num_rows)[:BC_BATCH]
         ms_mb = time_ms(lambda: dagger._bc_epoch(cfg, 1e-3, ts, data, perm1, BC_BATCH), reps=3)
         # the card against the CPU on the same parameters
         host_model = from_numpy(interop.flax_params_to_numpy(ts.params), device="cpu")
@@ -2755,7 +2765,7 @@ def imitation_phase(cw, dev, tag):
         setattr(dagger, k, timed(k, saved[k]))
     try:
         t0 = time.perf_counter()
-        ts, dataset, info = dagger.dagger_round(cfg, states["GridPolicy"], snaps, 0, gen,
+        ts, dataset, info = dagger.dagger_round(cfg, states["GridPolicy"], snaps, 0, k19,
                                                 num_episodes=DAGGER_EPISODES,
                                                 max_states=DAGGER_STATES, epochs=1,
                                                 batch_size=BC_BATCH, lr=3e-4)
@@ -2774,6 +2784,8 @@ def imitation_phase(cw, dev, tag):
           f"-> {dataset.num_rows}; rollout success {info['rollout_success']:.4f}; history "
           f"{json.dumps(info['history'])}")
     no_kernel_ran(wrappers, plains, "phase 19: the imitation path")
+    keyed_ran(keyed, keyed_plains,
+              "phase 19: the inits, demos' resets, permutations, evaluation and DAgger")
     print(f"{tag} phase 19 took {time.perf_counter() - t_phase:.1f} s")
 
 
@@ -2788,11 +2800,12 @@ def recurrent_phase(cw, dev, tag):
     t_phase = time.perf_counter()
     cfg = cw.ray_config()
     wrappers, plains = zero_counters()
-    gen = torch.Generator(device=dev).manual_seed(20)
+    keyed, keyed_plains = zero_keyed()
+    gen = torch.Generator(device=dev).manual_seed(20)  # the dones of the GRU's check
 
     # ---- recurrent PPO ------------------------------------------------------------
     p = ppo.PPOConfig()
-    ts = ppo_rnn.init_rnn_train_state(gen, cfg, p, RNN_B)
+    ts = ppo_rnn.init_rnn_train_state(prng_key(20, device=dev), cfg, p, RNN_B)
     before = {k: v.detach().clone() for k, v in ts.params.named_parameters()}
     env = cw.reset_from_seed(cfg, 20, RNN_B, device=dev)
     torch.cuda.synchronize()
@@ -2838,11 +2851,10 @@ def recurrent_phase(cw, dev, tag):
     print(f"{tag} RecurrentActorCritic hidden {p.hidden}, 8 steps with dones at B=256 on 21x21, "
           f"the card vs the CPU on the same parameters (hidden state carried on each): max abs "
           f"{err:.3e}")
-    g = torch.Generator().manual_seed(20)  # drawn on the CPU, carried to the card by interop
-    for with_init in (False, True):
-        m_host = cpv.init_cpv(g, 21, 21, with_init=with_init)
-        m_card = interop.cpv_policy_from_numpy(interop.flax_params_to_numpy(m_host), 21, 21,
-                                               with_init, device=dev)
+    for with_init in (False, True):  # flax's init on the card, carried to the CPU by interop
+        m_card = cpv.init_cpv(prng_key(20, device=dev), 21, 21, with_init=with_init)
+        m_host = interop.cpv_policy_from_numpy(interop.flax_params_to_numpy(m_card), 21, 21,
+                                               with_init, device="cpu")
         feats = ac.obs_features_init if with_init else ac.obs_features
         with torch.no_grad():
             err = card_vs_cpu(f"CPVPolicy with_init={with_init}", m_card(feats(host).to(dev)),
@@ -2857,9 +2869,8 @@ def recurrent_phase(cw, dev, tag):
     t_collect = time.perf_counter() - t0
     check(flat.num_episodes > 0 and flat.features.shape[1] == ac.feature_dim(21, 21),
           f"bc.collect_demos kept {flat.num_episodes} episodes")
-    gen.manual_seed(20)
     t0 = time.perf_counter()
-    model, bm = bc.bc_train(flat, gen, 21, 21, hidden=256, epochs=3)
+    model, bm = bc.bc_train(flat, prng_key(20, device=dev), 21, 21, hidden=256, epochs=3)
     t_train = time.perf_counter() - t0
     check(all(math.isfinite(x) for x in bm["loss"]) and bm["loss"][-1] < bm["loss"][0],
           f"bc_train's loss falls {bm}")
@@ -2873,6 +2884,8 @@ def recurrent_phase(cw, dev, tag):
           f"{bm['accuracy']:.4f}; evaluate_bc {FLAT_EPISODES} episodes {t_eval:.2f} s, {ev} "
           f"(host clock)")
     no_kernel_ran(wrappers, plains, "phase 20: recurrent PPO and the flat families")
+    keyed_ran(keyed, keyed_plains,
+              "phase 20: the inits, the key chain, the resets and bc_train's permutations")
     print(f"{tag} phase 20 took {time.perf_counter() - t_phase:.1f} s")
 
 
@@ -3058,8 +3071,8 @@ def md_ppo_work(cw, dev, mesh, timed: bool) -> dict:
     from gym_craftingworld_tpu_torch.train import ppo as tppo
 
     cfg, out = cw.ray_config(), {}
-    gen = lambda seed: torch.Generator(device=dev).manual_seed(seed)  # flax's init
     pp = tppo.PPOConfig()
+    ts0 = tppo.init_train_state(prng_key(13, device=dev), cfg, pp)  # flax's init, every rank alike
     drawn = lambda: ((kd.reset_draws_kernel.envs + kd.reset_draws_plain.envs),
                      (kd.counter_draws_kernel.elements + kd.counter_draws_plain.elements))
     before = drawn()
@@ -3071,8 +3084,7 @@ def md_ppo_work(cw, dev, mesh, timed: bool) -> dict:
         pstep = pm.ppo_train_step_sharded(cfg, pp, mesh)
     out["ppo_start"] = to_host(env_p)
     after_reset = drawn()
-    pts, env_p, gp, ppo_m = pstep(tppo.init_train_state(gen(13), cfg, pp), env_p,
-                                  prng_key(14).to(dev))
+    pts, env_p, gp, ppo_m = pstep(ts0, env_p, prng_key(14).to(dev))
     out["ppo_drawn"] = dict(reset=[a - b for a, b in zip(after_reset, before)],
                             update=[a - b for a, b in zip(drawn(), after_reset)])
     out["ppo_metrics"] = {k: float(v) for k, v in ppo_m.items()}
@@ -3401,8 +3413,7 @@ def multi_device_phase(cw, dev, tag):
     # the cost of deterministic algorithms, on train/ppo.py's mlp update
     cfg = cw.ray_config(max_steps=100)
     ppo = tppo.PPOConfig()
-    g = torch.Generator(device=dev).manual_seed(0)
-    st = {"ts": tppo.init_train_state(g, cfg, ppo),
+    st = {"ts": tppo.init_train_state(prng_key(0, device=dev), cfg, ppo),
           "env": cw.reset_from_seed(cfg, 0, RUN_ENVS, device=dev), "key": prng_key(1).to(dev)}
 
     def update():
@@ -3743,7 +3754,7 @@ def canonical_tools_phase(cw, dev, tag):
               and tg["n_valid"] == snaps.num_rows + dagger_rows + targeted_rows,
               f"phase 23b: the targeted round appended its relabelled rows: {tg}, {targeted_rows}")
         for name in ("bc", "dagger0", "final", "targeted0", "targeted_final"):
-            model = init_grid_policy(torch.Generator(device=dev), _canonical.CFG, *CANON_WIDTHS)
+            model = init_grid_policy(prng_key(0, device=dev), _canonical.CFG, *CANON_WIDTHS)
             _canonical.load_params(model, run / f"params_{name}.pt")
             check(all(bool(torch.isfinite(p).all()) for p in model.parameters()),
                   f"phase 23b: params_{name}.pt reloads finite")
@@ -3941,7 +3952,7 @@ def distill_phase(cw, dev, tag):
         check(doc["best_checkpoint"] == want,
               f"phase 25a: the best checkpoint is {doc['best_checkpoint']}, want {want}: {curve}")
         if want == "start":
-            start = init_grid_policy(torch.Generator(device=dev).manual_seed(0), cfg,
+            start = init_grid_policy(prng_key(0, device=dev), cfg,
                                      int(FT_ARGS[3]), int(FT_ARGS[5]))
             got = ft["model"].state_dict()
             check(all(torch.equal(v, got[k]) for k, v in start.state_dict().items()),
@@ -3989,7 +4000,7 @@ def distill_phase(cw, dev, tag):
         fh, fw = pd.flip_bits(GRAPH_STEPS, 64, gen)
         runs = []
         for graph in (False, True):
-            student = pd.init_student(torch.Generator(device=dev).manual_seed(9), cfg, 16, 64, 8)
+            student = pd.init_student(prng_key(9, device=dev), cfg, 16, 64, 8)
             opt, loss, acc = pd.student_epoch(cfg, student, pd.init_opt(student), data, perm, 64,
                                               fh, fw, graph=graph)
             runs.append((student, opt, float(loss), float(acc)))
@@ -4235,6 +4246,11 @@ def tools_phase(cw, dev, tag, card):
 
 KEYED_SOURCE = "gym_craftingworld_tpu_torch/csrc/keyed_draws.cu"
 KEYED_DIGESTS = "gym_craftingworld_tpu_torch/tools/records/keyed_digests.json"
+# phase 27d: the card's erfinv (the normal's bound, tests/test_torch_threefry.py)
+# and cuSOLVER's QR of the GRU's 512 x 512 recurrent kernels against the CPU's
+# on the same uniforms; measured on an H100: max 4 ulps, 3.8e-6
+INIT_ULPS = 128
+INIT_ORTHO_ABS = 2e-5
 CW_KEYED_CELLS = 128  # keyed_draws.cu: a reset block's cells
 KEYED_POOL = 256  # pool size of 27a's pool-mode check
 # The keyed kernels' bounds are the two-rate issue bound of the SASS each warp
@@ -4422,7 +4438,7 @@ def keys_phase(cw, dev, tag):
           "the keyed path ran no plain version")
     world_invariants(state, ray)
     sha = lambda a: hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
-    (reset_name, want_reset), (roll_name, want_roll) = digests.items()
+    (reset_name, want_reset), (roll_name, want_roll) = list(digests.items())[:2]
     got_reset = {k: sha(v) for k, v in interop.env_state_to_numpy(state).items()}
     got_roll = {k: sha(v) for k, v in interop.env_state_to_numpy(rolled).items()}
     got_roll.update(reward=sha(out.reward.cpu().numpy()), done=sha(out.done.cpu().numpy()))
@@ -4434,6 +4450,8 @@ def keys_phase(cw, dev, tag):
           f"auto-reset rollout at 4,096 envs on 8x8 (max_steps 10, {int(out.done.sum())} "
           f"restarts) hash to JAX's digests, every field incl. rng; launches {launches}")
     del state, start, rolled, out
+    keyed_init_phase(cw, dev, tag, digests["init"])
+    keyed_imitation_phase(cw, dev, tag, digests["imitation"])
 
     # ---- 27c. times: one call, and a CUDA graph of 20 ------------------------------
     B, n = B_MAIN, ray.n_cells
@@ -4516,6 +4534,169 @@ def keys_phase(cw, dev, tag):
                  bound_ms=b[0], bound_by=b[1], library_ms=None)
             for name, r, b in (("keyed_reset", reset_ms, reset_b),
                                ("keyed_counter", uniform_ms, uniform_b))]
+
+
+def init_families(cw) -> dict:
+    """{digest name: init of a key} of the flax families at the main path's
+    widths: phase 19's grid families, the distillation student, phase 18's
+    three and the GRU of phase 20."""
+    from gym_craftingworld_tpu_torch.models import actor_critic as ac
+    from gym_craftingworld_tpu_torch.models import cnn, cpv, rnn, vit
+    from gym_craftingworld_tpu_torch.models import grid_policy as gp
+
+    canon = cw.EnvConfig(height=21, width=21, max_steps=300, stacking=True)
+    return {
+        "GridPolicy(96, 1536)": lambda k: gp.init_grid_policy(k, canon, 96, 1536),
+        "CPVGridPolicy(96, 1024, 32)": lambda k: cpv.init_cpv_grid(k, canon, 96, 1024, 32),
+        "PixelDistillStudent(64, 96, 1536)": lambda k: cnn.init_student(k, canon, 96, 1536, 64),
+        "ActorCritic(512)": lambda k: ac.init_params(k, 21, 21, 512),
+        "PixelActorCritic(256)": lambda k: cnn.init_params(k, 21, 21, 256),
+        "RecurrentActorCritic(512)": lambda k: rnn.init_params(k, ac.feature_dim(21, 21), 512),
+        "GridActorCritic(512)": lambda k: vit.init_params(k, 21, 21, 512),
+    }
+
+
+def keyed_init_phase(cw, dev, tag, want: dict) -> None:
+    """Phase 27d: each flax family inits on the card at the main path's widths
+    from ``PRNGKey(want["seed"])``: every drawn parameter's key and
+    uniforms hash to JAX's digests (``KEYED_DIGESTS``), its values are the
+    plain version's (the same uniforms through ``from_uniforms`` on the CPU)
+    within ``INIT_ULPS`` (orthogonal kernels within ``INIT_ORTHO_ABS``), and
+    the init launched the counter kernel twice a drawn parameter (its
+    fold-in and its uniforms) and no plain version."""
+    import hashlib
+
+    import numpy as np
+
+    from gym_craftingworld_tpu_torch.models import layers
+    from gym_craftingworld_tpu_torch.models.flax_rng import Rngs
+
+    t_phase = time.perf_counter()
+    families = init_families(cw)
+    check(set(families) == set(want) - {"seed"}, f"27d: the families are the digests' {list(want)}")
+    sha = lambda t: hashlib.sha256(np.ascontiguousarray(t.cpu().numpy()).tobytes()).hexdigest()
+    keyed, plains = zero_keyed()
+    worst_ulps, worst_ortho, total = 0.0, 0.0, {}
+    for name, make in families.items():
+        for w in keyed.values():
+            w.launches = 0
+        log = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = make(Rngs(prng_key(want["seed"], device=dev), log=log))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = {k: w.launches for k, w in keyed.items()}
+        check(launches == {"keyed_reset": 0, "keyed_counter": 2 * len(log)}
+              and not any(f.calls for f in plains),
+              f"27d {name}: the init launched the counter kernel twice a drawn parameter "
+              f"({len(log)}) and no plain version: {launches}")
+        rows = want[name]
+        check(sorted(d.path for d in log) == sorted(rows), f"27d {name}: the drawn parameters "
+              f"are flax's: {sorted(d.path for d in log)}")
+        params = dict(model.named_parameters())
+        n = 0
+        for d in log:
+            row = rows[d.path]
+            check(d.key.device == params[d.path.replace("/", ".")].device
+                  and [int(x) for x in d.key.cpu()] == row["key"]
+                  and d.init == row["init"] and list(d.shape) == row["shape"],
+                  f"27d {name} {d.path}: the key on the card is flax's ({row['key']})")
+            u = layers.init_uniforms(d.key, d.init, d.shape)
+            check(sha(u) == row["uniforms"], f"27d {name} {d.path}: the uniforms on the card "
+                  f"hash to JAX's, bit for bit")
+            got = params[d.path.replace("/", ".")].detach().cpu()
+            plain = layers.from_uniforms(d.init, u.cpu(), d.shape, d.arg)
+            if d.init == "orthogonal":
+                err = float((got - plain).abs().max())
+                worst_ortho = max(worst_ortho, err)
+                check(err <= INIT_ORTHO_ABS, f"27d {name} {d.path}: the card's QR within "
+                      f"{INIT_ORTHO_ABS:g} of the CPU's ({err:.3e})")
+            else:
+                unit = float(np.float32(d.arg)) if d.init == "normal" else float(
+                    np.sqrt(np.float32(1.0 / d.arg)) / np.float32(0.87962566103423978))
+                step = torch.from_numpy(np.spacing(np.maximum(plain.abs().numpy(), unit)
+                                                   .astype(np.float32)))
+                ulps = float(((got.double() - plain.double()).abs() / step).max())
+                worst_ulps = max(worst_ulps, ulps)
+                check(ulps <= INIT_ULPS, f"27d {name} {d.path}: the card's values within "
+                      f"{INIT_ULPS} ulps of the plain version's ({ulps:.0f})")
+            n += got.numel()
+        total[name] = n
+        print(f"{tag} 27d {name}: {len(log)} drawn parameters, {n:,} values, init on the card "
+              f"{ms:.1f} ms (host clock, synced); keys and uniforms == JAX's digests; counter "
+              f"kernel {launches['keyed_counter']} launches")
+        del model, params
+    print(f"{tag} 27d the flax families' init from PRNGKey({want['seed']}): {sum(total.values()):,} "
+          f"values; card vs plain: max {worst_ulps:.0f} ulps (bound {INIT_ULPS}), orthogonal "
+          f"max abs {worst_ortho:.3e} (bound {INIT_ORTHO_ABS:g})")
+    print(f"{tag} phase 27d took {time.perf_counter() - t_phase:.1f} s")
+
+
+def keyed_imitation_phase(cw, dev, tag, want: dict) -> None:
+    """Phase 27e: ``collect_expert_demos`` on the card from JAX's keys hashes
+    to JAX's demos, column for column, and ``collect_policy_states(
+    explore_eps=0.05)``'s exploration draws to JAX's; each launches the
+    keyed kernels as counted and no plain version."""
+    import hashlib
+
+    import numpy as np
+
+    from gym_craftingworld_tpu_torch.models import grid_policy as gp
+    from gym_craftingworld_tpu_torch.train import dagger, demos
+
+    t_phase = time.perf_counter()
+    canon = cw.EnvConfig(height=21, width=21, max_steps=300, stacking=True)
+    sizes = want["sizes"]
+    sha = lambda a: hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+    keyed, plains = zero_keyed()
+    t0 = time.perf_counter()
+    snaps = demos.collect_expert_demos(canon, sizes["demo_episodes"], seed=0, noise_eps=0.05,
+                                       batch=sizes["demo_batch"], device=dev)
+    t_demo = time.perf_counter() - t0
+    n_batches = -(-sizes["demo_episodes"] // sizes["demo_batch"])
+    launches = {k: w.launches for k, w in keyed.items()}
+    check(launches == {"keyed_reset": n_batches, "keyed_counter": n_batches}
+          and not any(f.calls for f in plains),
+          f"27e: the demos' resets launched both keyed kernels once a batch: {launches}")
+    bad = [k for k in demos.SnapDataset._fields
+           if sha(getattr(snaps, k)) != want["demos"][k]]
+    check(not bad, f"27e: collect_expert_demos on the card == JAX's demos; columns that "
+          f"differ: {bad}")
+    print(f"{tag} 27e collect_expert_demos 21x21 stacked, {sizes['demo_episodes']} episodes in "
+          f"batches of {sizes['demo_batch']}: {snaps.num_rows} rows, {snaps.num_episodes} kept, "
+          f"hash to JAX's, column for column; {t_demo:.2f} s (host clock); launches {launches}")
+    model = gp.init_grid_policy(prng_key(0, device=dev), canon, *GRID_WIDTHS)
+    drawn, explore_draws = [], dagger.explore_draws
+
+    def recorded(*args, **kw):
+        out = explore_draws(*args, **kw)
+        drawn.append(out)
+        return out
+
+    keyed, plains = zero_keyed()
+    dagger.explore_draws = recorded
+    try:
+        t0 = time.perf_counter()
+        cols, sr = dagger.collect_policy_states(canon, model, sizes["explore_episodes"],
+                                                seed=sizes["explore_seed"], explore_eps=0.05)
+        t_collect = time.perf_counter() - t0
+    finally:
+        dagger.explore_draws = explore_draws
+    launches = {k: w.launches for k, w in keyed.items()}
+    check(launches == {"keyed_reset": 1, "keyed_counter": 5} and not any(f.calls for f in plains),
+          f"27e: collect_policy_states launched the reset kernel once and the counter kernel 5 "
+          f"times (the resets' keys, then 4 for T={canon.max_steps} steps of exploration), no "
+          f"plain version: {launches}")
+    (u, a), = drawn
+    got = {"uniform": sha(u.cpu().numpy()), "moves": sha(a.cpu().numpy())}
+    check(got == want["explore"], f"27e: the exploration draws on the card == JAX's: {got}")
+    print(f"{tag} 27e collect_policy_states(explore_eps=0.05) GridPolicy{GRID_WIDTHS} untrained, "
+          f"{sizes['explore_episodes']} episodes from seed {sizes['explore_seed']}: exploration "
+          f"draws [{canon.max_steps}, {sizes['explore_episodes']}] hash to JAX's; "
+          f"{len(cols['agent_key'])} states, success {sr:.4f}, {t_collect:.2f} s (host clock); "
+          f"launches {launches}")
+    print(f"{tag} phase 27e took {time.perf_counter() - t_phase:.1f} s")
 
 
 def free_port() -> int:

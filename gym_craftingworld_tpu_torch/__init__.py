@@ -3,8 +3,9 @@
 The JAX package beside this one is the reference; this package imports
 ``torch``, numpy and the standard library only, and mirrors the JAX package's
 module paths and public names. Batched state lives as integer tensors on an
-explicit ``device``, and random draws come from an explicit
-``torch.Generator``.
+explicit ``device``, and random draws come from JAX's key data
+(``ops/threefry``, ``ops/keyed_draws``), bit for bit as ``jax.random`` draws
+them, or, in the tools still queued, from an explicit ``torch.Generator``.
 
 Ported so far:
 

@@ -2,7 +2,7 @@
 
 Counterpart of ``entry()`` in the JAX package's ``__graft_entry__.py``:
 ``entry()`` builds the goal-conditioned actor-critic (``models/actor_critic``)
-at ``ray_config()``, its weights from a generator seeded 0, and 64 worlds
+at ``ray_config()``, its weights flax's init from ``PRNGKey(0)``, and 64 worlds
 from ``reset_from_seed(cfg, 0, 64)``, and returns ``(forward, (model,
 state))``, where ``forward(model, state)`` maps the worlds' features to the
 policy's logits and value. The multi-device dry run, the other half of that
@@ -21,12 +21,13 @@ import torch
 from gym_craftingworld_tpu_torch.config import ray_config
 from gym_craftingworld_tpu_torch.core.reset import reset_from_seed
 from gym_craftingworld_tpu_torch.models.actor_critic import init_params, obs_features
+from gym_craftingworld_tpu_torch.ops.threefry import prng_key
 
 
 def entry(device="cuda"):
     """``(forward, (model, state))`` on ``device``."""
     cfg = ray_config()
-    model = init_params(torch.Generator(device=device).manual_seed(0), cfg.height, cfg.width)
+    model = init_params(prng_key(0, device=device), cfg.height, cfg.width)
     state = reset_from_seed(cfg, 0, 64, device=device)
 
     def forward(model, state):

@@ -14,6 +14,7 @@ from torch import nn
 
 from gym_craftingworld_tpu_torch import constants as C
 from gym_craftingworld_tpu_torch.core.state import EnvState
+from gym_craftingworld_tpu_torch.models.flax_rng import as_rngs, child
 from gym_craftingworld_tpu_torch.models.layers import Dense
 from gym_craftingworld_tpu_torch.render.raster import render_onehot
 
@@ -29,13 +30,14 @@ class ActorCritic(nn.Module):
     """
 
     def __init__(self, in_features: int, hidden: int = 512, n_actions: int = C.N_ACTIONS,
-                 generator: torch.Generator | None = None, device=None):
+                 key=None, device=None):
         super().__init__()
-        kw = dict(generator=generator, device=device)
-        self.torso0 = Dense(in_features, hidden, **kw)
-        self.torso1 = Dense(hidden, hidden // 2, **kw)
-        self.policy = Dense(hidden // 2, n_actions, dtype=f32, **kw)
-        self.value = Dense(hidden // 2, 1, dtype=f32, **kw)
+        rngs = as_rngs(key)
+        self.torso0 = Dense(in_features, hidden, key=child(rngs, "torso0"), device=device)
+        self.torso1 = Dense(hidden, hidden // 2, key=child(rngs, "torso1"), device=device)
+        self.policy = Dense(hidden // 2, n_actions, dtype=f32, key=child(rngs, "policy"),
+                            device=device)
+        self.value = Dense(hidden // 2, 1, dtype=f32, key=child(rngs, "value"), device=device)
 
     def forward(self, obs: torch.Tensor):
         x = torch.relu(self.torso0(obs))
@@ -81,9 +83,8 @@ def feature_dim_init(height: int, width: int) -> int:
     return feature_dim(height, width) + height * width * (C.N_OBJECTS + 1)
 
 
-def init_params(generator: torch.Generator, height: int = 21, width: int = 21,
-                hidden: int = 512) -> ActorCritic:
+def init_params(key, height: int = 21, width: int = 21, hidden: int = 512) -> ActorCritic:
     """An ``ActorCritic`` over ``feature_dim(height, width)`` features, its
-    weights drawn from ``generator`` on the generator's device (flax's
-    initializers). The module holds its parameters."""
-    return ActorCritic(feature_dim(height, width), hidden, generator=generator)
+    weights flax's ``model.init(key, ...)`` from JAX's key data ``key``
+    int64[2], on the key's device. The module holds its parameters."""
+    return ActorCritic(feature_dim(height, width), hidden, key=key)

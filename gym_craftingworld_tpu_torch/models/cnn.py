@@ -17,6 +17,7 @@ from torch import nn
 
 from gym_craftingworld_tpu_torch import constants as C
 from gym_craftingworld_tpu_torch.core.state import EnvState
+from gym_craftingworld_tpu_torch.models.flax_rng import as_rngs, child
 from gym_craftingworld_tpu_torch.models.layers import Conv, Dense
 from gym_craftingworld_tpu_torch.render.raster import render_ray
 
@@ -38,17 +39,17 @@ class PixelActorCritic(nn.Module):
     """
 
     def __init__(self, height: int = 21, width: int = 21, hidden: int = 256,
-                 n_actions: int = C.N_ACTIONS, generator: torch.Generator | None = None,
-                 device=None):
+                 n_actions: int = C.N_ACTIONS, key=None, device=None):
         super().__init__()
-        kw = dict(generator=generator, device=device)
-        self.Conv_0 = Conv(3, 32, (8, 8), (4, 4), **kw)
-        self.Conv_1 = Conv(32, 64, (4, 4), (2, 2), **kw)
-        self.Conv_2 = Conv(64, 64, (3, 3), (1, 1), **kw)
+        rngs = as_rngs(key)
+        kw = lambda name: dict(key=child(rngs, name), device=device)
+        self.Conv_0 = Conv(3, 32, (8, 8), (4, 4), **kw("Conv_0"))
+        self.Conv_1 = Conv(32, 64, (4, 4), (2, 2), **kw("Conv_1"))
+        self.Conv_2 = Conv(64, 64, (3, 3), (1, 1), **kw("Conv_2"))
         h, w = _out(_out(4 * height, 4), 2), _out(_out(4 * width, 4), 2)
-        self.Dense_0 = Dense(h * w * 64 + 2 * C.N_TASKS, hidden, **kw)
-        self.policy = Dense(hidden, n_actions, dtype=f32, **kw)
-        self.value = Dense(hidden, 1, dtype=f32, **kw)
+        self.Dense_0 = Dense(h * w * 64 + 2 * C.N_TASKS, hidden, **kw("Dense_0"))
+        self.policy = Dense(hidden, n_actions, dtype=f32, **kw("policy"))
+        self.value = Dense(hidden, 1, dtype=f32, **kw("value"))
 
     def forward(self, pixels: torch.Tensor, goal_bits: torch.Tensor):
         x = pixels.to(bf16) / 255.0
@@ -67,12 +68,11 @@ def pixel_obs(state: EnvState):
     return pixels, goal_bits
 
 
-def init_params(generator: torch.Generator, height: int = 21, width: int = 21,
-                hidden: int = 256) -> PixelActorCritic:
-    """A ``PixelActorCritic`` for ``height x width`` worlds, its weights drawn
-    from ``generator`` on the generator's device. The module holds its
-    parameters."""
-    return PixelActorCritic(height, width, hidden, generator=generator)
+def init_params(key, height: int = 21, width: int = 21, hidden: int = 256) -> PixelActorCritic:
+    """A ``PixelActorCritic`` for ``height x width`` worlds, its weights
+    flax's ``model.init(key, ...)`` from JAX's key data, on the key's
+    device. The module holds its parameters."""
+    return PixelActorCritic(height, width, hidden, key=key)
 
 
 class PixelDistillStudent(nn.Module):
@@ -89,18 +89,19 @@ class PixelDistillStudent(nn.Module):
 
     def __init__(self, height: int = 21, width: int = 21, channels: int = 96,
                  hidden: int = 1536, stem: int = 64, n_actions: int = C.N_ACTIONS,
-                 generator: torch.Generator | None = None, device=None):
+                 key=None, device=None):
         super().__init__()
-        kw = dict(generator=generator, device=device)
-        self.stem = Conv(9, stem, (4, 4), (4, 4), **kw)
-        self.conv0 = Conv(stem, channels, (3, 3), **kw)
-        self.conv1 = Conv(channels, channels, (3, 3), **kw)
-        self.conv2 = Conv(channels, channels, (3, 3), **kw)
-        self.squeeze = Conv(channels, 32, (1, 1), **kw)
-        self.dense0 = Dense(height * width * 32, hidden, **kw)
-        self.dense1 = Dense(hidden, hidden // 2, **kw)
-        self.policy = Dense(hidden // 2, n_actions, dtype=f32, **kw)
-        self.value = Dense(hidden // 2, 1, dtype=f32, **kw)
+        rngs = as_rngs(key)
+        kw = lambda name: dict(key=child(rngs, name), device=device)
+        self.stem = Conv(9, stem, (4, 4), (4, 4), **kw("stem"))
+        self.conv0 = Conv(stem, channels, (3, 3), **kw("conv0"))
+        self.conv1 = Conv(channels, channels, (3, 3), **kw("conv1"))
+        self.conv2 = Conv(channels, channels, (3, 3), **kw("conv2"))
+        self.squeeze = Conv(channels, 32, (1, 1), **kw("squeeze"))
+        self.dense0 = Dense(height * width * 32, hidden, **kw("dense0"))
+        self.dense1 = Dense(hidden, hidden // 2, **kw("dense1"))
+        self.policy = Dense(hidden // 2, n_actions, dtype=f32, **kw("policy"))
+        self.value = Dense(hidden // 2, 1, dtype=f32, **kw("value"))
 
     def forward(self, images: torch.Tensor):
         x = images.to(bf16) / 255.0
@@ -127,8 +128,7 @@ def student_images(cfg, objects, agent, holding, goal_objects, goal_agent,
     return torch.cat([cur, goal, init], dim=-1)
 
 
-def init_student(generator: torch.Generator, cfg, channels: int = 96, hidden: int = 1536,
+def init_student(key, cfg, channels: int = 96, hidden: int = 1536,
                  stem: int = 64) -> PixelDistillStudent:
-    """A ``PixelDistillStudent`` for ``cfg``'s grid, drawn from ``generator``."""
-    return PixelDistillStudent(cfg.height, cfg.width, channels, hidden, stem,
-                               generator=generator)
+    """A ``PixelDistillStudent`` for ``cfg``'s grid, flax's init from ``key``."""
+    return PixelDistillStudent(cfg.height, cfg.width, channels, hidden, stem, key=key)

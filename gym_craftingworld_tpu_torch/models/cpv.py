@@ -5,7 +5,7 @@ Counterpart of ``gym_craftingworld_tpu/models/cpv.py``, the model family of
 CraftingWorld was published:
 
   * each of the 9 skills owns a learned embedding row ``E[i]``
-    (``task_embed``, drawn from a standard normal);
+    (``task_embed``, drawn from a standard normal, flax's ``normal(1.0)``);
   * the policy is conditioned on the residual plan vector
     ``plan = (desired - achieved) @ E``, an f32 product rounded to bf16
     before it joins the torso, so plan vectors compose additively by
@@ -25,19 +25,11 @@ from gym_craftingworld_tpu_torch import constants as C
 from gym_craftingworld_tpu_torch.config import EnvConfig
 from gym_craftingworld_tpu_torch.models.actor_critic import feature_dim, feature_dim_init
 from gym_craftingworld_tpu_torch.models.grid_policy import GridPolicy
-from gym_craftingworld_tpu_torch.models.layers import Dense
+from gym_craftingworld_tpu_torch.models.flax_rng import as_rngs, child
+from gym_craftingworld_tpu_torch.models.layers import Dense, param
 
 bf16 = torch.bfloat16
 f32 = torch.float32
-
-
-def _task_embed(embed_dim: int, generator: torch.Generator | None, device) -> nn.Parameter:
-    """``nn.initializers.normal(stddev=1.0)`` over [9, embed_dim]; zeros on
-    ``device`` without a generator (a shape to load weights into)."""
-    if generator is None:
-        return nn.Parameter(torch.zeros((C.N_TASKS, embed_dim), dtype=f32, device=device))
-    return nn.Parameter(torch.randn((C.N_TASKS, embed_dim), generator=generator,
-                                    device=generator.device))
 
 
 def _plan(E: torch.Tensor, desired: torch.Tensor, achieved: torch.Tensor) -> torch.Tensor:
@@ -54,19 +46,21 @@ class CPVPolicy(nn.Module):
     """
 
     def __init__(self, height: int, width: int, embed_dim: int = 32, hidden: int = 256,
-                 n_actions: int = C.N_ACTIONS, with_init: bool = False,
-                 generator: torch.Generator | None = None, device=None):
+                 n_actions: int = C.N_ACTIONS, with_init: bool = False, key=None, device=None):
         super().__init__()
         self.height, self.width, self.with_init = height, width, with_init
-        kw = dict(generator=generator, device=device)
+        rngs = as_rngs(key)
+        kw = lambda name: dict(key=child(rngs, name), device=device)
         grid_in = height * width * C.N_CHANNELS
         if with_init:
             grid_in += height * width * (C.N_OBJECTS + 1)
-        self.task_embed = _task_embed(embed_dim, generator, device)
-        self.grid0 = Dense(grid_in, hidden, **kw)
-        self.torso1 = Dense(hidden + embed_dim, hidden // 2, **kw)
-        self.policy = Dense(hidden // 2, n_actions, dtype=f32, **kw)
-        self.value = Dense(hidden // 2, 1, dtype=f32, **kw)
+        # nn.initializers.normal(stddev=1.0), the module's own parameter
+        self.task_embed = param(rngs, "task_embed", (C.N_TASKS, embed_dim), "normal",
+                                device=device)
+        self.grid0 = Dense(grid_in, hidden, **kw("grid0"))
+        self.torso1 = Dense(hidden + embed_dim, hidden // 2, **kw("torso1"))
+        self.policy = Dense(hidden // 2, n_actions, dtype=f32, **kw("policy"))
+        self.value = Dense(hidden // 2, 1, dtype=f32, **kw("value"))
 
     def plan_vector(self, desired, achieved):
         return _plan(self.task_embed, desired, achieved)
@@ -90,10 +84,10 @@ class CPVPolicy(nn.Module):
         return self.policy(x), self.value(x)[:, 0]
 
 
-def init_cpv(generator: torch.Generator, height: int, width: int, embed_dim: int = 32,
-             hidden: int = 256, with_init: bool = False) -> CPVPolicy:
-    """A ``CPVPolicy`` drawn from ``generator`` on the generator's device."""
-    return CPVPolicy(height, width, embed_dim, hidden, with_init=with_init, generator=generator)
+def init_cpv(key, height: int, width: int, embed_dim: int = 32, hidden: int = 256,
+             with_init: bool = False) -> CPVPolicy:
+    """A ``CPVPolicy``, flax's init from JAX's key data ``key``, on its device."""
+    return CPVPolicy(height, width, embed_dim, hidden, with_init=with_init, key=key)
 
 
 class CPVGridPolicy(GridPolicy):
@@ -110,11 +104,12 @@ class CPVGridPolicy(GridPolicy):
     """
 
     def __init__(self, height: int = 21, width: int = 21, channels: int = 64, hidden: int = 1024,
-                 embed_dim: int = 32, n_actions: int = C.N_ACTIONS,
-                 generator: torch.Generator | None = None, device=None):
+                 embed_dim: int = 32, n_actions: int = C.N_ACTIONS, key=None, device=None):
+        rngs = as_rngs(key)
         super().__init__(height, width, channels, hidden, n_actions, in_planes=18,
-                         n_extras=4 + 2 + embed_dim, generator=generator, device=device)
-        self.task_embed = _task_embed(embed_dim, generator, device)
+                         n_extras=4 + 2 + embed_dim, key=rngs, device=device)
+        self.task_embed = param(rngs, "task_embed", (C.N_TASKS, embed_dim), "normal",
+                                device=device)
 
     def forward(self, planes: torch.Tensor, extras: torch.Tensor):
         hold = extras[..., :4].to(bf16)
@@ -124,10 +119,10 @@ class CPVGridPolicy(GridPolicy):
         return self.head(torch.cat([x, hold, rc, plan.to(bf16)], dim=-1))
 
 
-def init_cpv_grid(generator: torch.Generator, cfg: EnvConfig, channels: int = 64,
-                  hidden: int = 1024, embed_dim: int = 32) -> CPVGridPolicy:
-    """A ``CPVGridPolicy`` for ``cfg``'s grid, drawn from ``generator``."""
-    return CPVGridPolicy(cfg.height, cfg.width, channels, hidden, embed_dim, generator=generator)
+def init_cpv_grid(key, cfg: EnvConfig, channels: int = 64, hidden: int = 1024,
+                  embed_dim: int = 32) -> CPVGridPolicy:
+    """A ``CPVGridPolicy`` for ``cfg``'s grid, flax's init from ``key``."""
+    return CPVGridPolicy(cfg.height, cfg.width, channels, hidden, embed_dim, key=key)
 
 
 @torch.no_grad()

@@ -24,6 +24,7 @@ from torch import nn
 from gym_craftingworld_tpu_torch import constants as C
 from gym_craftingworld_tpu_torch.config import EnvConfig
 from gym_craftingworld_tpu_torch.core.state import EnvState
+from gym_craftingworld_tpu_torch.models.flax_rng import as_rngs, child
 from gym_craftingworld_tpu_torch.models.layers import Conv, Dense
 
 bf16 = torch.bfloat16
@@ -150,17 +151,18 @@ class GridPolicy(nn.Module):
 
     def __init__(self, height: int = 21, width: int = 21, channels: int = 64, hidden: int = 1024,
                  n_actions: int = C.N_ACTIONS, in_planes: int = N_PLANES,
-                 n_extras: int = N_EXTRAS, generator: torch.Generator | None = None, device=None):
+                 n_extras: int = N_EXTRAS, key=None, device=None):
         super().__init__()
-        kw = dict(generator=generator, device=device)
-        self.conv0 = Conv(in_planes, channels, (3, 3), **kw)
-        self.conv1 = Conv(channels, channels, (3, 3), **kw)
-        self.conv2 = Conv(channels, channels, (3, 3), **kw)
-        self.squeeze = Conv(channels, 32, (1, 1), **kw)
-        self.dense0 = Dense(height * width * 32 + n_extras, hidden, **kw)
-        self.dense1 = Dense(hidden, hidden // 2, **kw)
-        self.policy = Dense(hidden // 2, n_actions, dtype=f32, **kw)
-        self.value = Dense(hidden // 2, 1, dtype=f32, **kw)
+        rngs = as_rngs(key)
+        kw = lambda name: dict(key=child(rngs, name), device=device)
+        self.conv0 = Conv(in_planes, channels, (3, 3), **kw("conv0"))
+        self.conv1 = Conv(channels, channels, (3, 3), **kw("conv1"))
+        self.conv2 = Conv(channels, channels, (3, 3), **kw("conv2"))
+        self.squeeze = Conv(channels, 32, (1, 1), **kw("squeeze"))
+        self.dense0 = Dense(height * width * 32 + n_extras, hidden, **kw("dense0"))
+        self.dense1 = Dense(hidden, hidden // 2, **kw("dense1"))
+        self.policy = Dense(hidden // 2, n_actions, dtype=f32, **kw("policy"))
+        self.value = Dense(hidden // 2, 1, dtype=f32, **kw("value"))
 
     def torso(self, x: torch.Tensor) -> torch.Tensor:
         """The conv stack, flattened in (h, w, c) order: bf16[B, H*W*32]."""
@@ -178,11 +180,10 @@ class GridPolicy(nn.Module):
         return self.head(torch.cat([x, extras.to(bf16)], dim=-1))
 
 
-def init_grid_policy(generator: torch.Generator, cfg: EnvConfig, channels: int = 64,
-                     hidden: int = 1024) -> GridPolicy:
-    """A ``GridPolicy`` for ``cfg``'s grid, its weights drawn from
-    ``generator`` on the generator's device (flax's initializers)."""
-    return GridPolicy(cfg.height, cfg.width, channels, hidden, generator=generator)
+def init_grid_policy(key, cfg: EnvConfig, channels: int = 64, hidden: int = 1024) -> GridPolicy:
+    """A ``GridPolicy`` for ``cfg``'s grid, its weights flax's
+    ``model.init(key, ...)`` from JAX's key data ``key``, on its device."""
+    return GridPolicy(cfg.height, cfg.width, channels, hidden, key=key)
 
 
 def apply_from_state(model: nn.Module, cfg: EnvConfig, state: EnvState):

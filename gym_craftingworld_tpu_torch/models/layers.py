@@ -22,18 +22,30 @@ HWIO, a dense kernel ``[in, out]``), so a flax parameter tree loads by name
   points are flax's (query scaled by ``1/sqrt(head_dim)`` before the product;
   a softmax whose sum is f32 and the rest bf16).
 
-Parameters are f32 and drawn as flax draws them by default: kernels from
-``lecun_normal`` (a truncated normal of variance ``1/fan_in``), biases zero,
-LayerNorm scales one. The draws come from an explicit ``torch.Generator``.
+Parameters are f32 and drawn as flax draws them, from the same key: each
+layer takes its flax scope (``models/flax_rng.Rngs``, the key of each
+parameter derived from the module path as flax derives it) and draws its
+kernel with ``lecun_normal`` (``jax.random.truncated_normal``'s uniforms,
+bit for bit, then ``sqrt(2) * erfinv``, the clip and the scale), the GRU's
+recurrent kernels with ``orthogonal`` and the embeddings with ``normal``;
+biases are zero and LayerNorm scales one. The uniforms come from the
+counter kernel on the card (``ops/keyed_draws``); ``erfinv`` and the QR are
+torch's, within a few ulps of XLA's (``tests/test_torch_keyed_init.py``).
+Without a scope a layer holds zeros, a shape to load weights into.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from gym_craftingworld_tpu_torch.models.flax_rng import Rngs, child
+from gym_craftingworld_tpu_torch.ops import keyed_draws as kd
+from gym_craftingworld_tpu_torch.ops import threefry as tf
 
 # f32 products must be f32 (flax's dtype=f32 heads), not TF32; bf16 products
 # are summed in f32, as XLA sums them, not in cuBLAS's reduced-precision
@@ -45,22 +57,89 @@ bf16 = torch.bfloat16
 f32 = torch.float32
 # lecun_normal's truncated normal on [-2, 2] has this standard deviation
 _TRUNC_STD = 0.87962566103423978
+# jax.random.truncated_normal(key, -2, 2) draws uniforms on [erf(-2 / sqrt2),
+# erf(2 / sqrt2)], XLA's float32 erf (held to JAX by tests/test_torch_keyed_init.py),
+# and clips to the float32s next inside +-2
+TRUNC_LO, TRUNC_HI = -0.9544997215270996, 0.9544997215270996
+TRUNC_CLIP = float(np.nextafter(np.float32(2.0), np.float32(0.0)))
+INITS = ("truncated_normal", "normal", "orthogonal")
 
 
-def lecun_normal(generator: torch.Generator, shape, fan_in: int) -> torch.Tensor:
-    """flax's default kernel init: a normal truncated to two standard
-    deviations, scaled to variance ``1 / fan_in``, on the generator's device."""
-    x = torch.empty(shape, dtype=f32, device=generator.device)
-    nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    return x * (math.sqrt(1.0 / fan_in) / _TRUNC_STD)
+def _orthogonal_shape(shape) -> tuple:
+    """The normal draw behind ``orthogonal`` of ``shape``: (max, min) of its
+    rows and columns."""
+    n_rows, n_cols = math.prod(shape) // shape[-1], shape[-1]
+    return (max(n_rows, n_cols), min(n_rows, n_cols))
 
 
-def _kernel(shape, fan_in: int, generator: torch.Generator | None, device) -> nn.Parameter:
-    """A kernel drawn by ``lecun_normal`` from ``generator``; zeros on ``device``
-    without one (a shape to load weights into)."""
-    if generator is None:
-        return nn.Parameter(torch.zeros(shape, dtype=f32, device=device))
-    return nn.Parameter(lecun_normal(generator, shape, fan_in))
+def init_uniforms(key: torch.Tensor, init: str, shape) -> torch.Tensor:
+    """The uniforms f32[n] behind a parameter of ``shape`` drawn by ``init``
+    (``INITS``), on the key's device: the truncated normal's on [TRUNC_LO,
+    TRUNC_HI), the normals' on [nextafter(-1, 0), 1)."""
+    n = math.prod(_orthogonal_shape(shape) if init == "orthogonal" else shape)
+    lo, hi = (TRUNC_LO, TRUNC_HI) if init == "truncated_normal" else (tf.NORMAL_LOW, 1.0)
+    return kd.uniform_cols(key, (1, n), minval=lo, maxval=hi)[0]
+
+
+def from_uniforms(init: str, u: torch.Tensor, shape, arg=None) -> torch.Tensor:
+    """A parameter of ``shape`` drawn by ``init`` from its uniforms ``u``
+    (``init_uniforms``), on their device: ``"truncated_normal"``, flax's
+    ``lecun_normal`` of fan-in ``arg`` (``sqrt(2) * erfinv(u)`` clipped
+    inside [-2, 2], times ``sqrt(1 / fan_in) / 0.8796...`` as float32 rounds
+    it); ``"normal"``, ``jax.random.normal`` times the float32 of ``arg``;
+    ``"orthogonal"``, ``jax.random.orthogonal``'s Q of the QR of a normal
+    draw of (max, min) of the rows and columns, its columns' signs those of
+    R's diagonal, transposed where the rows are fewer."""
+    z = tf.normal_from_uniform(u)
+    if init == "truncated_normal":
+        std = np.sqrt(np.float32(1.0 / arg)) / np.float32(_TRUNC_STD)
+        return (torch.clamp(z, -TRUNC_CLIP, TRUNC_CLIP) * float(std)).reshape(shape)
+    if init == "normal":
+        return z.reshape(shape) * float(np.float32(arg))
+    n_rows, n_cols = math.prod(shape) // shape[-1], shape[-1]
+    q, r = torch.linalg.qr(z.reshape(_orthogonal_shape(shape)))
+    q = q * torch.sign(torch.diagonal(r))[None, :]
+    return (q.T if n_rows < n_cols else q).reshape(shape)
+
+
+def lecun_normal(key: torch.Tensor, shape, fan_in: int) -> torch.Tensor:
+    """flax's default kernel init, ``variance_scaling(1, "fan_in",
+    "truncated_normal")``, on the key's device."""
+    return from_uniforms("truncated_normal", init_uniforms(key, "truncated_normal", shape),
+                         shape, fan_in)
+
+
+def normal(key: torch.Tensor, shape, std: float = 1.0) -> torch.Tensor:
+    """flax's ``initializers.normal(std)``, on the key's device."""
+    return from_uniforms("normal", init_uniforms(key, "normal", shape), shape, std)
+
+
+def orthogonal(key: torch.Tensor, shape) -> torch.Tensor:
+    """flax's ``initializers.orthogonal()``, on the key's device."""
+    return from_uniforms("orthogonal", init_uniforms(key, "orthogonal", shape), shape)
+
+
+def param(rngs: Rngs | None, name: str, shape, init: str = "zeros", fan_in: int = 0,
+          std: float = 1.0, device=None) -> nn.Parameter:
+    """Parameter ``name`` of the flax scope ``rngs``, f32: ``"zeros"`` or
+    ``"ones"``, or drawn by ``"lecun_normal"`` (of ``fan_in``), ``"normal"``
+    (of ``std``) or ``"orthogonal"`` from its key. Every parameter takes its
+    count of the scope, as flax's ``param`` does; without a scope, zeros on
+    ``device`` (ones for ``"ones"``)."""
+    if rngs is not None:
+        device = rngs.device
+    if init in ("zeros", "ones") or rngs is None:
+        if rngs is not None:
+            rngs.skip()
+        fill = torch.ones if init == "ones" else torch.zeros
+        return nn.Parameter(fill(shape, dtype=f32, device=device))
+    kind = "truncated_normal" if init == "lecun_normal" else init
+    if kind not in INITS:
+        raise ValueError(f"unknown init {init!r}")
+    key = rngs.param_key(name)
+    arg = {"truncated_normal": fan_in, "normal": std}.get(kind)
+    rngs.record(name, key, kind, shape, arg)
+    return nn.Parameter(from_uniforms(kind, init_uniforms(key, kind, shape), shape, arg))
 
 
 def same_pads(n: int, k: int, s: int) -> tuple[int, int]:
@@ -77,13 +156,13 @@ class Conv(nn.Module):
     """
 
     def __init__(self, in_features: int, features: int, kernel_size, strides=(1, 1),
-                 generator: torch.Generator | None = None, device=None):
+                 key: Rngs | None = None, device=None):
         super().__init__()
         kh, kw = kernel_size
         self.strides = tuple(strides)
-        shape = (kh, kw, in_features, features)
-        self.kernel = _kernel(shape, kh * kw * in_features, generator, device)
-        self.bias = nn.Parameter(torch.zeros(features, dtype=f32, device=self.kernel.device))
+        self.kernel = param(key, "kernel", (kh, kw, in_features, features), "lecun_normal",
+                            kh * kw * in_features, device=device)
+        self.bias = param(key, "bias", (features,), device=self.kernel.device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return conv_nhwc(x, self.kernel, self.strides) + self.bias.to(bf16)
@@ -106,31 +185,20 @@ def conv_nhwc(x: torch.Tensor, kernel: torch.Tensor, strides) -> torch.Tensor:
     return y.permute(0, 2, 3, 1)  # NHWC
 
 
-def orthogonal(generator: torch.Generator, shape) -> torch.Tensor:
-    """flax's ``initializers.orthogonal()`` for a kernel [in, out]: a matrix
-    with orthonormal rows or columns, drawn on the generator's device."""
-    x = torch.empty(shape, dtype=f32, device=generator.device)
-    return nn.init.orthogonal_(x, generator=generator)
-
-
 class Dense(nn.Module):
     """flax ``nn.Dense(features, dtype=..., use_bias=...)``: ``kernel`` f32[in,
     out], ``bias`` f32[out] unless ``use_bias`` is False. ``init="orthogonal"``
     draws the kernel as flax's ``orthogonal()`` does (the GRU's recurrent
-    kernels)."""
+    kernels). ``key`` is the layer's own scope (``Rngs.child(name)``)."""
 
     def __init__(self, in_features: int, features: int, dtype=bf16,
-                 generator: torch.Generator | None = None, device=None,
+                 key: Rngs | None = None, device=None,
                  use_bias: bool = True, init: str = "lecun_normal"):
         super().__init__()
         self.dtype = dtype
-        shape = (in_features, features)
-        if init == "orthogonal" and generator is not None:
-            self.kernel = nn.Parameter(orthogonal(generator, shape))
-        else:
-            self.kernel = _kernel(shape, in_features, generator, device)
-        self.bias = (nn.Parameter(torch.zeros(features, dtype=f32, device=self.kernel.device))
-                     if use_bias else None)
+        self.kernel = param(key, "kernel", (in_features, features), init, in_features,
+                            device=device)
+        self.bias = param(key, "bias", (features,), device=self.kernel.device) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         d = self.dtype
@@ -142,11 +210,12 @@ class LayerNorm(nn.Module):
     """flax ``nn.LayerNorm(dtype=bf16)`` over the last axis: statistics in f32,
     epsilon 1e-6, the result cast to bf16."""
 
-    def __init__(self, features: int, eps: float = 1e-6, dtype=bf16, device=None):
+    def __init__(self, features: int, eps: float = 1e-6, dtype=bf16, key: Rngs | None = None,
+                 device=None):
         super().__init__()
         self.eps, self.dtype = eps, dtype
-        self.scale = nn.Parameter(torch.ones(features, dtype=f32, device=device))
-        self.bias = nn.Parameter(torch.zeros(features, dtype=f32, device=device))
+        self.scale = param(key, "scale", (features,), "ones", device=device)
+        self.bias = param(key, "bias", (features,), device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return _LayerNorm.apply(x, self.scale, self.bias, self.eps, self.dtype)
@@ -228,15 +297,16 @@ class _Softmax(torch.autograd.Function):
 
 class DenseGeneral(nn.Module):
     """The projections of flax's attention, in bf16: ``kernel`` f32[*in, *out]
-    over ``n_in`` contracted leading axes, ``bias`` f32[*out]."""
+    over ``n_in`` contracted leading axes, ``bias`` f32[*out]. flax draws the
+    kernel flattened to [prod(in), prod(out)], so its fan-in is the
+    flattened in-axes."""
 
-    def __init__(self, in_shape, out_shape, generator: torch.Generator | None = None,
-                 device=None):
+    def __init__(self, in_shape, out_shape, key: Rngs | None = None, device=None):
         super().__init__()
         self.n_in = len(in_shape)
-        shape = (*in_shape, *out_shape)
-        self.kernel = _kernel(shape, math.prod(in_shape), generator, device)
-        self.bias = nn.Parameter(torch.zeros(out_shape, dtype=f32, device=self.kernel.device))
+        self.kernel = param(key, "kernel", (*in_shape, *out_shape), "lecun_normal",
+                            math.prod(in_shape), device=device)
+        self.bias = param(key, "bias", tuple(out_shape), device=self.kernel.device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         k = self.kernel
@@ -258,15 +328,14 @@ class MultiHeadDotProductAttention(nn.Module):
     f32[dim]. x bf16[B, N, dim] -> bf16[B, N, dim].
     """
 
-    def __init__(self, dim: int, num_heads: int, generator: torch.Generator | None = None,
-                 device=None):
+    def __init__(self, dim: int, num_heads: int, key: Rngs | None = None, device=None):
         super().__init__()
         if dim % num_heads:
             raise ValueError(f"dim {dim} is not a multiple of num_heads {num_heads}")
         hd = dim // num_heads
         for name in ("query", "key", "value"):
-            setattr(self, name, DenseGeneral((dim,), (num_heads, hd), generator, device))
-        self.out = DenseGeneral((num_heads, hd), (dim,), generator, device)
+            setattr(self, name, DenseGeneral((dim,), (num_heads, hd), child(key, name), device))
+        self.out = DenseGeneral((num_heads, hd), (dim,), child(key, "out"), device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         q, k, v = (getattr(self, n)(x).transpose(1, 2) for n in ("query", "key", "value"))

@@ -21,6 +21,7 @@ import torch
 from torch import nn
 
 from gym_craftingworld_tpu_torch import constants as C
+from gym_craftingworld_tpu_torch.models.flax_rng import as_rngs, child
 from gym_craftingworld_tpu_torch.models.layers import Dense
 
 bf16 = torch.bfloat16
@@ -30,15 +31,15 @@ f32 = torch.float32
 class GRUCell(nn.Module):
     """flax ``nn.GRUCell(features, dtype=bf16)``: (h, x) -> h' in bf16."""
 
-    def __init__(self, in_features: int, features: int,
-                 generator: torch.Generator | None = None, device=None):
+    def __init__(self, in_features: int, features: int, key=None, device=None):
         super().__init__()
-        kw = dict(generator=generator, device=device)
+        rngs = as_rngs(key)
         for name in ("ir", "iz", "in"):
-            setattr(self, name, Dense(in_features, features, **kw))
+            setattr(self, name, Dense(in_features, features, key=child(rngs, name),
+                                      device=device))
         for name in ("hr", "hz", "hn"):
             setattr(self, name, Dense(features, features, use_bias=name == "hn",
-                                      init="orthogonal", **kw))
+                                      init="orthogonal", key=child(rngs, name), device=device))
 
     def forward(self, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         r = torch.sigmoid(self.ir(x) + self.hr(h))
@@ -56,14 +57,15 @@ class RecurrentActorCritic(nn.Module):
     """
 
     def __init__(self, in_features: int, hidden: int = 256, n_actions: int = C.N_ACTIONS,
-                 generator: torch.Generator | None = None, device=None):
+                 key=None, device=None):
         super().__init__()
-        kw = dict(generator=generator, device=device)
+        rngs = as_rngs(key)
+        kw = lambda name: dict(key=child(rngs, name), device=device)
         self.hidden = hidden
-        self.encoder = Dense(in_features, hidden, **kw)
-        self.gru = GRUCell(hidden, hidden, **kw)
-        self.policy = Dense(hidden, n_actions, dtype=f32, **kw)
-        self.value = Dense(hidden, 1, dtype=f32, **kw)
+        self.encoder = Dense(in_features, hidden, **kw("encoder"))
+        self.gru = GRUCell(hidden, hidden, **kw("gru"))
+        self.policy = Dense(hidden, n_actions, dtype=f32, **kw("policy"))
+        self.value = Dense(hidden, 1, dtype=f32, **kw("value"))
 
     def forward(self, hidden: torch.Tensor, obs: torch.Tensor, done: torch.Tensor):
         x = torch.relu(self.encoder(obs.to(bf16)))
@@ -77,8 +79,7 @@ class RecurrentActorCritic(nn.Module):
                            device=self.encoder.kernel.device)
 
 
-def init_params(generator: torch.Generator, feature_dim: int,
-                hidden: int = 256) -> RecurrentActorCritic:
+def init_params(key, feature_dim: int, hidden: int = 256) -> RecurrentActorCritic:
     """A ``RecurrentActorCritic`` over ``feature_dim`` features, its weights
-    drawn from ``generator`` on the generator's device."""
-    return RecurrentActorCritic(feature_dim, hidden, generator=generator)
+    flax's ``model.init(key, ...)`` from JAX's key data, on the key's device."""
+    return RecurrentActorCritic(feature_dim, hidden, key=key)

@@ -15,11 +15,13 @@ from torch.utils.checkpoint import checkpoint
 
 from gym_craftingworld_tpu_torch import constants as C
 from gym_craftingworld_tpu_torch.core.state import EnvState
+from gym_craftingworld_tpu_torch.models.flax_rng import as_rngs, child
 from gym_craftingworld_tpu_torch.models.layers import (
     Dense,
     LayerNorm,
     MultiHeadDotProductAttention,
     gelu,
+    param,
 )
 from gym_craftingworld_tpu_torch.render.raster import render_onehot
 
@@ -31,16 +33,16 @@ class _Block(nn.Module):
     """Pre-LN transformer block, bf16 compute (flax names ``LayerNorm_0
     MultiHeadDotProductAttention_0 LayerNorm_1 Dense_0 Dense_1``)."""
 
-    def __init__(self, dim: int, heads: int, generator: torch.Generator | None = None,
-                 device=None):
+    def __init__(self, dim: int, heads: int, key=None, device=None):
         super().__init__()
-        device = generator.device if generator is not None else device
-        kw = dict(generator=generator, device=device)
-        self.LayerNorm_0 = LayerNorm(dim, device=device)
-        self.MultiHeadDotProductAttention_0 = MultiHeadDotProductAttention(dim, heads, **kw)
-        self.LayerNorm_1 = LayerNorm(dim, device=device)
-        self.Dense_0 = Dense(dim, 4 * dim, **kw)
-        self.Dense_1 = Dense(4 * dim, dim, **kw)
+        rngs = as_rngs(key)
+        kw = lambda name: dict(key=child(rngs, name), device=device)
+        self.LayerNorm_0 = LayerNorm(dim, **kw("LayerNorm_0"))
+        self.MultiHeadDotProductAttention_0 = MultiHeadDotProductAttention(
+            dim, heads, **kw("MultiHeadDotProductAttention_0"))
+        self.LayerNorm_1 = LayerNorm(dim, **kw("LayerNorm_1"))
+        self.Dense_0 = Dense(dim, 4 * dim, **kw("Dense_0"))
+        self.Dense_1 = Dense(4 * dim, dim, **kw("Dense_1"))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.MultiHeadDotProductAttention_0(self.LayerNorm_0(x))
@@ -59,23 +61,19 @@ class GridActorCritic(nn.Module):
     """
 
     def __init__(self, n_tokens: int, hidden: int = 128, depth: int = 2, heads: int = 4,
-                 n_actions: int = C.N_ACTIONS, generator: torch.Generator | None = None,
-                 device=None):
+                 n_actions: int = C.N_ACTIONS, key=None, device=None):
         super().__init__()
-        device = generator.device if generator is not None else device
-        kw = dict(generator=generator, device=device)
-        self.embed = Dense(C.N_CHANNELS, hidden, **kw)
-        pos = torch.zeros((1, n_tokens, hidden), dtype=f32, device=device)
-        if generator is not None:  # flax's normal(0.02)
-            pos = 0.02 * torch.randn(pos.shape, generator=generator, device=device)
-        self.pos = nn.Parameter(pos)
-        self.goal = Dense(2 * C.N_TASKS, hidden, **kw)
+        rngs = as_rngs(key)
+        kw = lambda name: dict(key=child(rngs, name), device=device)
+        self.embed = Dense(C.N_CHANNELS, hidden, **kw("embed"))
+        self.pos = param(rngs, "pos", (1, n_tokens, hidden), "normal", std=0.02, device=device)
+        self.goal = Dense(2 * C.N_TASKS, hidden, **kw("goal"))
         self.depth = depth
         for i in range(depth):
-            setattr(self, f"block{i}", _Block(hidden, heads, **kw))
-        self.LayerNorm_0 = LayerNorm(hidden, device=device)
-        self.policy = Dense(hidden, n_actions, dtype=f32, **kw)
-        self.value = Dense(hidden, 1, dtype=f32, **kw)
+            setattr(self, f"block{i}", _Block(hidden, heads, **kw(f"block{i}")))
+        self.LayerNorm_0 = LayerNorm(hidden, **kw("LayerNorm_0"))
+        self.policy = Dense(hidden, n_actions, dtype=f32, **kw("policy"))
+        self.value = Dense(hidden, 1, dtype=f32, **kw("value"))
 
     def forward(self, cells: torch.Tensor, goal_bits: torch.Tensor):
         x = self.embed(cells.to(bf16)) + self.pos.to(bf16)
@@ -99,8 +97,8 @@ def grid_tokens(state: EnvState):
     return cells, goal_bits
 
 
-def init_params(generator: torch.Generator, height: int = 21, width: int = 21,
-                hidden: int = 128) -> GridActorCritic:
-    """A ``GridActorCritic`` over ``height * width`` cell tokens, drawn from
-    ``generator`` on its device. The module holds its parameters."""
-    return GridActorCritic(height * width, hidden, generator=generator)
+def init_params(key, height: int = 21, width: int = 21, hidden: int = 128) -> GridActorCritic:
+    """A ``GridActorCritic`` over ``height * width`` cell tokens, flax's init
+    from JAX's key data ``key``, on its device. The module holds its
+    parameters."""
+    return GridActorCritic(height * width, hidden, key=key)

@@ -19,8 +19,9 @@ same draws, bit for bit, from the same key data (int64 ``[..., 2]``, see
   keys of a split, ``randint``, the raw 32 bits or ``uniform`` floats.
   ``split_keys``, ``randint_cols`` and ``uniform_cols`` take a slice of a
   split's keys or of a draw's columns, so a rank of a mesh draws its own
-  envs and nothing else; ``randint``, ``normal`` and ``permutation`` are
-  ``jax.random``'s on the key's device (the trainers' keys stay there).
+  envs and nothing else; ``fold_in``, ``randint``, ``normal`` and
+  ``permutation`` are ``jax.random``'s on the key's device (the trainers'
+  keys stay there), ``split_permutation`` an epoch's shuffle.
 
 A CUDA tensor launches the kernel of ``csrc/keyed_draws.cu``
 (``cw_keyed_reset``, ``cw_keyed_counter``) or raises; a CPU tensor runs the
@@ -246,6 +247,12 @@ def _bounds(cols: slice, n: int):
     return r.start, len(r)
 
 
+def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
+    """``jax.random.fold_in(key, data)`` on the key's device: the key at
+    counter ``data`` (``ops/threefry.fold_in``), one launch on the card."""
+    return counter_draws(key, "split", 1, 1, int(data) & MASK32, 1)[0, 0]
+
+
 def split_keys(key: torch.Tensor, num: int, cols: slice = slice(None), device=None):
     """Keys ``cols`` of ``jax.random.split(key, num)``: int64[len(cols), 2]."""
     col0, width = _bounds(cols, num)
@@ -297,6 +304,13 @@ def permutation(key: torch.Tensor, n: int) -> torch.Tensor:
         bits = counter_draws(k[1], "bits", 1, n, 0, n)[0].to(torch.int64) & MASK32
         x = x[torch.sort(bits, stable=True).indices]
     return x
+
+
+def split_permutation(key: torch.Tensor, n: int):
+    """``key, k = split(key)`` then ``permutation(k, n)``, an epoch's shuffle
+    in JAX's trainers: (the next key, int32[n]) on the key's device."""
+    key, k = split_keys(key, 2)
+    return key, permutation(k, n)
 
 
 reset_draws_plain.calls = reset_draws_plain.envs = 0

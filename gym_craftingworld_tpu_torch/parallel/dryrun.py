@@ -16,9 +16,9 @@ held to what the JAX dry run checks it against:
 Shapes are the JAX dry run's where the port's blocks allow (its shuffle
 blocks are 128 rows, so a rank holds 128 envs in paths 3 and 5), and so
 are the keys: ``PRNGKey(n)`` of the JAX dry run for the resets, the
-actions, the fast and pixel trainers' envs, parameters and step keys (paths
-1-5); the flax family's parameters of path 1 and the random minibatch of
-path 6 come from generators seeded alike.
+actions, the trainers' envs, parameters (the flax family's of path 1 as
+flax's ``model.init`` draws them) and step keys (paths 1-5); the random
+minibatch of path 6 comes from a generator seeded alike.
 
     torchrun --standalone --nproc_per_node 2 -m gym_craftingworld_tpu_torch.parallel.dryrun
     python -m gym_craftingworld_tpu_torch.parallel.dryrun --device cpu   # one rank
@@ -62,15 +62,13 @@ def dryrun_multichip(n_devices: int, device=None) -> str:
     mesh = make_env_mesh(device=device)
     _check(mesh.size == n_devices, f"need {n_devices} ranks, have {mesh.size}")
     dev = mesh.device
-    gen = lambda seed: torch.Generator(device=dev).manual_seed(seed)
-
     # 1) the train/ppo.py step: 2 envs a rank, 5x5, 4-step rollouts
     cfg = EnvConfig(height=5, width=5, max_steps=10)
     ppo = PPOConfig(rollout_steps=4, num_minibatches=2, update_epochs=1, hidden=32)
     B = 2 * n_devices
     env_state = reset_sharded(cfg, 0, B, mesh)
-    ts = init_train_state(gen(1), cfg, ppo)
     key = lambda seed: prng_key(seed, device=dev)
+    ts = init_train_state(key(1), cfg, ppo)
     ts, env_state, _, metrics = ppo_train_step_sharded(cfg, ppo, mesh)(ts, env_state, key(2))
     _check(env_state.objects.shape[0] == B // n_devices, "the env batch lost its split")
     _check(math.isfinite(float(metrics["loss"])), "train/ppo.py loss is finite")
@@ -122,7 +120,7 @@ def dryrun_multichip(n_devices: int, device=None) -> str:
     params_k = fp.init_params(key(11), cfg_r, fppo_k)
     n_shard = 256
     Nk, Fk = n_shard * n_devices, fp.feature_rows(cfg_r)
-    g = gen(12)
+    g = torch.Generator(device=dev).manual_seed(12)
     batch_k = (torch.randn((Nk, Fk), generator=g, device=dev).to(torch.bfloat16),
                torch.randint(0, 6, (Nk,), generator=g, device=dev, dtype=torch.int32),
                torch.full((Nk,), -math.log(6.0), device=dev),

@@ -12,7 +12,7 @@ each carry their own copy of these; the port keeps one:
   they append (``tools/train_canonical.py:190-192``);
 * ``train_chunk`` and ``mixed_rows``: the row ids a chunk of SGD steps trains
   on, uniform below ``n_valid`` or with a share from the rows appended since
-  ``fail_lo``;
+  ``fail_lo``, drawn from JAX's key data as the JAX tools draw them;
 * saving and loading a policy's parameters as a torch ``state_dict``
   (``params_<tag>.pt``), where the JAX tools write a flax msgpack (and
   ``cpv_canonical`` an npz);
@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from gym_craftingworld_tpu_torch.config import EnvConfig
+from gym_craftingworld_tpu_torch.ops import keyed_draws as kd
 from gym_craftingworld_tpu_torch.train import dagger
 from gym_craftingworld_tpu_torch.train.demos import SnapDataset
 
@@ -85,36 +86,45 @@ def append_columns(data: dict, labeled: SnapDataset, n_valid: int) -> int:
 
 
 def train_chunk(cfg: EnvConfig, ts: dagger.BCTrainState, data: dict, n_valid: int, steps: int,
-                batch: int, lr: float, generator: torch.Generator):
-    """``steps`` SGD steps on rows drawn uniformly below ``n_valid``; (ts,
-    {"loss", "accuracy"} as floats)."""
-    idx = torch.randint(0, n_valid, (steps * batch,), generator=generator,
-                        device=generator.device)
+                batch: int, lr: float, key: torch.Tensor):
+    """``steps`` SGD steps on the rows ``randint(key, (steps * batch,), 0,
+    n_valid)``, on the key's device; (ts, {"loss", "accuracy"} as floats)."""
+    idx = kd.randint(key, (steps * batch,), 0, n_valid)
     ts, stats = dagger._bc_epoch(cfg, lr, ts, data, idx, batch)
     return ts, {k: float(v) for k, v in stats.items()}
 
 
 def mixed_rows(n: int, n_valid: int, fail_lo: int, frac_fail: float,
-               generator: torch.Generator) -> torch.Tensor:
+               key: torch.Tensor) -> torch.Tensor:
     """``n`` row ids: each from the rows ``[fail_lo, n_valid)`` with chance
     ``frac_fail``, else uniform below ``n_valid`` (uniform when no row lies
-    past ``fail_lo`` or ``frac_fail`` is 0). Three draws, in JAX's order."""
-    dev = generator.device
-    uni = torch.randint(0, n_valid, (n,), generator=generator, device=dev)
+    past ``fail_lo`` or ``frac_fail`` is 0). As JAX draws them: ``k1, k2, k3
+    = split(key, 3)``, then ``randint(k1)``, ``randint(k2)``, ``uniform(k3)``."""
+    k1, k2, k3 = kd.split_keys(key, 3)
+    uni = kd.randint(k1, (n,), 0, n_valid)
     if fail_lo < n_valid and frac_fail > 0:
-        fail = torch.randint(fail_lo, n_valid, (n,), generator=generator, device=dev)
-        pick = torch.rand((n,), generator=generator, device=dev) < frac_fail
+        fail = kd.randint(k2, (n,), fail_lo, n_valid)
+        pick = kd.uniform_cols(k3, (1, n))[0] < frac_fail
         return torch.where(pick, fail, uni)
     return uni
 
 
 def mixed_train_chunk(cfg: EnvConfig, ts: dagger.BCTrainState, data: dict, n_valid: int,
                       fail_lo: int, steps: int, batch: int, lr: float, frac_fail: float,
-                      generator: torch.Generator):
+                      key: torch.Tensor):
     """SGD steps with ``frac_fail`` of each batch from the failure rows."""
-    idx = mixed_rows(steps * batch, n_valid, fail_lo, frac_fail, generator)
+    idx = mixed_rows(steps * batch, n_valid, fail_lo, frac_fail, key)
     ts, stats = dagger._bc_epoch(cfg, lr, ts, data, idx, batch)
     return ts, {k: float(v) for k, v in stats.items()}
+
+
+def generator_gumbel(shape, generator: torch.Generator) -> torch.Tensor:
+    """Standard Gumbel noise f32 of ``shape`` from ``generator``, on its device
+    (``jax.random.gumbel``'s law, uniforms from the smallest normal f32 up):
+    the sampled rollouts of ``finetune_canonical`` and ``pixel_distill``,
+    whose draws do not follow JAX's keys yet."""
+    u = torch.rand(shape, generator=generator, device=generator.device)
+    return -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
 
 
 def save_params(model: torch.nn.Module, out: Path, tag: str | None) -> Path:

@@ -19,10 +19,15 @@ Protocol, as in JAX:
 
 The pool is JAX's: ``core/reset.generate_pool`` of ``PRNGKey(--seed)`` draws
 the JAX tool's worlds bit for bit (``--pool-npz`` reads a pool from a file,
-``load_pool``). What differs from JAX: the rollouts are eager loops that freeze finished episodes
-(``train/dagger._rollout_states``, ``_eval_batch_grid``), whose ``sample``
-draws are Gumbel noise and ``argmax_eps`` draws uniforms and moves from a
-``torch.Generator`` seeded as JAX seeds its keys; parameters are saved as
+``load_pool``). So are the keys: the init from ``PRNGKey(seed + 1)``, BC's
+chain from ``PRNGKey(seed + 2)`` and round ``r``'s from ``PRNGKey(seed + 400
++ r)`` (``dagger.bc_train_snaps``), a DAgger rollout's draws from
+``PRNGKey(seed + 300 + r)`` and a cell's sampled evaluation from
+``PRNGKey(cell seed + 17)`` (``mode_draws``, ``eval_noise``). What differs
+from JAX: the rollouts are eager loops that freeze finished episodes
+(``train/dagger._rollout_states``, ``_eval_batch_grid``), whose draws are
+made before the loop (the Gumbel noise of ``categorical`` and the 5%
+moves, the counter kernel on the card); parameters are saved as
 ``<save-params>/params.pt`` (a torch ``state_dict``) in place of flax's
 ``params.npz``; a large DAgger relabel runs in several host processes
 (``relabel``, the same labels); the JSON goes to ``--out`` with the card
@@ -64,6 +69,7 @@ from gym_craftingworld_tpu_torch.core.reset import generate_pool
 from gym_craftingworld_tpu_torch.core.state import EnvState
 from gym_craftingworld_tpu_torch.models.cpv import init_cpv_grid
 from gym_craftingworld_tpu_torch.ops.threefry import prng_key
+from gym_craftingworld_tpu_torch.train import ppo
 from gym_craftingworld_tpu_torch.tools._canonical import (REPO, RUNS, load_params, log, relabel,
                                                           save_params, seconds_since)
 from gym_craftingworld_tpu_torch.tools._cpv import RANK, apply_predecessors_np, failure_kind
@@ -241,34 +247,41 @@ def load_phase1(path: Path):
 # ---------------------------------------------------------------------------
 
 
-def mode_draws(mode: str, T: int, B: int, generator: torch.Generator):
-    """The draws ``(explore_u, explore_a, explore_eps, noise)`` of a rollout
-    in ``mode``, the last four arguments of ``dagger._rollout_states``:
+def mode_draws(mode: str, T: int, B: int, key: torch.Tensor):
+    """The draws ``(explore_u, explore_a, explore_eps, noise)`` of a DAgger
+    rollout in ``mode`` from JAX's key data ``key``, the last four arguments
+    of ``dagger._rollout_states``; step ``t`` draws from ``k_t = split(key,
+    T)[t]``, as JAX's ``_rollout_from`` does:
 
     * ``argmax``, greedy: none;
     * ``sample``, a draw from the policy's softmax (BC from a multi-modal
-      expert leaves near-ties whose argmax can limit-cycle): Gumbel noise
-      f32[T, B, A];
+      expert leaves near-ties whose argmax can limit-cycle):
+      ``categorical(k_t, logits)``'s Gumbel noise f32[T, B, A];
     * ``argmax_eps``, greedy with 5% random moves, DAgger's rollouts (greedy
       execution visits the limit-cycle states the argmax evaluation fails
-      on, and the random moves kick it off the orbit): uniforms f32[T, B]
-      and moves int[T, B] in 0..3.
+      on, and the random moves kick it off the orbit): from ``k_u, k_a =
+      split(fold_in(k_t, 1))``, uniforms f32[T, B] and moves int32[T, B] in
+      0..3 (``dagger.explore_draws``).
     """
-    dev = generator.device
     if mode == "argmax_eps":
-        return (torch.rand((T, B), generator=generator, device=dev),
-                torch.randint(0, 4, (T, B), generator=generator, device=dev), 0.05, None)
+        return (*dagger.explore_draws(key, T, B, fold=1), 0.05, None)
     if mode not in ("argmax", "sample"):
         raise ValueError(f"unknown mode {mode!r}")
-    noise = dagger.gumbel((T, B, C.N_ACTIONS), generator) if mode == "sample" else None
-    return (torch.zeros((T, B), device=dev), torch.zeros((T, B), dtype=torch.int64, device=dev),
-            0.0, noise)
+    return None, None, 0.0, ppo.gumbel_noise(key, B, planes=T) if mode == "sample" else None
 
 
-def _success_from(cfg: EnvConfig, model, state: EnvState, mode: str, generator: torch.Generator):
+def eval_noise(mode: str, T: int, B: int, key: torch.Tensor):
+    """The Gumbel noise f32[T, B, A] of an evaluation in ``mode`` from
+    ``key`` (None for ``argmax``): JAX's ``_success_from`` takes step ``t``'s
+    key from the chain ``k, k_t = split(k)`` (``train/ppo.collect_noise``)."""
+    if mode not in ("argmax", "sample"):
+        raise ValueError(f"unknown mode {mode!r}")
+    return ppo.collect_noise(key, T, B) if mode == "sample" else None
+
+
+def _success_from(cfg: EnvConfig, model, state: EnvState, mode: str, key: torch.Tensor):
     """Evaluation-only rollout; returns (success [B], achieved [B, 9])."""
-    noise = (dagger.gumbel((cfg.max_steps, state.objects.shape[0], C.N_ACTIONS), generator)
-             if mode == "sample" else None)
+    noise = eval_noise(mode, cfg.max_steps, state.objects.shape[0], key)
     out = dagger._eval_batch_grid(cfg, model, state, noise)
     return out["success"], out["achieved"]
 
@@ -285,14 +298,14 @@ def salvageable(cols: dict, live: np.ndarray, tasks):
 
 
 def dagger_collect(cfg: EnvConfig, model, state: EnvState, tasks, seed, mode="argmax_eps"):
-    """Policy rollout from handoff starts (draws from a generator seeded
-    ``seed``); expert labels on every salvageable live state, in
+    """Policy rollout from handoff starts (draws from ``PRNGKey(seed)``,
+    ``mode_draws``); expert labels on every salvageable live state, in
     ``_canonical.RELABEL_WORKERS`` host processes once there are
     ``RELABEL_SPLIT`` rows (``relabel``). Returns (labelled SnapDataset, task per row, policy
     success rate)."""
-    gen = torch.Generator(device=state.objects.device).manual_seed(seed)
+    key = prng_key(seed, device=state.objects.device)
     cols, live, success = dagger._rollout_states(
-        cfg, model, state, *mode_draws(mode, cfg.max_steps, state.objects.shape[0], gen))
+        cfg, model, state, *mode_draws(mode, cfg.max_steps, state.objects.shape[0], key))
     host, task_rows = salvageable({k: v.cpu().numpy() for k, v in cols.items()},
                                   live.cpu().numpy(), tasks)
     return relabel(cfg, host), task_rows, float(success.float().mean())
@@ -319,13 +332,12 @@ def cell_state(cfg: EnvConfig, pool_objects, pool_agent, task_set, seed, episode
 
 def eval_cell(cfg: EnvConfig, model, pool_objects, pool_agent, task_set, seed, episodes):
     """A cell's {"argmax", "sample"} success rates over ``cell_state``; the
-    sampled draws from a generator seeded ``seed + 17``."""
+    sampled draws from ``PRNGKey(seed + 17)``, as JAX's."""
     dev = next(model.parameters()).device
     state = cell_state(cfg, pool_objects, pool_agent, task_set, seed, episodes, dev)
     out = {}
     for mode in ("argmax", "sample"):
-        succ, _ = _success_from(cfg, model, state, mode,
-                                torch.Generator(device=dev).manual_seed(seed + 17))
+        succ, _ = _success_from(cfg, model, state, mode, prng_key(seed + 17, device=dev))
         out[mode] = float(succ.float().mean())
     return out
 
@@ -353,9 +365,8 @@ def trace_cell(cfg: EnvConfig, model, pool_objects, pool_agent, task_set, seed, 
     names = list(C.TASK_LIST)
     out = {}
     for mode in ("argmax", "sample"):
-        gen = torch.Generator(device=dev).manual_seed(seed + 17)
-        cols, live, success = dagger._rollout_states(
-            cfg, model, state, *mode_draws(mode, cfg.max_steps, episodes, gen))
+        noise = eval_noise(mode, cfg.max_steps, episodes, prng_key(seed + 17, device=dev))
+        cols, live, success = dagger._rollout_states(cfg, model, state, None, None, 0.0, noise)
         cols = {k: v.cpu().numpy() for k, v in cols.items()}
         live, success = live.cpu().numpy(), success.cpu().numpy()
         ach, des = cols["achieved"].astype(np.int64), cols["desired"].astype(np.int64)
@@ -588,7 +599,7 @@ def main(argv=None, pairs=None, triples=None) -> dict:
         pool_objects, pool_agent = make_pool(cfg, args.seed, args.pool, dev)
     log(f"pool: {args.pool} worlds at {cfg.height}x{cfg.width} "
         f"({args.pool_npz or 'make_pool'}) on {card}")
-    model = init_cpv_grid(torch.Generator(device=dev).manual_seed(args.seed + 1), cfg,
+    model = init_cpv_grid(prng_key(args.seed + 1, device=dev), cfg,
                           channels=args.channels, hidden=args.hidden)
     ts = dagger.init_bc_state(model)
     start = 0
@@ -648,7 +659,7 @@ def main(argv=None, pairs=None, triples=None) -> dict:
         # ---- phase 2: BC ---------------------------------------------------------
         t0 = time.perf_counter()
         ts, _ = dagger.bc_train_snaps(
-            cfg, data, torch.Generator(device=dev).manual_seed(args.seed + 2), state=ts,
+            cfg, data, prng_key(args.seed + 2, device=dev), state=ts,
             epochs=args.bc_epochs, batch_size=args.batch, lr=1e-3, log=log)
         seconds["bc"] = seconds_since(t0, dev)
 
@@ -678,7 +689,7 @@ def main(argv=None, pairs=None, triples=None) -> dict:
             lr = 5e-4 if r < args.dagger_rounds // 2 else 3e-4
             t1 = time.perf_counter()
             ts, _ = dagger.bc_train_snaps(
-                cfg, data, torch.Generator(device=dev).manual_seed(args.seed + 400 + r),
+                cfg, data, prng_key(args.seed + 400 + r, device=dev),
                 state=ts, epochs=args.dagger_epochs, batch_size=args.batch, lr=lr, log=log)
             t_train = seconds_since(t1, dev)
             rounds.append({"round": r, "mode": mode, "policy_sr": sr, "rows_before": before,

@@ -41,6 +41,7 @@ from gym_craftingworld_tpu_torch import constants as C
 from gym_craftingworld_tpu_torch.api.gym_env import CraftingWorldEnvRay
 from gym_craftingworld_tpu_torch.models.actor_critic import obs_features_init
 from gym_craftingworld_tpu_torch.models.cpv import init_cpv
+from gym_craftingworld_tpu_torch.ops.threefry import prng_key
 from gym_craftingworld_tpu_torch.tools import cpv_matrix as cm
 from gym_craftingworld_tpu_torch.tools._canonical import RUNS, load_params, log, shown
 from gym_craftingworld_tpu_torch.tools._cpv import failure_kind
@@ -52,7 +53,7 @@ PAIRS = ["BuildHouse+MoveSticks", "GoToHouse+MoveAxe", "MoveAxe+MoveHammer",
 
 
 def new_model(args, device) -> torch.nn.Module:
-    return init_cpv(torch.Generator(device=device).manual_seed(args.seed + 1), 8, 8,
+    return init_cpv(prng_key(args.seed + 1, device=device), 8, 8,
                     hidden=args.hidden, with_init=True)
 
 
@@ -60,7 +61,7 @@ def train(args, device) -> torch.nn.Module:
     """The ``cpv_matrix`` model trained on the tool's data before DAgger."""
     demos = cm.training_demos(args.episodes_per_task, args.seed, args.pool, device)
     model = new_model(args, device)
-    return cm.scan_bc_train(demos, torch.Generator(device=device).manual_seed(args.seed + 2),
+    return cm.scan_bc_train(demos, prng_key(args.seed + 2, device=device),
                             model, epochs=args.epochs, batch=512, lr=2e-3)
 
 

@@ -14,10 +14,11 @@ The façade (``api/gym_env.CraftingWorldEnvRay`` with ``fixed_init_state``),
 the demos (``train/bc.collect_demos`` with ``obs_features_init``) and the
 policy run on ``--device``, the card unless asked for the CPU; the host's
 RandomState streams (``seed + 555``, ``seed + 777``, ``eval_seed ^
-0xC9C1E``) are JAX's. What differs: JAX's ``scan_bc_train`` is one fused
-scan an epoch, here a loop over the epoch's permutation (drawn from a
-``torch.Generator`` seeded as JAX seeds its key) with ``train/bc.py``'s
-hand-written Adam; the JAX tool always writes ``docs/cpv_matrix.json``, this
+0xC9C1E``) are JAX's, and so are the keys: the init from ``PRNGKey(seed +
+1)`` (flax's), the epochs' permutations from ``PRNGKey(seed + 2)`` and
+``PRNGKey(seed + 500 + r)``. What differs: JAX's ``scan_bc_train`` is one
+fused scan an epoch, here a loop over the epoch's permutation with
+``train/bc.py``'s hand-written Adam; the JAX tool always writes ``docs/cpv_matrix.json``, this
 one ``--out`` (by default ``runs/torch/cpv_matrix_8x8.json``) with the card.
 
     python -m gym_craftingworld_tpu_torch.tools.cpv_matrix
@@ -40,6 +41,8 @@ from gym_craftingworld_tpu_torch.agents.expert import ExpertPolicy
 from gym_craftingworld_tpu_torch.api.gym_env import CraftingWorldEnvRay
 from gym_craftingworld_tpu_torch.models.actor_critic import obs_features_init
 from gym_craftingworld_tpu_torch.models.cpv import init_cpv
+from gym_craftingworld_tpu_torch.ops import keyed_draws as kd
+from gym_craftingworld_tpu_torch.ops.threefry import prng_key
 from gym_craftingworld_tpu_torch.tools._canonical import RUNS, log
 from gym_craftingworld_tpu_torch.tools._cpv import RANK, apply_predecessors_np
 from gym_craftingworld_tpu_torch.train import bc, fast_ppo
@@ -51,20 +54,21 @@ _LATCH = (C.T_MAKE_BREAD, C.T_EAT_BREAD, C.T_BUILD_HOUSE, C.T_CHOP_TREE, C.T_CHO
 
 
 @torch.no_grad()
-def scan_bc_train(demos: bc.Demos, generator: torch.Generator, model: torch.nn.Module,
+def scan_bc_train(demos: bc.Demos, key: torch.Tensor, model: torch.nn.Module,
                   epochs: int, batch: int, lr: float) -> torch.nn.Module:
     """``bc.bc_train``'s objective with a fresh ``optax.adam(lr)`` state: each
-    epoch a permutation from ``generator`` in ``n // batch`` minibatches, the
-    remainder dropped. Trains ``model`` in place and returns it."""
+    epoch ``key, k = split(key)`` and ``permutation(k, n)`` (JAX's key data,
+    on its device) in ``n // batch`` minibatches, the remainder dropped.
+    Trains ``model`` in place and returns it."""
     tx = fast_ppo.adam(lr)
     opt_state = tx.init(dict(model.named_parameters()))
-    dev = generator.device
+    dev = key.device
     feats = torch.from_numpy(demos.features).to(dev)
     actions = torch.from_numpy(demos.actions).to(dev)
     n = feats.shape[0]
     steps = n // batch
     for ep in range(epochs):
-        perm = torch.randperm(n, generator=generator, device=dev)
+        key, perm = kd.split_permutation(key, n)
         losses = []
         for i in range(steps):
             idx = perm[i * batch: (i + 1) * batch]
@@ -324,13 +328,13 @@ def main(argv=None) -> dict:
 
     dev = torch.device(args.device)
     card = card_identity(dev)
-    gen = lambda seed: torch.Generator(device=dev).manual_seed(seed)
+    key = lambda seed: prng_key(seed, device=dev)
     names = list(C.TASK_LIST)
 
     demos_aug = training_demos(args.episodes_per_task, args.seed, args.pool, dev)
 
-    model = init_cpv(gen(args.seed + 1), 8, 8, hidden=args.hidden, with_init=True)
-    scan_bc_train(demos_aug, gen(args.seed + 2), model, epochs=args.epochs, batch=512, lr=2e-3)
+    model = init_cpv(key(args.seed + 1), 8, 8, hidden=args.hidden, with_init=True)
+    scan_bc_train(demos_aug, key(args.seed + 2), model, epochs=args.epochs, batch=512, lr=2e-3)
 
     # on-policy DAgger over single-task handoff episodes: close the
     # covariate-shift gap (limit cycles on non-latching residuals) without
@@ -340,7 +344,7 @@ def main(argv=None) -> dict:
         d = collect_policy_dagger(model, args.dagger_episodes, args.seed + 300 + r, args.pool,
                                   RANK, device=dev)
         demos_aug = bc.concat_demos(demos_aug, d)
-        scan_bc_train(demos_aug, gen(args.seed + 500 + r), model,
+        scan_bc_train(demos_aug, key(args.seed + 500 + r), model,
                       epochs=max(args.epochs // 3, 8), batch=512, lr=1e-3)
         log(f"dagger {r}: +{len(d.actions)} rows -> {len(demos_aug.actions)} "
             f"({time.time() - t0:.0f}s)")

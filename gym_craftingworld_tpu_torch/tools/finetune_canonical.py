@@ -47,7 +47,9 @@ from gym_craftingworld_tpu_torch.core.step import step
 from gym_craftingworld_tpu_torch.models.grid_policy import (init_grid_policy, planes_from_snaps,
                                                             planes_from_state,
                                                             snap_columns_from_state)
-from gym_craftingworld_tpu_torch.tools._canonical import RUNS, load_params, log, save_params, shown
+from gym_craftingworld_tpu_torch.ops.threefry import prng_key
+from gym_craftingworld_tpu_torch.tools._canonical import (RUNS, generator_gumbel, load_params, log,
+                                                          save_params, shown)
 from gym_craftingworld_tpu_torch.train import dagger, fast_ppo
 from gym_craftingworld_tpu_torch.utils.profiling import card_identity
 
@@ -101,7 +103,7 @@ def draw(cfg: EnvConfig, ft: FTConfig, B: int, generator: torch.Generator) -> Dr
     """An update's draws from ``generator``: the pool, then the noise, then
     the permutations."""
     pool = reset_from_generator(cfg, 2 * B, generator)
-    noise = dagger.gumbel((ft.rollout_steps, B, C.N_ACTIONS), generator)
+    noise = generator_gumbel((ft.rollout_steps, B, C.N_ACTIONS), generator)
     N = ft.rollout_steps * B
     perms = torch.stack([torch.randperm(N, generator=generator, device=generator.device)
                          for _ in range(ft.update_epochs)])
@@ -278,7 +280,7 @@ def main(argv=None) -> dict:
         cfg = ray_config()
     dev = torch.device(args.device)
     card = card_identity(dev)
-    model = init_grid_policy(torch.Generator(device=dev).manual_seed(0), cfg, args.channels,
+    model = init_grid_policy(prng_key(0, device=dev), cfg, args.channels,
                              args.hidden)
     if args.init_params:
         load_params(model, args.init_params)

@@ -55,7 +55,9 @@ from gym_craftingworld_tpu_torch.models.grid_policy import (init_grid_policy, pl
                                                             planes_from_state,
                                                             snap_columns_from_state)
 from gym_craftingworld_tpu_torch.render.raster import render_ray
-from gym_craftingworld_tpu_torch.tools._canonical import RUNS, load_params, log, relabel, shown
+from gym_craftingworld_tpu_torch.ops.threefry import prng_key
+from gym_craftingworld_tpu_torch.tools._canonical import (RUNS, generator_gumbel, load_params, log,
+                                                          relabel, shown)
 from gym_craftingworld_tpu_torch.train import dagger
 from gym_craftingworld_tpu_torch.train.evaluate import summarize
 from gym_craftingworld_tpu_torch.train.fast_ppo import AdamState
@@ -423,7 +425,7 @@ def flip_bits(steps: int, batch_size: int, generator: torch.Generator):
 @torch.no_grad()
 def _eval_student(cfg: EnvConfig, model, state: EnvState, noise=None) -> dict:
     """One episode per env from ``state``, greedy, or with ``noise`` f32[T, B,
-    A] (``dagger.gumbel``) a draw from the student's softmax each step;
+    A] (``_canonical.generator_gumbel``) a draw from the student's softmax each step;
     finished episodes are frozen, and the loop stops once every one is done."""
     B = state.objects.shape[0]
     dev = state.objects.device
@@ -457,7 +459,7 @@ def eval_student(cfg: EnvConfig, model, episodes: int, seed: int, chunk: int = 2
         B = min(chunk, episodes - i)
         g = torch.Generator(device=dev).manual_seed(seed + 31 * i)
         state = reset_from_generator(cfg, B, g)
-        noise = dagger.gumbel((cfg.max_steps, B, C.N_ACTIONS), g) if mode == "sample" else None
+        noise = generator_gumbel((cfg.max_steps, B, C.N_ACTIONS), g) if mode == "sample" else None
         outs.append({k: v.cpu().numpy() for k, v in _eval_student(cfg, model, state, noise).items()})
     return summarize({k: np.concatenate([o[k] for o in outs]) for k in outs[0]})
 
@@ -503,12 +505,12 @@ def main(argv=None) -> dict:
         cfg = ray_config()
     dev = torch.device(args.device)
     card = card_identity(dev)
-    teacher = init_grid_policy(torch.Generator(device=dev).manual_seed(0), cfg,
+    teacher = init_grid_policy(prng_key(0, device=dev), cfg,
                                args.teacher_channels, args.teacher_hidden)
     if args.teacher:
         load_params(teacher, args.teacher)
         log(f"teacher loaded from {args.teacher}")
-    student = init_student(torch.Generator(device=dev).manual_seed(args.seed), cfg,
+    student = init_student(prng_key(args.seed, device=dev), cfg,
                            channels=args.channels, hidden=args.hidden, stem=args.stem)
     if args.init_student:
         load_params(student, args.init_student)

@@ -80,9 +80,9 @@ def main(argv=None) -> list:
     cfg = cw.flat_config()
     ppo = P.PPOConfig()
     T = ppo.rollout_steps
-    gen = torch.Generator(device=dev).manual_seed(0)  # the init, the synthetic draws
+    gen = torch.Generator(device=dev).manual_seed(0)  # the synthetic draws
     _, apply_fn = P.make_policy(ppo)
-    ts = P.init_train_state(gen, cfg, ppo)
+    ts = P.init_train_state(prng_key(0, device=dev), cfg, ppo)
     carry = {"ts": ts, "env": cw.reset_from_seed(cfg, 0, B, device=dev),
              "key": prng_key(0, device=dev)}
 

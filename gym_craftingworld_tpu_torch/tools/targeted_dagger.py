@@ -21,10 +21,12 @@ failures:
 Without ``--init-params`` a fresh GridPolicy is BC-trained on the aggregate
 first (demos plus every ``dagger*.npz`` and ``targeted*.npz`` in ``--out``).
 
-What differs: draws come from one ``torch.Generator`` seeded ``--seed`` on
-the device; parameters are ``params_<tag>.pt`` state dicts; the JSON and
-every record of ``targeted_metrics.jsonl`` carry the card; the artifact's
-episodes are the port's resets (below), not JAX's.
+The draws are JAX's, split for split from ``PRNGKey(--seed)`` on the device
+(the init's ``k_init``, then a ``split`` a chunk for ``mixed_rows``), and
+every evaluation and rollout resets from ``split(PRNGKey(seed), n)``, the
+artifact's too. What differs: parameters are ``params_<tag>.pt`` state
+dicts; the JSON and every record of ``targeted_metrics.jsonl`` carry the
+card.
 
     python -m gym_craftingworld_tpu_torch.tools.targeted_dagger --channels 96 --hidden 1536
     python -m gym_craftingworld_tpu_torch.tools.targeted_dagger \\
@@ -43,8 +45,10 @@ import torch
 
 from gym_craftingworld_tpu_torch import constants as C
 from gym_craftingworld_tpu_torch.config import EnvConfig
-from gym_craftingworld_tpu_torch.core.reset import reset_from_generator
+from gym_craftingworld_tpu_torch.core.reset import reset
 from gym_craftingworld_tpu_torch.models.grid_policy import init_grid_policy
+from gym_craftingworld_tpu_torch.ops import keyed_draws as kd
+from gym_craftingworld_tpu_torch.ops.threefry import prng_key
 from gym_craftingworld_tpu_torch.tools._canonical import (
     CFG, DEMOS, RUNS, Metrics, append_columns, fit, load_params, log, mixed_train_chunk,
     pad_columns, save_params, seconds_since)
@@ -90,15 +94,13 @@ def full_eval_artifact(cfg: EnvConfig, model: torch.nn.Module, episodes: int, se
                        state=None) -> dict:
     """The ``docs/canonical_policy.json`` payload of ``episodes`` greedy episodes.
 
-    JAX resets one world from each of ``episodes`` keys split from
-    ``PRNGKey(seed)``; the port resets ``episodes`` worlds from a generator
-    seeded ``seed`` on the model's device, as ``dagger.evaluate_grid_policy``
-    does, so the episodes are the port's own draws of the same distribution,
-    not JAX's. ``state`` (an ``EnvState``) replaces those resets.
+    One world from each of ``episodes`` keys split from ``PRNGKey(seed)``,
+    JAX's worlds, on the model's device; ``state`` (an ``EnvState``)
+    replaces those resets.
     """
     if state is None:
         dev = next(model.parameters()).device
-        state = reset_from_generator(cfg, episodes, torch.Generator(device=dev).manual_seed(seed))
+        state = reset(cfg, kd.split_keys(prng_key(seed, device=dev), episodes))
     return artifact_summary(dagger._eval_batch_grid(cfg, model, state), episodes, seed)
 
 
@@ -153,8 +155,8 @@ def main(argv=None) -> dict:
     fail_lo = n_valid  # mixture window: every row appended from here on
     log(f"device dataset ready: {n_valid} rows")
 
-    gen = torch.Generator(device=dev).manual_seed(args.seed)
-    model = init_grid_policy(gen, cfg, args.channels, args.hidden)
+    key, k_init = kd.split_keys(prng_key(args.seed, device=dev), 2)
+    model = init_grid_policy(k_init, cfg, args.channels, args.hidden)
     ts = dagger.init_bc_state(model)
     if args.init_params:
         load_params(model, args.init_params)
@@ -163,9 +165,10 @@ def main(argv=None) -> dict:
         done = 0
         while done < args.bc_steps:
             steps = min(500, args.bc_steps - done)
+            key, k = kd.split_keys(key, 2)
             t0 = time.perf_counter()
             ts, stats = mixed_train_chunk(cfg, ts, data, n_valid, 0, steps, args.batch,
-                                          args.bc_lr, 0.0, gen)
+                                          args.bc_lr, 0.0, k)
             s = seconds_since(t0, dev)
             done += steps
             log(f"[{card}] bc {done}/{args.bc_steps}: loss {stats['loss']:.4f} "
@@ -202,9 +205,10 @@ def main(argv=None) -> dict:
         done = 0
         while done < args.steps:
             steps = min(400, args.steps - done)
+            key, k = kd.split_keys(key, 2)
             t0 = time.perf_counter()
             ts, stats = mixed_train_chunk(cfg, ts, data, n_valid, fail_lo, steps, args.batch,
-                                          args.lr, args.frac_fail, gen)
+                                          args.lr, args.frac_fail, k)
             s = seconds_since(t0, dev)
             done += steps
             log(f"[{card}] round {r} train {done}/{args.steps}: loss {stats['loss']:.4f} "

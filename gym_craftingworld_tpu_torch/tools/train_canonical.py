@@ -15,9 +15,11 @@ One Adam state runs through BC and DAgger, whose learning rates differ.
 ``--init-params`` with ``--round-base`` resumes a run: the ``dagger*.npz``
 files already in ``--out`` are folded into the dataset first.
 
-What differs: draws come from one ``torch.Generator`` seeded ``--seed`` on
-the device (the model's initial weights, then each chunk's rows), not JAX's
-keys; parameters are saved as a torch ``state_dict`` (``params_<tag>.pt``);
+The draws are JAX's, split for split from ``PRNGKey(--seed)`` on the device:
+``key, k_init = split(key)`` for the model's initial weights (flax's init),
+then ``key, k = split(key)`` for each chunk's rows; the evaluations and the
+DAgger rollouts reset from ``split(PRNGKey(seed), n)`` (``train/dagger.py``).
+What differs: parameters are saved as a torch ``state_dict`` (``params_<tag>.pt``);
 ``metrics.jsonl`` keeps JAX's records and adds the card to each, and the
 stages' host seconds (``collect_s``, ``relabel_s``, ``train_s``, ``s``); at
 the end of a run ``canonical_curve.json`` lists every evaluation in it, the
@@ -39,6 +41,8 @@ from pathlib import Path
 import torch
 
 from gym_craftingworld_tpu_torch.models.grid_policy import init_grid_policy
+from gym_craftingworld_tpu_torch.ops import keyed_draws as kd
+from gym_craftingworld_tpu_torch.ops.threefry import prng_key
 from gym_craftingworld_tpu_torch.tools._canonical import (
     CFG, DEMOS, RUNS, Metrics, append_columns, fit, load_params, log, pad_columns, save_params,
     seconds_since, train_chunk, write_curve)
@@ -95,8 +99,8 @@ def main(argv=None) -> dict:
     log(f"device dataset ready ({seconds_since(t0, dev):.0f}s)")
     n_valid = snaps.num_rows
 
-    gen = torch.Generator(device=dev).manual_seed(args.seed)
-    model = init_grid_policy(gen, cfg, args.channels, args.hidden)
+    key, k_init = kd.split_keys(prng_key(args.seed, device=dev), 2)
+    model = init_grid_policy(k_init, cfg, args.channels, args.hidden)
     if args.init_params:
         load_params(model, args.init_params)
         log(f"resumed params from {args.init_params}")
@@ -115,8 +119,9 @@ def main(argv=None) -> dict:
     done_steps = 0
     while done_steps < args.bc_steps:
         steps = min(args.chunk, args.bc_steps - done_steps)
+        key, k = kd.split_keys(key, 2)
         t0 = time.perf_counter()
-        ts, stats = train_chunk(cfg, ts, data, n_valid, steps, args.batch, args.bc_lr, gen)
+        ts, stats = train_chunk(cfg, ts, data, n_valid, steps, args.batch, args.bc_lr, k)
         s = seconds_since(t0, dev)
         done_steps += steps
         log(f"[{card}] bc {done_steps}/{args.bc_steps}: loss {stats['loss']:.4f} "
@@ -149,9 +154,9 @@ def main(argv=None) -> dict:
         done = 0
         while done < args.dagger_steps:
             steps = min(args.chunk, args.dagger_steps - done)
+            key, k = kd.split_keys(key, 2)
             t0 = time.perf_counter()
-            ts, stats = train_chunk(cfg, ts, data, n_valid, steps, args.batch, args.dagger_lr,
-                                    gen)
+            ts, stats = train_chunk(cfg, ts, data, n_valid, steps, args.batch, args.dagger_lr, k)
             s = seconds_since(t0, dev)
             done += steps
             log(f"[{card}] dagger {r} train {done}/{args.dagger_steps}: "

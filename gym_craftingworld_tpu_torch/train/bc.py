@@ -14,8 +14,10 @@ large-data one):
 
 A policy is a ``torch.nn.Module`` holding its parameters, so where the JAX
 package passes ``(model, params)`` the port passes the module alone, and
-``bc_train`` returns ``(model, metrics)``. Each epoch's permutation is drawn
-from the generator unless ``perms`` passes them in.
+``bc_train`` returns ``(model, metrics)``. It takes JAX's key data and
+splits it as JAX does (``key, init_key = split(key)``, then ``key, k =
+split(key)`` and ``permutation(k, n)`` an epoch), unless ``perms`` passes the
+permutations in.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from gym_craftingworld_tpu_torch import constants as C
 from gym_craftingworld_tpu_torch.agents.expert import ExpertPolicy
 from gym_craftingworld_tpu_torch.api.gym_env import CraftingWorldEnvRay
 from gym_craftingworld_tpu_torch.models.actor_critic import feature_dim, init_params, obs_features
+from gym_craftingworld_tpu_torch.ops import keyed_draws as kd
 from gym_craftingworld_tpu_torch.train import fast_ppo
 from gym_craftingworld_tpu_torch.train.evaluate import _HostView
 
@@ -167,25 +170,26 @@ def _ce_grads(model: torch.nn.Module, fb: torch.Tensor, ab: torch.Tensor):
 
 
 @torch.no_grad()
-def bc_train(demos: Demos, generator: torch.Generator, height: int, width: int,
+def bc_train(demos: Demos, key: torch.Tensor, height: int, width: int,
              hidden: int = 256, epochs: int = 30, batch_size: int = 256, lr: float = 1e-3,
              model: torch.nn.Module | None = None, perms=None):
     """Clone the expert: cross-entropy on actions over shuffled minibatches.
 
     Returns ``(model, metrics)``; metrics carry per-epoch ``loss`` and the
-    final training ``accuracy``. By default trains a fresh ``ActorCritic``
-    drawn from ``generator``; pass ``model`` to clone any family whose
+    final training ``accuracy``. By default trains a fresh ``ActorCritic``,
+    flax's init from ``init_key``; pass ``model`` to clone any family whose
     forward is ``model(obs) -> (logits, value)``. The data, the model and
-    the draws live on the generator's device. ``perms``, one permutation of
-    the rows per epoch, replaces the generator's.
+    the draws live on the key's device (JAX's key data int64[2]). ``perms``,
+    one permutation of the rows per epoch, replaces the key's.
     """
     if demos.features.shape[1] != feature_dim(height, width):
         raise ValueError(
             f"demo feature width {demos.features.shape[1]} does not match "
             f"a {height}x{width} grid ({feature_dim(height, width)})")
-    dev = generator.device
+    dev = key.device
+    key, init_key = kd.split_keys(key, 2)
     if model is None:
-        model = init_params(generator, height, width, hidden)
+        model = init_params(init_key, height, width, hidden)
     tx = fast_ppo.adam(lr)
     opt_state = tx.init(dict(model.named_parameters()))
     feats = torch.from_numpy(demos.features).to(dev)
@@ -195,8 +199,11 @@ def bc_train(demos: Demos, generator: torch.Generator, height: int, width: int,
     losses = []
     steps = max(1, n // batch_size)
     for epoch in range(epochs):
-        perm = (torch.randperm(n, generator=generator, device=dev) if perms is None
-                else torch.as_tensor(perms[epoch], device=dev)).to(torch.int64)
+        if perms is None:
+            key, perm = kd.split_permutation(key, n)
+        else:
+            perm = torch.as_tensor(perms[epoch], device=dev)
+        perm = perm.to(torch.int64)
         ep_loss = []
         for i in range(steps):
             idx = perm[i * batch_size: (i + 1) * batch_size]

@@ -16,9 +16,12 @@ imitation path (``train/bc.py`` is the small-data one):
 What the port does differently. A policy (``GridPolicy`` or
 ``CPVGridPolicy``) is a ``torch.nn.Module`` holding its parameters, so where
 the JAX package passes ``(model, params)`` the port passes the module, and
-``BCTrainState.params`` is the module. Each epoch's permutation, the resets
-and the exploration draws come from generators on the model's device unless
-passed in (``perms``, ``state``, ``explore``). The JAX evaluation loops until
+``BCTrainState.params`` is the module. The draws are JAX's, from the same
+keys: the init and each epoch's permutation from ``bc_train_snaps``'s key
+chain, the resets from ``split(PRNGKey(seed), n)`` (the reset kernel on the
+card) and the exploration draws from ``split(PRNGKey(seed ^ 0xDA66E4), T)``
+(``explore_draws``, the counter kernel); ``perms``, ``state`` and
+``explore`` pass them in instead. The JAX evaluation loops until
 every episode is done; finished episodes are frozen, so the port checks for
 that every ``_DONE_EVERY`` steps, one host sync per check, with the same
 result.
@@ -33,7 +36,7 @@ import torch
 
 from gym_craftingworld_tpu_torch import constants as C
 from gym_craftingworld_tpu_torch.config import EnvConfig
-from gym_craftingworld_tpu_torch.core.reset import reset_from_generator
+from gym_craftingworld_tpu_torch.core.reset import reset
 from gym_craftingworld_tpu_torch.core.rollout import _select
 from gym_craftingworld_tpu_torch.core.state import EnvState
 from gym_craftingworld_tpu_torch.core.step import step
@@ -43,6 +46,8 @@ from gym_craftingworld_tpu_torch.models.grid_policy import (
     planes_from_state,
     snap_columns_from_state,
 )
+from gym_craftingworld_tpu_torch.ops import keyed_draws as kd
+from gym_craftingworld_tpu_torch.ops.threefry import prng_key
 from gym_craftingworld_tpu_torch.train import fast_ppo
 from gym_craftingworld_tpu_torch.train.demos import (
     NumpyExpert,
@@ -136,27 +141,37 @@ def _bc_epoch(cfg: EnvConfig, lr: float, ts: BCTrainState, data: dict, perm: tor
                                             "accuracy": torch.stack(accs).mean()}
 
 
-def bc_train_snaps(cfg: EnvConfig, snaps: SnapDataset, generator: torch.Generator,
+def bc_train_snaps(cfg: EnvConfig, snaps: SnapDataset, key,
                    state: BCTrainState | None = None, epochs: int = 10,
                    batch_size: int = 4096, lr: float = 1e-3, channels: int = 64,
-                   hidden: int = 1024, log=None, perms=None):
+                   hidden: int = 1024, log=None, perms=None, device=None):
     """Clone the expert from snapshot demos. Returns (ts, history).
 
-    Pass ``state`` (a ``BCTrainState``, e.g. ``init_bc_state`` of a
-    ``CPVGridPolicy``) to continue training, as the DAgger rounds do;
-    otherwise a fresh ``GridPolicy`` is drawn from ``generator``. Training
-    runs on the generator's device; ``perms``, one permutation of the rows
-    per epoch, replaces the generator's.
+    ``key`` is a seed or JAX's key data, split as JAX splits it: ``key,
+    k_init = split(key)``, then ``key, k_perm = split(key)`` and
+    ``permutation(k_perm, n)`` an epoch. Pass ``state`` (a ``BCTrainState``,
+    e.g. ``init_bc_state`` of a ``CPVGridPolicy``) to continue training, as
+    the DAgger rounds do; otherwise a fresh ``GridPolicy`` is flax's init
+    from ``k_init``. Training runs on ``device``: by default the key's, else
+    the state's model's, else the card. ``perms``, one permutation of the
+    rows per epoch, replaces the key's.
     """
-    dev = generator.device
-    ts = init_bc_state(init_grid_policy(generator, cfg, channels, hidden)) if state is None else state
+    if device is None:
+        device = (key.device if torch.is_tensor(key)
+                  else _device(state.params) if state is not None else "cuda")
+    dev = torch.device(device)
+    key = key.to(dev) if torch.is_tensor(key) else prng_key(key, device=dev)
+    key, k_init = kd.split_keys(key, 2)
+    ts = init_bc_state(init_grid_policy(k_init, cfg, channels, hidden)) if state is None else state
     data = device_columns(snaps, dev)
     n = snaps.num_rows
     batch_size = min(batch_size, n)
     history = []
     for ep in range(epochs):
-        perm = (torch.randperm(n, generator=generator, device=dev) if perms is None
-                else torch.as_tensor(perms[ep], device=dev))
+        if perms is None:
+            key, perm = kd.split_permutation(key, n)
+        else:
+            perm = torch.as_tensor(perms[ep], device=dev)
         ts, stats = _bc_epoch(cfg, lr, ts, data, perm, batch_size)
         stats = {k: float(v) for k, v in stats.items()}
         history.append(stats)
@@ -181,19 +196,13 @@ def _greedy(cfg: EnvConfig, model: torch.nn.Module, st: EnvState,
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
-def gumbel(shape, generator: torch.Generator) -> torch.Tensor:
-    """Standard Gumbel noise f32 of ``shape`` from ``generator``, on its device
-    (``jax.random.gumbel``: uniforms from the smallest normal f32 up)."""
-    u = torch.rand(shape, generator=generator, device=generator.device)
-    return -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
-
-
 @torch.no_grad()
 def _eval_batch_grid(cfg: EnvConfig, model: torch.nn.Module, state: EnvState,
                      noise: torch.Tensor | None = None) -> dict:
     """One greedy episode per env from ``state``; terminal stats as tensors.
-    With ``noise`` f32[T, B, A] (``gumbel``), step t samples from the
-    policy's softmax instead."""
+    With ``noise`` f32[T, B, A] (Gumbel noise, ``train/ppo.gumbel_noise``),
+    step t samples from the policy's softmax instead, as
+    ``jax.random.categorical`` does."""
     B = state.objects.shape[0]
     dev = state.objects.device
     done = torch.zeros(B, dtype=torch.bool, device=dev)
@@ -213,12 +222,27 @@ def _eval_batch_grid(cfg: EnvConfig, model: torch.nn.Module, state: EnvState,
 def evaluate_grid_policy(cfg: EnvConfig, model: torch.nn.Module, num_episodes: int,
                          seed: int = 0) -> dict:
     """Greedy exact-match evaluation over ``num_episodes`` parallel episodes,
-    reset from a generator seeded ``seed`` on the model's device."""
+    reset from ``split(PRNGKey(seed), num_episodes)`` on the model's device."""
     from gym_craftingworld_tpu_torch.train.evaluate import summarize
 
-    generator = torch.Generator(device=_device(model)).manual_seed(seed)
-    state = reset_from_generator(cfg, num_episodes, generator)
+    state = reset(cfg, kd.split_keys(prng_key(seed, device=_device(model)), num_episodes))
     return summarize(_eval_batch_grid(cfg, model, state))
+
+
+def explore_draws(key: torch.Tensor, T: int, B: int, fold: int | None = None):
+    """The eps-mix draws of a T-step rollout of B envs from JAX's key data
+    ``key``: step ``t``'s key ``k_t = split(key, T)[t]`` (with ``fold``,
+    ``fold_in(k_t, fold)``) splits into ``k_u, k_a``; returns
+    ``uniform(k_u, (B,))`` f32[T, B] and ``randint(k_a, (B,), 0, 4)``
+    int32[T, B], each stage one counter launch over the T plane keys on the
+    card."""
+    k_t = kd.split_keys(key, T)
+    if fold is not None:
+        k_t = kd.counter_draws(k_t, "split", 1, 1, fold, 1)[:, 0, 0]
+    k_ua = kd.counter_draws(k_t, "split", 1, 2, 0, 2)[:, 0]  # [T, 2, 2]
+    u = kd.counter_draws(k_ua[:, 0], "uniform", 1, B, 0, B)[:, 0]
+    a = kd.counter_draws(k_ua[:, 1], "randint", 1, B, 0, B, 0, 4)[:, 0]
+    return u, a
 
 
 # ---------------------------------------------------------------------------
@@ -233,10 +257,11 @@ def _rollout_states(cfg: EnvConfig, model: torch.nn.Module, state: EnvState,
     """Roll the policy greedily (+eps random moves); record snapshot columns.
 
     ``explore_u`` f32[T, B] uniforms and ``explore_a`` int[T, B] moves in
-    0..3, T = ``max_steps``: step t takes ``explore_a[t]`` where
-    ``explore_u[t] < explore_eps``. With ``noise`` f32[T, B, A]
-    (``gumbel``), the policy's action is a draw from its softmax instead of
-    its argmax. Returns ([T, B] column dict, live [T, B],
+    0..3, T = ``max_steps`` (``explore_draws``): step t takes
+    ``explore_a[t]`` where ``explore_u[t] < explore_eps``; None for both
+    draws nothing (JAX's draws at eps 0 change no action). With ``noise``
+    f32[T, B, A] (Gumbel noise), the policy's action is a draw from its
+    softmax instead of its argmax. Returns ([T, B] column dict, live [T, B],
     success [B]); once every episode is done the remaining steps are not run,
     and their rows are zero and not live.
     """
@@ -254,8 +279,9 @@ def _rollout_states(cfg: EnvConfig, model: torch.nn.Module, state: EnvState,
         for k, v in now.items():
             cols[k][t] = v
         action = _greedy(cfg, model, state, None if noise is None else noise[t])
-        # eps-mix random moves for coverage (eps == 0.0 -> uniform < 0, no-op)
-        action = torch.where(explore_u[t] < explore_eps, explore_a[t].to(torch.int32), action)
+        # eps-mix random moves for coverage
+        if explore_u is not None:
+            action = torch.where(explore_u[t] < explore_eps, explore_a[t].to(torch.int32), action)
         st2, res = step(cfg, state, action)
         state = _select(done, state, st2)
         reward = torch.where(done, reward, res.reward)
@@ -283,21 +309,21 @@ def collect_policy_states(cfg: EnvConfig, model: torch.nn.Module, num_episodes: 
 
     ``failures_only`` keeps only salvageable states (no undesired latched
     achievement yet) of episodes that end unsuccessful: the targeted-DAgger
-    collection mode. The resets come from a generator seeded ``seed`` and the
-    exploration draws ``(u, a)`` from one seeded ``seed ^ 0xDA66E4``, both on
-    the model's device, unless ``state`` and ``explore`` pass them in.
+    collection mode. The resets come from ``split(PRNGKey(seed),
+    num_episodes)`` and, where ``explore_eps`` is above 0, the exploration
+    draws ``(u, a)`` from ``PRNGKey(seed ^ 0xDA66E4)`` (``explore_draws``),
+    as JAX draws them, on the model's device, unless ``state`` and
+    ``explore`` pass them in.
 
     Returns ``(cols dict of [N, ...] numpy arrays, success_rate)``.
     """
     dev = _device(model)
     T = cfg.max_steps
     if state is None:
-        state = reset_from_generator(cfg, num_episodes,
-                                     torch.Generator(device=dev).manual_seed(seed))
+        state = reset(cfg, kd.split_keys(prng_key(seed, device=dev), num_episodes))
     if explore is None:
-        g = torch.Generator(device=dev).manual_seed(seed ^ 0xDA66E4)
-        explore = (torch.rand((T, num_episodes), generator=g, device=dev),
-                   torch.randint(0, 4, (T, num_episodes), generator=g, device=dev))
+        explore = (explore_draws(prng_key(seed ^ 0xDA66E4, device=dev), T, num_episodes)
+                   if explore_eps > 0 else (None, None))
     cols, live, success = _rollout_states(cfg, model, state, *explore, float(explore_eps))
     live = live.cpu().numpy()
     if failures_only:
@@ -342,7 +368,7 @@ def expert_relabel(cfg: EnvConfig, cols: dict) -> SnapDataset:
 
 
 def dagger_round(cfg: EnvConfig, ts: BCTrainState, dataset: SnapDataset, round_idx: int,
-                 generator: torch.Generator, num_episodes: int = 512,
+                 key, num_episodes: int = 512,
                  max_states: int = 200_000, epochs: int = 3, batch_size: int = 4096,
                  lr: float = 3e-4, explore_eps: float = 0.02, log=None):
     """One DAgger iteration: rollout → relabel → aggregate → train.
@@ -359,7 +385,7 @@ def dagger_round(cfg: EnvConfig, ts: BCTrainState, dataset: SnapDataset, round_i
         log(f"dagger round {round_idx}: rollout success {sr:.3f}, "
             f"+{labeled.num_rows} rows → {dataset.num_rows} total")
     ts, hist = bc_train_snaps(
-        cfg, dataset, generator, state=ts, epochs=epochs,
+        cfg, dataset, key, state=ts, epochs=epochs,
         batch_size=batch_size, lr=lr, log=log,
     )
     return ts, dataset, {"rollout_success": sr, "history": hist}

@@ -21,9 +21,9 @@ so the expert always recovers.
 
 The dataset, the host extraction, the array expert and ``label_snapshot`` are
 pure numpy, copied from the JAX module (which imports JAX) and pinned to it
-by ``tests/test_torch_api_copies.py``. Each batch's reset is drawn from a
-generator seeded ``seed + 7919 * bi`` where JAX splits
-``PRNGKey(seed + 7919 * bi)``, so the port's worlds differ from JAX's; pass
+by ``tests/test_torch_api_copies.py``. Batch ``bi`` resets from JAX's keys,
+``split(PRNGKey(seed + 7919 * bi), B)`` (``core/reset.reset``, the reset
+kernel on the card), so the demonstrations equal JAX's bit for bit; pass
 ``resets`` to collect from given reset states.
 """
 
@@ -37,8 +37,10 @@ import torch
 from gym_craftingworld_tpu_torch import constants as C
 from gym_craftingworld_tpu_torch.agents.expert import ExpertPolicy
 from gym_craftingworld_tpu_torch.config import EnvConfig
-from gym_craftingworld_tpu_torch.core.reset import reset_from_generator
+from gym_craftingworld_tpu_torch.core.reset import reset
 from gym_craftingworld_tpu_torch.core.step import step as core_step
+from gym_craftingworld_tpu_torch.ops.keyed_draws import split_keys
+from gym_craftingworld_tpu_torch.ops.threefry import prng_key
 
 _BITS9 = (1 << np.arange(C.N_TASKS, dtype=np.int64)).astype(np.int64)
 _DELTAS = C.ACTION_DELTAS[:4]
@@ -329,9 +331,10 @@ def collect_expert_demos(
     """Expert demonstrations over lockstep batches of the grid step on ``device``.
 
     Resets draw the canonical distribution (stacked task sets per
-    craftingworld_ray.py:169-176; worlds per :599-628) from a generator
-    seeded ``seed + 7919 * bi`` for batch ``bi``; ``resets``, a sequence of
-    one ``EnvState`` per batch, replaces those draws. Episodes where the
+    craftingworld_ray.py:169-176; worlds per :599-628) from the keys
+    ``split(PRNGKey(seed + 7919 * bi), B)`` for batch ``bi``, as JAX does;
+    ``resets``, a sequence of one ``EnvState`` per batch, replaces those
+    draws. Episodes where the
     expert did not reach the exact-match reward are dropped when
     ``only_successful``.
     """
@@ -343,8 +346,7 @@ def collect_expert_demos(
     for bi in range(n_batches):
         B = min(batch, num_episodes - bi * batch)
         if resets is None:
-            gen = torch.Generator(device=device).manual_seed(seed + 7919 * bi)
-            state = reset_from_generator(cfg, B, gen)
+            state = reset(cfg, split_keys(prng_key(seed + 7919 * bi, device=device), B))
         else:
             state = resets[bi]
         snaps, _, success = collect_batch(cfg, state, wrng, experts, noise_eps, only_successful)

@@ -19,8 +19,9 @@ What the port does differently:
   and ``permutation(k_e, T*B)`` over ``split(k_perm, update_epochs)``, sorted
   on the device. The pure functions take the noise ``noise`` f32[T, B, 6]
   and the permutations ``perms`` int[update_epochs, T*B] explicitly, so a
-  test can pass JAX's draws in. The parameters' init stays on a
-  ``torch.Generator`` (flax's truncated-normal ``lecun_normal``).
+  test can pass JAX's draws in. ``init_train_state`` takes key data too
+  and draws the family's parameters as flax's ``model.init`` does
+  (``models/flax_rng.py``).
 * A policy is a ``torch.nn.Module`` holding its parameters (flax's names and
   layouts, ``models/layers.py``); the optimizer is the hand-written clip +
   Adam of ``train/fast_ppo.py`` on its named parameters, applied in place.
@@ -143,9 +144,9 @@ def make_optimizer(ppo: PPOConfig) -> fast_ppo.Optimizer:
     return fast_ppo.make_optimizer(ppo)
 
 
-def init_train_state(generator: torch.Generator, cfg: EnvConfig, ppo: PPOConfig) -> TrainState:
-    """The family's module, drawn from ``generator`` on its device, and a
-    fresh optimizer state."""
+def init_train_state(key: torch.Tensor, cfg: EnvConfig, ppo: PPOConfig) -> TrainState:
+    """The family's module, flax's init from JAX's key data ``key`` on the
+    key's device, and a fresh optimizer state."""
     if ppo.policy == "cnn":
         from gym_craftingworld_tpu_torch.models.cnn import init_params
     elif ppo.policy == "vit":
@@ -153,7 +154,7 @@ def init_train_state(generator: torch.Generator, cfg: EnvConfig, ppo: PPOConfig)
     else:
         from gym_craftingworld_tpu_torch.models.actor_critic import init_params
 
-    params = init_params(generator, cfg.height, cfg.width, ppo.hidden)
+    params = init_params(key, cfg.height, cfg.width, ppo.hidden)
     return TrainState(params, make_optimizer(ppo).init(dict(params.named_parameters())), 0)
 
 

@@ -18,7 +18,7 @@ What the port does differently, as ``train/ppo.py`` does:
   kernel for the T steps' uniforms), and ``permutation(k_e, B)`` over the
   env axis for each ``k_e`` of ``split(k_perm, update_epochs)``. Both are
   drawn from the key unless passed in, so a test can pass JAX's draws. The
-  GRU's init stays on a ``torch.Generator``.
+  GRU's init is flax's from the same kind of key (``models/flax_rng.py``).
 
 A done env restarts from its own ``rng`` key, as in JAX (``ppo_rnn.py:100``).
 """
@@ -76,14 +76,15 @@ def _features(snap: Snapshot) -> torch.Tensor:
                       snap.achieved.to(f32)], dim=-1)
 
 
-def init_rnn_train_state(generator: torch.Generator, cfg: EnvConfig, ppo: PPOConfig,
+def init_rnn_train_state(key: torch.Tensor, cfg: EnvConfig, ppo: PPOConfig,
                          batch_size: int) -> RnnTrainState:
-    """The GRU actor-critic drawn from ``generator`` on its device, a fresh
-    optimizer state, a zero hidden state and no episode boundary."""
-    params = init_params(generator, feature_dim(cfg.height, cfg.width), ppo.hidden)
+    """The GRU actor-critic, flax's init from JAX's key data ``key`` on the
+    key's device, a fresh optimizer state, a zero hidden state and no
+    episode boundary."""
+    params = init_params(key, feature_dim(cfg.height, cfg.width), ppo.hidden)
     opt_state = make_optimizer(ppo).init(dict(params.named_parameters()))
     return RnnTrainState(params, opt_state, params.initial_state(batch_size),
-                         torch.zeros((batch_size,), dtype=torch.bool, device=generator.device), 0)
+                         torch.zeros((batch_size,), dtype=torch.bool, device=key.device), 0)
 
 
 def _collect(cfg: EnvConfig, ppo: PPOConfig, params: RecurrentActorCritic, env_state: EnvState,

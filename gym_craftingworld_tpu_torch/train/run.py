@@ -91,9 +91,8 @@ def main(argv=None):
                     policy=args.policy)
 
     env_state = reset_sharded(cfg, args.seed, args.envs, mesh)
-    # the flax families' init stays on a generator (flax's truncated normal
-    # is not ported); the step key is JAX's PRNGKey(seed + 1), on the device
-    ts = init_train_state(torch.Generator(device=mesh.device).manual_seed(args.seed), cfg, ppo)
+    # flax's init from JAX's PRNGKey(seed), the step key PRNGKey(seed + 1), on the device
+    ts = init_train_state(prng_key(args.seed, device=mesh.device), cfg, ppo)
     key = prng_key(args.seed + 1, device=mesh.device)
 
     start_u = 0

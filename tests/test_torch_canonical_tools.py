@@ -28,6 +28,8 @@ from gym_craftingworld_tpu.train import demos as jdemos
 from gym_craftingworld_tpu_torch import interop
 from gym_craftingworld_tpu_torch.core.state import EnvState
 from gym_craftingworld_tpu_torch.models.grid_policy import GridPolicy, init_grid_policy
+from gym_craftingworld_tpu_torch.ops import keyed_draws as kd
+from gym_craftingworld_tpu_torch.ops.threefry import prng_key
 from gym_craftingworld_tpu_torch.tools import _canonical as cn
 from gym_craftingworld_tpu_torch.tools import (collect_canonical_demos, fast_pixel_canonical,
                                                targeted_dagger, train_canonical)
@@ -152,8 +154,7 @@ def test_mixed_rows_distribution(frac_fail):
     ``frac_fail`` 0 every tenth of the rows holds a tenth of the draws, within
     4 sigma; every id lies below ``n_valid``."""
     n, n_valid, fail_lo = 400_000, 1000, 800
-    g = torch.Generator().manual_seed(11)
-    idx = cn.mixed_rows(n, n_valid, fail_lo, frac_fail, g).numpy()
+    idx = cn.mixed_rows(n, n_valid, fail_lo, frac_fail, prng_key(11)).numpy()
     assert idx.shape == (n,) and idx.min() >= 0 and idx.max() < n_valid
     p = frac_fail + (1 - frac_fail) * (n_valid - fail_lo) / n_valid
     share = float((idx >= fail_lo).mean())
@@ -161,27 +162,27 @@ def test_mixed_rows_distribution(frac_fail):
     if frac_fail == 0:
         counts = np.bincount(idx // (n_valid // 10), minlength=10)
         assert np.all(np.abs(counts - n / 10) <= 4 * np.sqrt(n * 0.1 * 0.9)), counts
-        again = cn.mixed_rows(n, n_valid, n_valid, 0.5, torch.Generator().manual_seed(11))
+        again = cn.mixed_rows(n, n_valid, n_valid, 0.5, prng_key(11))
         assert torch.equal(again, torch.from_numpy(idx))  # no row past fail_lo: uniform
 
 
 def test_train_chunk_is_an_epoch_over_uniform_rows(snaps):
-    """``train_chunk`` is ``_bc_epoch`` over ``steps x batch`` ids drawn
-    uniformly below ``n_valid`` from the generator; one Adam state runs on
-    across a change of learning rate (BC to DAgger), as in JAX."""
+    """``train_chunk`` is ``_bc_epoch`` over the ``steps x batch`` ids
+    ``randint(key, ..., 0, n_valid)``; one Adam state runs on across a change
+    of learning rate (BC to DAgger), as in JAX."""
     cfg = tcfg(CFG)
     data = cn.pad_columns(snaps, snaps.num_rows + 100, "cpu")
     runs = []
     for manual in (False, True):
-        g = torch.Generator().manual_seed(4)
-        ts = tdagger.init_bc_state(init_grid_policy(g, cfg, 8, 32))
-        for lr in (1e-3, 3e-4):
+        ts = tdagger.init_bc_state(init_grid_policy(prng_key(4), cfg, 8, 32))
+        for i, lr in enumerate((1e-3, 3e-4)):
+            k = prng_key(40 + i)
             if manual:
-                idx = torch.randint(0, snaps.num_rows, (3 * 64,), generator=g)
+                idx = kd.randint(k, (3 * 64,), 0, snaps.num_rows)
                 ts, stats = tdagger._bc_epoch(cfg, lr, ts, data, idx, 64)
                 stats = {k: float(v) for k, v in stats.items()}
             else:
-                ts, stats = cn.train_chunk(cfg, ts, data, snaps.num_rows, 3, 64, lr, g)
+                ts, stats = cn.train_chunk(cfg, ts, data, snaps.num_rows, 3, 64, lr, k)
         runs.append((ts, stats))
     (a, sa), (b, sb) = runs
     assert sa == sb and int(a.opt_state.count) == 6
@@ -191,10 +192,10 @@ def test_train_chunk_is_an_epoch_over_uniform_rows(snaps):
 
 def test_params_round_trip(tmp_path):
     cfg = tcfg(CFG)
-    model = init_grid_policy(torch.Generator().manual_seed(0), cfg, 8, 32)
+    model = init_grid_policy(prng_key(0), cfg, 8, 32)
     path = cn.save_params(model, tmp_path, "x")
     assert path.name == "params_x.pt"
-    other = cn.load_params(init_grid_policy(torch.Generator().manual_seed(1), cfg, 8, 32), path)
+    other = cn.load_params(init_grid_policy(prng_key(1), cfg, 8, 32), path)
     for (k, x), (_, y) in zip(model.named_parameters(), other.named_parameters()):
         assert torch.equal(x, y), k
 

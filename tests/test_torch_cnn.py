@@ -15,6 +15,7 @@ import gym_craftingworld_tpu as jcw
 from gym_craftingworld_tpu.models import cnn as jcnn
 from gym_craftingworld_tpu_torch import interop
 from gym_craftingworld_tpu_torch.models import cnn as tcnn
+from gym_craftingworld_tpu_torch.ops.threefry import prng_key
 
 from test_torch_packed_rollout import np_tree
 from test_torch_render import stepped_state
@@ -83,8 +84,8 @@ def test_pixel_obs_and_student_images_byte_exact():
 
 def test_init_params_draw_flax_shapes():
     """The port's initialisers give every parameter the flax tree's name and
-    shape, on the generator's device."""
-    g = torch.Generator().manual_seed(0)
+    shape, on the key's device."""
+    g = prng_key(0)
     for port, (_, v) in ((tcnn.init_params(g, 8, 8, 32), jcnn.init_params(jax.random.PRNGKey(0), 8, 8, 32)),
                          (tcnn.init_student(g, jcw.flat_config(), 16, 64, 8),
                           jcnn.init_student(jax.random.PRNGKey(0), jcw.flat_config(), 16, 64, 8))):

@@ -22,6 +22,7 @@ from gym_craftingworld_tpu_torch import interop
 from gym_craftingworld_tpu_torch.models import actor_critic as tac
 from gym_craftingworld_tpu_torch.models import cpv as tcpv
 from gym_craftingworld_tpu_torch.models import grid_policy as tgp
+from gym_craftingworld_tpu_torch.ops.threefry import prng_key
 
 from test_torch_packed_rollout import np_tree, tcfg
 
@@ -97,7 +98,7 @@ def test_cpv_grid_policy_reads_goal_only_through_plan_vector():
     goal and residual planes (channels 18+) or the residual scalars
     (``extras[22:-2]``) changes nothing, flipping a desired bit does."""
     cfg = tcfg(CFG)
-    port = tcpv.init_cpv_grid(torch.Generator().manual_seed(0), cfg, channels=8, hidden=32)
+    port = tcpv.init_cpv_grid(prng_key(0), cfg, channels=8, hidden=32)
     _, tst = mid_episode(seed=1, steps=0, batch=4)
     planes, extras = tgp.planes_from_state(cfg, tst)
     g = torch.Generator().manual_seed(2)
@@ -158,7 +159,7 @@ def test_flax_tree_round_trips(name):
     assert jax.tree.structure(back) == jax.tree.structure(tree)
     for got, want in zip(jax.tree.leaves(back), jax.tree.leaves(tree)):
         np.testing.assert_array_equal(got, want)
-    drawn = make_port(torch.Generator().manual_seed(0))
+    drawn = make_port(prng_key(0))
     assert jax.tree.map(np.shape, interop.flax_params_to_numpy(drawn)) == \
         jax.tree.map(np.shape, tree)
     E = drawn.task_embed.detach()

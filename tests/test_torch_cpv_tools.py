@@ -9,7 +9,9 @@ start states, expert collection, relabels, the salvageable filter) must
 match bit for bit and leave the shared RandomState where JAX's leaves it;
 greedy rollouts match on the envs where the two bf16 forwards order the
 logits alike at every visited state; ``sample`` and ``argmax_eps`` draw
-from torch generators, not JAX's keys, and are held to their distributions.
+from JAX's keys (held to JAX's draws bit for bit by
+``tests/test_torch_keyed_imitation.py``) and are held to their
+distributions here.
 Each tool's ``main`` also runs tiny with ``--device cpu``.
 """
 
@@ -33,6 +35,7 @@ from gym_craftingworld_tpu_torch import interop
 from gym_craftingworld_tpu_torch.api.gym_env import CraftingWorldEnvRay as TEnv
 from gym_craftingworld_tpu_torch.core.state import EnvState
 from gym_craftingworld_tpu_torch.models import grid_policy as tgp
+from gym_craftingworld_tpu_torch.ops.threefry import prng_key
 from gym_craftingworld_tpu_torch.tools import _cpv
 from gym_craftingworld_tpu_torch.tools import cpv_canonical as cc
 from gym_craftingworld_tpu_torch.tools import cpv_matrix as cm
@@ -278,9 +281,8 @@ def test_argmax_rollout_and_cell_success_match_jax(jcc, pool, trained):
     cols, live, succ = jcc._rollout_from(CFG, model, params, js, jax.random.PRNGKey(0), "argmax")
     ok = agreeing(model, params, port, cols, live)
     assert ok.sum() >= 30
-    g = torch.Generator().manual_seed(0)
     tcols, tlive, tsucc = tdagger._rollout_states(tcfg(CFG), port, ts,
-                                                  *cc.mode_draws("argmax", 60, 32, g))
+                                                  *cc.mode_draws("argmax", 60, 32, prng_key(0)))
     live_j = np.asarray(live)
     np.testing.assert_array_equal(tlive.numpy()[:, ok], live_j[:, ok])
     for k, v in tcols.items():  # the live rows; the port leaves rows past the end zero
@@ -301,7 +303,7 @@ def test_argmax_rollout_and_cell_success_match_jax(jcc, pool, trained):
     assert ok.sum() >= n - 2
     want, _ = jcc._success_from(CFG, model, params, js, jax.random.PRNGKey(seed + 17), "argmax")
     ts = interop.env_state_from_numpy(np_tree(js), device="cpu")
-    got, _ = cc._success_from(tcfg(CFG), port, ts, "argmax", torch.Generator().manual_seed(0))
+    got, _ = cc._success_from(tcfg(CFG), port, ts, "argmax", prng_key(seed + 17))
     np.testing.assert_array_equal(got.numpy()[ok], np.asarray(want)[ok])
     assert 0 < np.asarray(want).sum() < n
     if ok.all():
@@ -327,7 +329,7 @@ def test_bc_train_snaps_one_epoch_of_the_cpv_policy_matches_jax(trained):
     key, _ = jax.random.split(key)
     _, k_perm = jax.random.split(key)
     perm = np.array(jax.random.permutation(k_perm, snaps.num_rows))
-    tts, th = tdagger.bc_train_snaps(tcfg(CFG), snaps, torch.Generator(),
+    tts, th = tdagger.bc_train_snaps(tcfg(CFG), snaps, prng_key(7),
                                      state=interop.bc_train_state_from_numpy(params, opt_state,
                                                                              device="cpu"),
                                      epochs=1, batch_size=256, lr=3e-4, perms=[perm])
@@ -386,7 +388,7 @@ def test_sample_draws_follow_the_softmax(pool):
     logits = [1.0, 0.0, -1.0, 2.0, 0.5, -3.0]
     p = torch.softmax(torch.tensor(logits), 0).numpy()
     T, B = 60, 2000
-    _, _, eps, noise = cc.mode_draws("sample", T, B, torch.Generator().manual_seed(3))
+    _, _, eps, noise = cc.mode_draws("sample", T, B, prng_key(3))
     assert eps == 0.0 and noise.shape == (T, B, 6)
     ts, _ = cc.build_start_states(tcfg(CFG), *pool, np.arange(B) % 16, [0] * B, [[]] * B,
                                   np.random.RandomState(0), "cpu")
@@ -401,7 +403,7 @@ def test_argmax_eps_moves_five_percent():
     """``argmax_eps``: 5% of the steps take a random move, each of the four
     moves a quarter of them, within 4 binomial sigma; ``argmax`` none."""
     T, B = 300, 4000
-    u, a, eps, noise = cc.mode_draws("argmax_eps", T, B, torch.Generator().manual_seed(5))
+    u, a, eps, noise = cc.mode_draws("argmax_eps", T, B, prng_key(5))
     assert eps == 0.05 and noise is None
     moved = (u < eps).numpy()
     n = moved.size
@@ -410,8 +412,8 @@ def test_argmax_eps_moves_five_percent():
     assert picks.min() >= 0 and picks.max() <= 3
     share = np.bincount(picks, minlength=4) / len(picks)
     assert np.all(np.abs(share - 0.25) <= 4 * np.sqrt(0.25 * 0.75 / len(picks))), share
-    u, _, eps, noise = cc.mode_draws("argmax", T, B, torch.Generator().manual_seed(5))
-    assert not bool((u < eps).any()) and noise is None
+    u, a, eps, noise = cc.mode_draws("argmax", T, B, prng_key(5))
+    assert u is None and a is None and eps == 0.0 and noise is None
 
 
 def test_salvageable_filter_matches_jax(jcc, monkeypatch):

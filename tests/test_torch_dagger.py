@@ -25,6 +25,7 @@ from gym_craftingworld_tpu_torch import interop
 from gym_craftingworld_tpu_torch.models import cpv as tcpv
 from gym_craftingworld_tpu_torch.models import grid_policy as tgp
 from gym_craftingworld_tpu_torch.ops import packed_fused as pf
+from gym_craftingworld_tpu_torch.ops.threefry import prng_key
 from gym_craftingworld_tpu_torch.train import dagger as tdagger
 from gym_craftingworld_tpu_torch.train import evaluate as tev
 
@@ -99,7 +100,7 @@ def test_bc_train_snaps_one_epoch_matches_jax(trained):
     _, k_perm = jax.random.split(key)
     perm = np.array(jax.random.permutation(k_perm, snaps.num_rows))
     calls = pf.rollout_packed_actions_plain.calls
-    tts, th = tdagger.bc_train_snaps(tcfg(CFG), snaps, torch.Generator(), state=port_state(ts),
+    tts, th = tdagger.bc_train_snaps(tcfg(CFG), snaps, prng_key(7), state=port_state(ts),
                                      epochs=1, batch_size=256, lr=3e-4, perms=[perm])
     assert pf.rollout_packed_actions_plain.calls == calls
     np.testing.assert_allclose(th[0]["loss"], jh[0]["loss"], rtol=1e-3, atol=1e-3)
@@ -191,14 +192,14 @@ def test_bc_train_snaps_and_dagger_round_smoke(trained):
     trains through ``state``, and one DAgger round grows the dataset."""
     snaps = trained[0]
     cfg = tcfg(CFG)
-    g = torch.Generator().manual_seed(0)
-    ts, hist = tdagger.bc_train_snaps(cfg, snaps, g, epochs=3, batch_size=256, channels=16,
-                                      hidden=64)
+    ts, hist = tdagger.bc_train_snaps(cfg, snaps, prng_key(0), epochs=3, batch_size=256,
+                                      channels=16, hidden=64)
     assert hist[-1]["loss"] < hist[0]["loss"]
-    cpv = tdagger.init_bc_state(tcpv.init_cpv_grid(g, cfg, channels=8, hidden=32, embed_dim=8))
-    cts, chist = tdagger.bc_train_snaps(cfg, snaps, g, state=cpv, epochs=2, batch_size=256)
+    cpv = tdagger.init_bc_state(tcpv.init_cpv_grid(prng_key(1), cfg, channels=8, hidden=32,
+                                                   embed_dim=8))
+    cts, chist = tdagger.bc_train_snaps(cfg, snaps, 2, state=cpv, epochs=2, batch_size=256)
     assert chist[-1]["loss"] < chist[0]["loss"] and int(cts.opt_state.count) > 0
-    ts, dataset, info = tdagger.dagger_round(cfg, ts, snaps, round_idx=0, generator=g,
+    ts, dataset, info = tdagger.dagger_round(cfg, ts, snaps, round_idx=0, key=prng_key(3),
                                              num_episodes=8, max_states=200, epochs=1,
                                              batch_size=256)
     assert snaps.num_rows < dataset.num_rows <= snaps.num_rows + 200

@@ -26,6 +26,7 @@ from gym_craftingworld_tpu_torch import interop
 from gym_craftingworld_tpu_torch.models import actor_critic as tac
 from gym_craftingworld_tpu_torch.models import cpv as tcpv
 from gym_craftingworld_tpu_torch.ops import packed_fused as pf
+from gym_craftingworld_tpu_torch.ops.threefry import prng_key
 from gym_craftingworld_tpu_torch.train import bc as tbc
 from gym_craftingworld_tpu_torch.train import demos as tdemos
 
@@ -86,9 +87,10 @@ def test_snap_dataset_save_load_concat(snaps):
 
 
 def test_collect_expert_demos_draws_its_own_resets():
-    """Without ``resets`` the port draws each batch from a generator seeded
-    ``seed + 7919 * bi``: the same seed gives the same dataset, and the
-    expert solves nearly every episode."""
+    """Without ``resets`` the port resets each batch from JAX's keys
+    ``split(PRNGKey(seed + 7919 * bi), B)``: the same seed gives the same
+    dataset, and the expert solves nearly every episode (JAX's own
+    dataset: tests/test_torch_keyed_imitation.py)."""
     kw = dict(num_episodes=10, seed=5, noise_eps=0.05, batch=6, device="cpu")
     a = tdemos.collect_expert_demos(tcfg(CFG), **kw)
     b = tdemos.collect_expert_demos(tcfg(CFG), **kw)
@@ -141,7 +143,7 @@ def test_bc_train_matches_jax(demos):
         key, k = jax.random.split(key)
         perms.append(np.array(jax.random.permutation(k, want_d.actions.shape[0])))
     port = interop.actor_critic_from_numpy(host(v), device="cpu")
-    out, tm = tbc.bc_train(got_d, torch.Generator(), 8, 8, epochs=3, batch_size=64, lr=1e-3,
+    out, tm = tbc.bc_train(got_d, prng_key(5), 8, 8, epochs=3, batch_size=64, lr=1e-3,
                            model=port, perms=perms)
     assert out is port and len(tm["loss"]) == 3
     np.testing.assert_allclose(tm["loss"], jm["loss"], rtol=1e-3)
@@ -149,16 +151,15 @@ def test_bc_train_matches_jax(demos):
     assert abs(tm["accuracy"] - jm["accuracy"]) * n <= 2
     assert tm["loss"][-1] < tm["loss"][0]
     with pytest.raises(ValueError, match="feature width"):
-        tbc.bc_train(got_d, torch.Generator(), 7, 7, epochs=1)
+        tbc.bc_train(got_d, prng_key(5), 7, 7, epochs=1)
 
 
 def test_bc_train_fresh_and_evaluate(demos):
-    """A fresh clone drawn from the generator (the default ``ActorCritic``
-    and a ``CPVPolicy``) learns; greedy evaluation of the same parameters
-    through each package's façade in parity mode gives JAX's summary."""
+    """A fresh clone drawn from the key (the default ``ActorCritic`` and a
+    ``CPVPolicy``) learns; greedy evaluation of the same parameters through
+    each package's façade in parity mode gives JAX's summary."""
     got_d, _ = demos
-    g = torch.Generator().manual_seed(0)
-    model, m = tbc.bc_train(got_d, g, 8, 8, hidden=32, epochs=4, batch_size=64)
+    model, m = tbc.bc_train(got_d, prng_key(0), 8, 8, hidden=32, epochs=4, batch_size=64)
     assert m["loss"][-1] < m["loss"][0] and 0.0 <= m["accuracy"] <= 1.0
     assert m["accuracy"] == tbc.bc_accuracy(model, got_d)
     jmodel = jac.ActorCritic(hidden=32)
@@ -167,8 +168,8 @@ def test_bc_train_fresh_and_evaluate(demos):
     assert tbc.evaluate_bc(model, 2, seed=3, device="cpu", **ENV) == want
     stacked = tbc.evaluate_bc_stacked(model, 1, seed=3, device="cpu", **ENV)
     assert stacked["episodes"] == 1 and 0.0 <= stacked["success_rate"] <= 1.0
-    cpv_model, cm = tbc.bc_train(got_d, g, 8, 8, epochs=2, batch_size=64,
-                                 model=tcpv.init_cpv(g, 8, 8, embed_dim=8, hidden=32))
+    cpv_model, cm = tbc.bc_train(got_d, prng_key(2), 8, 8, epochs=2, batch_size=64,
+                                 model=tcpv.init_cpv(prng_key(1), 8, 8, embed_dim=8, hidden=32))
     assert cm["loss"][-1] < cm["loss"][0]
     jcpv_model = jcpv.CPVPolicy(height=8, width=8, embed_dim=8, hidden=32)
     assert jbc.bc_accuracy(jcpv_model, interop.flax_params_to_numpy(cpv_model), got_d) == \

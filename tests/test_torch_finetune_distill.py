@@ -28,6 +28,7 @@ from gym_craftingworld_tpu.models import grid_policy as jgp
 from gym_craftingworld_tpu.train import dagger as jdagger
 from gym_craftingworld_tpu_torch import interop
 from gym_craftingworld_tpu_torch.models.grid_policy import planes_from_snaps, snap_columns_from_state
+from gym_craftingworld_tpu_torch.ops.threefry import prng_key
 from gym_craftingworld_tpu_torch.tools import _canonical
 from gym_craftingworld_tpu_torch.tools import cpv_canonical as cc
 from gym_craftingworld_tpu_torch.tools import finetune_canonical as ftc
@@ -595,7 +596,7 @@ def test_finetune_main_writes_the_jax_record_keys(tmp_path):
     assert [c["update"] for c in doc["curve"]] == [0, 2] and len(out["updates"]) == 2
     assert out["policy_head_after_warmup"] is True
     if doc["best_checkpoint"] == "start":
-        fresh = ftc.init_grid_policy(torch.Generator().manual_seed(0), ftc.EnvConfig(
+        fresh = ftc.init_grid_policy(prng_key(0), ftc.EnvConfig(
             height=8, width=8, max_steps=40), 8, 32)
         got = out["model"].state_dict()
         assert all(torch.equal(v, got[k]) for k, v in fresh.state_dict().items())

@@ -18,6 +18,7 @@ from gym_craftingworld_tpu.train import dagger as jdagger
 from gym_craftingworld_tpu.train import demos as jdemos
 from gym_craftingworld_tpu_torch import interop
 from gym_craftingworld_tpu_torch.models import grid_policy as tgp
+from gym_craftingworld_tpu_torch.ops.threefry import prng_key
 from gym_craftingworld_tpu_torch.train import demos as tdemos
 
 from test_torch_packed_rollout import np_tree, tcfg
@@ -165,6 +166,6 @@ def test_flax_tree_round_trips():
     for got, want in zip(jax.tree.leaves(back), jax.tree.leaves(tree)):
         assert got.dtype == np.float32
         np.testing.assert_array_equal(got, want)
-    drawn = tgp.init_grid_policy(torch.Generator().manual_seed(0), tcfg(cfg), 8, 32)
+    drawn = tgp.init_grid_policy(prng_key(0), tcfg(cfg), 8, 32)
     assert jax.tree.map(np.shape, interop.flax_params_to_numpy(drawn)) == \
         jax.tree.map(np.shape, tree)

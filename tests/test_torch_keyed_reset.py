@@ -247,9 +247,12 @@ def jax_digests() -> dict:
 
 
 def test_digests_are_jax():
-    assert json.loads(DIGESTS.read_text()) == jax_digests()
+    want = jax_digests()
+    assert {k: v for k, v in json.loads(DIGESTS.read_text()).items() if k in want} == want
 
 
 if __name__ == "__main__":
-    DIGESTS.write_text(json.dumps(jax_digests(), indent=1) + "\n")
+    digests = json.loads(DIGESTS.read_text())  # the inits' entries stay (test_torch_keyed_init.py)
+    digests.update(jax_digests())
+    DIGESTS.write_text(json.dumps(digests, indent=1) + "\n")
     print(f"wrote {DIGESTS}", file=sys.stderr)

@@ -15,6 +15,7 @@ import torch
 from flax import linen as nn
 
 from gym_craftingworld_tpu_torch.models import layers as L
+from gym_craftingworld_tpu_torch.ops.threefry import prng_key
 
 torch.set_num_threads(1)
 
@@ -153,8 +154,8 @@ def test_attention_matches_flax():
 
 def test_lecun_normal_draws():
     """flax's default kernel init: truncated at two standard deviations,
-    variance 1/fan_in."""
-    g = torch.Generator().manual_seed(0)
-    x = L.lecun_normal(g, (256, 512), 256)
+    variance 1/fan_in (from JAX's key data; its values against flax's in
+    tests/test_torch_keyed_init.py)."""
+    x = L.lecun_normal(prng_key(0), (256, 512), 256)
     assert abs(float(x.std()) - 1 / 16) < 2e-3
     assert float(x.abs().max()) <= 2 / 16 / L._TRUNC_STD + 1e-6

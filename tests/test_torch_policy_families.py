@@ -133,7 +133,7 @@ def test_flax_tree_round_trips(name):
     for got, want in zip(jax.tree.leaves(back), jax.tree.leaves(tree)):
         assert got.dtype == np.float32 and got.shape == want.shape
         np.testing.assert_array_equal(got, want)
-    drawn = interop.flax_params_to_numpy(make_port(torch.Generator().manual_seed(0)))
+    drawn = interop.flax_params_to_numpy(make_port(prng_key(0)))
     assert jax.tree.map(np.shape, drawn) == jax.tree.map(np.shape, tree)
 
 
@@ -192,8 +192,7 @@ def test_ppo_loss_and_grad_match_jax(policy):
 def test_train_step_runs_and_updates(policy):
     cfg = tcfg(CFG)
     _, tp, _, _ = family(policy)
-    g = torch.Generator().manual_seed(0)
-    ts = tppo.init_train_state(g, cfg, tp)
+    ts = tppo.init_train_state(prng_key(0), cfg, tp)
     before = {k: p.detach().clone() for k, p in ts.params.named_parameters()}
     st = treset(cfg, split_keys(prng_key(0), 32))
     calls = pf.rollout_packed_actions_plain.calls

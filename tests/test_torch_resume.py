@@ -125,7 +125,7 @@ def test_two_ranks_give_the_one_rank_metrics(full, tmp_path):
         for k in ("loss", "pg_loss", "v_loss", "entropy"):
             np.testing.assert_allclose(two[u][k], full[u][k], rtol=1e-3, atol=2e-5, err_msg=k)
     # the 2-rank checkpoint resumes in one process: its two env shards are one batch
-    ts = tppo.init_train_state(torch.Generator().manual_seed(0), tcfg(jcw.EnvConfig(6, 6, 16)),
+    ts = tppo.init_train_state(prng_key(0), tcfg(jcw.EnvConfig(6, 6, 16)),
                                tppo.PPOConfig(rollout_steps=8, hidden=16))
     ts, env, key, step = checkpoint.restore(str(tmp_path / "step_2"), ts, "cpu")
     assert step == 2 and ts.update_idx == 2 and tuple(env.objects.shape) == (32, 6, 6)
@@ -135,12 +135,12 @@ def test_two_ranks_give_the_one_rank_metrics(full, tmp_path):
 def test_checkpoint_round_trip(tmp_path):
     cfg = tcfg(jcw.flat_config())
     ppo = tppo.PPOConfig(rollout_steps=4, num_minibatches=2, hidden=16)
-    ts = tppo.init_train_state(torch.Generator().manual_seed(1), cfg, ppo)
+    ts = tppo.init_train_state(prng_key(1), cfg, ppo)
     env = tppo.reset(cfg, split_keys(prng_key(1), 8))
     ts, env, key, _ = tppo.train_step(cfg, ppo, ts, env, prng_key(2))
     checkpoint.save(str(tmp_path / "step_1"), ts, env, key, step=1)
 
-    ts2 = tppo.init_train_state(torch.Generator().manual_seed(9), cfg, ppo)
+    ts2 = tppo.init_train_state(prng_key(9), cfg, ppo)
     ts2, env2, key2, step = checkpoint.restore(str(tmp_path / "step_1"), ts2, "cpu")
     assert step == 1 and ts2.update_idx == 1
     assert torch.equal(key2, key)  # the key data the run goes on from

@@ -87,7 +87,7 @@ def test_flax_tree_round_trips():
     assert jax.tree.structure(back) == jax.tree.structure(tree)
     for got, want in zip(jax.tree.leaves(back), jax.tree.leaves(tree)):
         np.testing.assert_array_equal(got, want)
-    drawn = trnn.init_params(torch.Generator().manual_seed(0), D, hidden=16)
+    drawn = trnn.init_params(prng_key(0), D, hidden=16)
     assert jax.tree.map(np.shape, interop.flax_params_to_numpy(drawn)) == \
         jax.tree.map(np.shape, tree)
     for name in ("hr", "hz", "hn"):
@@ -165,8 +165,7 @@ def test_train_step_rnn_draws_and_resets():
     finite."""
     cfg = tcfg(CFG)
     p = tppo.PPOConfig(rollout_steps=6, num_minibatches=2, hidden=16)
-    g = torch.Generator().manual_seed(4)
-    ts = tpr.init_rnn_train_state(g, cfg, p, 8)
+    ts = tpr.init_rnn_train_state(prng_key(4), cfg, p, 8)
     assert not ts.prev_done.any() and not ts.hidden.any()
     before = {k: v.detach().clone() for k, v in ts.params.named_parameters()}
     st = treset(cfg, split_keys(prng_key(4), 8))

@@ -190,7 +190,6 @@ def sharded_train_run(mesh) -> dict:
     from gym_craftingworld_tpu_torch.train import ppo as tppo
 
     cfg = flat_config()
-    gen = lambda seed: torch.Generator().manual_seed(seed)
     local = (lambda env: env) if mesh is None else (lambda env: se.shard_packed(env, mesh))
     cols = (lambda B: slice(None)) if mesh is None else mesh.cols
     res = {}
@@ -231,7 +230,7 @@ def sharded_train_run(mesh) -> dict:
     env = (reset_from_seed(cfg, 2, 32, device="cpu") if mesh is None
            else reset_sharded(cfg, 2, 32, mesh))
     _, apply_fn = tppo.make_policy(pp)
-    run("ppo", tppo.init_train_state(gen(1), cfg, pp), env,
+    run("ppo", tppo.init_train_state(prng_key(1), cfg, pp), env,
         lambda ts, env, k: tppo.rollout_phase(cfg, pp, ts, env, k, mesh),
         lambda ts, r: tppo.minibatch_grads(pp, apply_fn, ts.params, *next(tppo.minibatches(
             pp, *r, mesh)), mesh),
