@@ -43,7 +43,8 @@ nothing of JAX. Phases, each of which must pass:
    record, and the phase fails if no session of five is sound;
 6. timings with CUDA events, median of 5 runs after a warm-up; the bench
    kernel's long-T rate at B=16,384 and 131,072 with its share of both
-   issue bounds;
+   issue bounds; the plain ``rollout_p_bench`` from a key (its actions the
+   counter kernel's, one launch a run: 6, counted);
 7. the fast-PPO trainer at full width, with every counter set to 0 just
    before: 16,384 envs on 21x21, the default ``FastPPOConfig`` (hidden 512,
    T=64, 2 epochs x 8 minibatches), ``train_many_fast`` for 3 updates, then
@@ -74,24 +75,29 @@ nothing of JAX. Phases, each of which must pass:
    through the grid ``rollout``, ``fused_rollout_actions``, ``fused_rollout``,
    ``fused_rollout_t`` and ``fused_rollout_packed_bench`` from one state; all
    five must agree (rewards, dones, final states, checksum), the three slot
-   kernels must have run once each and no plain version at all;
+   kernels must have run once each and no plain version at all, and no
+   keyed draw (the rungs step the Philox stream);
 12. the three slot kernels against their plain versions (bit-exact) on 21x21
    at B=16,384, on 8x8 with pickups and drops, on a ragged batch, from the
    ladder's final state, and from synthetic states no reset reaches; the
    actions kernel also at the edges of its ring of actions loaded ahead
    (T = 1, ``SLOT_AHEAD`` - 1, ``SLOT_AHEAD`` + 1 and 256) on 21x21 at
-   B=16,421, on 8x8 and on 181x181;
+   B=16,421, on 8x8 and on 181x181; its six resets from keys launch each
+   keyed kernel six times (counted, as in every phase below that states
+   keyed launches: exactly, and no plain version);
 13. ladder timings with CUDA events: each slot kernel against its plain
    version, with its device time at T=256 (as phase 5 takes it) and share of
    its bound, env-steps/s of the seeded slot kernels beside the packed bench
-   kernel's, and ms per step of the three plain-torch engines;
+   kernel's, and ms per step of the three plain-torch engines, each drawing
+   its actions from a key (a reset and 18 runs: keyed reset 1, counter 19);
 14. renders at 16,384 worlds on 21x21, from a reset and after 40 random
    steps: the three renderers and the ``state_images_*`` dicts on the card
    equal, byte for byte, the same functions on a CPU copy; renders/s of each
    renderer; ``rollout_obs_random`` per observation mode at T=64 (env-steps/s
    with a render every step, peak device memory), and at T=8 its checksum
    against a stepwise recompute and its final state against
-   ``rollout_slots_random``'s from the same generator state;
+   ``rollout_slots_random``'s from the same key (the phase: keyed reset 2,
+   counter 48);
 15. the Gym façade: the four registered ids in parity mode, seed 0, on the
    card against the same env on the CPU (one 8x8 Flat episode, 120 steps on
    21x21; obs, reward, done and info every step), ``fixed_init_state=4`` and
@@ -204,7 +210,8 @@ nothing of JAX. Phases, each of which must pass:
    bench kernel at T = 131,072 against 65,536 and the plain packed scan at
    T = 128, each delta-timed over 3 runs after a warm-up), every counter set
    to 0 just before: the bench kernel must have run (1 + 3) x 2 = 8 times,
-   nothing else; its sharded rate within ``RATE_BAND`` of phase 6's long-T
+   nothing else, the keyed reset once and the counter kernel 1 + 8 times
+   (each scan run's actions); its sharded rate within ``RATE_BAND`` of phase 6's long-T
    rate at 16,384 envs (under ``--cpv``, of the unsharded entry point
    delta-timed the same way after the counters are read); (b)
    ``cpv_canonical``'s ``main`` on 21x21 at ``CPVGridPolicy(96, 1024)``, small
@@ -217,7 +224,9 @@ nothing of JAX. Phases, each of which must pass:
    the two runs give the same argmax singles, and no kernel and no plain
    version ran; the phase takes at most ``CPV_BUDGET_S``;
 25. the last tools and entry points, each with every counter set to 0 just
-   before and no kernel and no plain version run after: (a)
+   before and no kernel and no plain version run after, the tools' keyed
+   draws counted exactly (``finetune_keyed_launches``,
+   ``distill_keyed_launches``): (a)
    ``finetune_canonical``'s ``main`` on 21x21 at a narrow GridPolicy
    (``FT_ARGS``: 256 envs, one value-only update and two joint ones,
    evaluations of 256 episodes): the JSON has the keys of
@@ -240,13 +249,15 @@ nothing of JAX. Phases, each of which must pass:
    bench kernel launched once for the warm-up and once a run, nothing else
    and no plain version, its ``value`` within ``BENCH_BAND`` of a direct
    CUDA-event median of ``fused_rollout_packed_bench`` at the same shape,
-   its metric ``bench.py``'s; (b) ``bench`` at ``obs_ray``, T = 256: no
-   kernel, no plain version; (c) ``fast_ppo_prof`` and ``collect_prof`` at
+   its metric ``bench.py``'s, and the keyed draws of its runs' keys and seeds
+   (reset 1, counter 12); (b) ``bench`` at ``obs_ray``, T = 256: no
+   kernel, no plain version, keyed reset 1 and counter 8; (c) ``fast_ppo_prof`` and ``collect_prof`` at
    K = 3: each phase launched its table rows' kernels as counted (the pool
    kernel once, the actions kernel 64 times, the indexed gradient kernel 16
    times a run), no plain version, and the sum of the parts within
    ``FAST_PROF_BAND`` / ``COLLECT_PROF_BAND`` of ``full``; (d) ``ppo_prof``
-   at its default B, 3 runs a stage; (e) ``cpv_debug`` and
+   at its default B, 3 runs a stage, its keyed draws as
+   ``ppo_prof_keyed_launches`` counts them; (e) ``cpv_debug`` and
    ``expert_probe`` at their smallest settings. Every JSON line parses and
    carries the card's name; the phase takes at most ``TOOLS_BUDGET_S``;
 27. the keyed draws (``ops/keyed_draws.py``, ``csrc/keyed_draws.cu``): (a)
@@ -270,7 +281,16 @@ nothing of JAX. Phases, each of which must pass:
    at ``randint`` (64, 16,384) and at fast PPO's uniforms of 64 planes x
    (6, 16,384); fast PPO's pool of 2B worlds keyed (a multi-rank step's) and
    from the pool kernel; ``reset_from_seed``'s, the vector env's and the
-   façade's.
+   façade's; (d) and (e) the inits and the imitation draws (``keyed_init_phase``,
+   ``keyed_imitation_phase``); (f) the engine ladder's five random rollouts
+   (``rollout_slots_random``, ``rollout_t_random``, ``rollout_p_random``,
+   ``rollout_p_bench``, ``rollout_obs_random`` at ray) from ``PRNGKey(5)`` at
+   16,384 envs on 21x21 over T = 64, every counter set to 0 before each:
+   one counter launch (the actions), no kernel of the nine, no plain version,
+   final states and outputs hashing to JAX's digests; then
+   ``finetune_canonical.draw`` and ``pixel_distill``'s draws of a round
+   through the tool, counted, hashing to JAX's digests
+   (``keyed_ladder_phase``).
 
 The script runs phases 1-18 in order, then phases 19, 20, 21c, 22, 23 and 25
 side by side (``side_by_side``: each in a process of its own, phase 22 one a path
@@ -1147,10 +1167,12 @@ def main() -> int:
               f"{B_ * T / (ms / 1e3):.4e} env-steps/s (median of 5), "
               f"{shares('cw_bench_kernel', -(-B_ // 32), T // 4, ms)}")
     sl = sm.from_env_state(cw.reset_from_seed(cfg, 6, B, device=dev))
-    gen.manual_seed(0)
-    ms = time_ms(lambda: pr.rollout_p_bench(cfg, sl, gen, 256))
+    mark = keyed_mark()
+    ms = time_ms(lambda: pr.rollout_p_bench(cfg, sl, prng_key(0, device=dev), 256))
     print(f"{tag} plain rollout_p_bench B={B} T=256: {ms:.2f} ms/run, "
           f"{B * 256 / (ms / 1e3):.4e} env-steps/s (median of 5)")
+    keyed_since(mark, f"{tag} phase 6 rollout_p_bench, its actions randint(key, (T, B)) a run",
+                keyed_counts(0, 1 + 5))
     # the main path's stages at one episode (T = max_steps)
     ts = tr.transpose_in(sl)
     p = pr.pack(cfg, ts)
@@ -1765,6 +1787,7 @@ def ladder_phases(cw, dev, tag):
         w.launches = 0
     for f in plains:
         f.calls = 0
+    mark = keyed_mark()
     t0 = time.perf_counter()
     stream = pf.fused_action_stream(B, SEED, T_MAIN, device=dev)
     grid, gout = cw.rollout(cfg, state, stream)
@@ -1783,6 +1806,7 @@ def ladder_phases(cw, dev, tag):
                                          "fused_rollout_t")),
           f"each slot kernel launched once: {launches}")
     check(all(c == 0 for c in calls.values()), f"no plain version ran: {calls}")
+    keyed_since(mark, f"{tag} phase 11, whose rungs step the Philox stream", keyed_counts(0, 0))
     for name, (r, d) in {"8": (r8, d8), "7": (r7, d7), "9": (r9, d9)}.items():
         check(r.dtype == torch.int32 and d.dtype == torch.bool, f"kernel {name} output dtypes")
         check(torch.equal(r, gout.reward) and torch.equal(d, gout.done),
@@ -1813,7 +1837,8 @@ def ladder_phases(cw, dev, tag):
           f"off-grid slots {n_off}")
 
     # ---- 12. slot kernels vs plain ----------------------------------------------
-    gen = torch.Generator(device=dev)
+    mark = keyed_mark()
+    gen = torch.Generator(device=dev)  # the script's own actions and synthetic states
     worst = {k: 0 for k in ("fused_rollout", "fused_rollout_actions", "fused_rollout_t")}
 
     def compare(name, got, want):
@@ -1881,7 +1906,10 @@ def ladder_phases(cw, dev, tag):
         print(f"{tag} actions kernel == plain at the edges of its ring (SLOT_AHEAD "
               f"{fr.SLOT_AHEAD}): {label} {cfg_.height}x{cfg_.width} B={B_}; max |err| by T {errs}")
 
+    keyed_since(mark, f"{tag} phase 12, six resets from keys", keyed_counts(6, 6))
+
     # ---- 13. ladder timings ----------------------------------------------------
+    mark = keyed_mark()
     sl = sm.from_env_state(cw.reset_from_seed(cfg, 41, B, device=dev))
     ts = tr.transpose_in(sl)
     T = 256
@@ -1965,12 +1993,14 @@ def ladder_phases(cw, dev, tag):
           f"{shares('cw_bench_kernel', -(-B // 32), T // 4, ms)}")
 
     T = 32
-    gen.manual_seed(4)
-    for name, fn in (("grid rollout_random", lambda: cw.rollout_random(cfg, state, prng_key(4), T)),
-                     ("rollout_slots_random", lambda: sm.rollout_slots_random(cfg, sl, gen, T)),
-                     ("rollout_t_random", lambda: tr.rollout_t_random(cfg, sl, gen, T))):
+    key = prng_key(4, device=dev)
+    for name, fn in (("grid rollout_random", lambda: cw.rollout_random(cfg, state, key, T)),
+                     ("rollout_slots_random", lambda: sm.rollout_slots_random(cfg, sl, key, T)),
+                     ("rollout_t_random", lambda: tr.rollout_t_random(cfg, sl, key, T))):
         ms = time_ms(fn)
         print(f"{tag} {name} B={B} T={T}: {ms / T:.4f} ms per step (plain torch, median of 5)")
+    keyed_since(mark, f"{tag} phase 13, a reset and the three engines' actions a run",
+                keyed_counts(1, 1 + 3 * (1 + 5)))
 
     source = "gym_craftingworld_tpu_torch/csrc/fused_rollout.cu"
     replaces = {"fused_rollout": "gym_craftingworld_tpu/ops/fused_rollout.py:227",
@@ -2025,10 +2055,10 @@ def front_end_phases(cw, dev, tag):
     for w in wrappers.values():
         w.launches = 0
     keyed = {k: w.launches for k, w in keyed_wrappers().items()}
-    gen = torch.Generator(device=dev)
+    mark = keyed_mark()
+    gen = torch.Generator(device=dev).manual_seed(14)  # the script's own actions (15-16)
 
     # ---- 14. renders -----------------------------------------------------------
-    gen.manual_seed(14)
     fresh = cw.reset_from_seed(cfg, 14, B, device=dev)
     stepped, _ = cw.rollout_random(cfg, fresh, prng_key(14), 40)  # held items, crafted objects
     renderers = {"render_ray": raster.render_ray, "render_altobs": raster.render_altobs,
@@ -2072,22 +2102,21 @@ def front_end_phases(cw, dev, tag):
         torch.cuda.synchronize()
         held = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
-        ms = time_ms(lambda: obr.rollout_obs_random(cfg, slots, gen, T, mode))
+        key = prng_key(14, device=dev)
+        ms = time_ms(lambda: obr.rollout_obs_random(cfg, slots, key, T, mode))
         peak = torch.cuda.max_memory_allocated(dev)
-        steps_ms = time_ms(lambda: sm.rollout_slots_random(cfg, slots, gen, T))
+        steps_ms = time_ms(lambda: sm.rollout_slots_random(cfg, slots, key, T))
         print(f"{tag} rollout_obs_random {mode} B={B} T={T}: {ms:.2f} ms/run, "
               f"{B * T / (ms / 1e3):.4e} env-steps/s with a render every step (median of 5, "
               f"CUDA events), {ms / T:.4f} ms a step; rollout_slots_random without renders "
               f"{steps_ms / T:.4f} ms a step; peak device memory {peak / 2**30:.3f} GiB, "
               f"{(peak - held) / 2**20:.1f} MiB above the {held / 2**20:.1f} MiB held before")
         # T=8: the checksum against a stepwise recompute, the final state
-        # against the pure slot rollout from the same generator state
-        gen.manual_seed(100)
-        final, checksum = obr.rollout_obs_random(cfg, slots, gen, 8, mode)
-        gen.manual_seed(100)
-        ref, _ = sm.rollout_slots_random(cfg, slots, gen, 8)
-        gen.manual_seed(100)
-        actions = torch.randint(0, 6, (8, B), generator=gen, device=dev, dtype=torch.int32)
+        # against the pure slot rollout from the same key
+        key = prng_key(100, device=dev)
+        final, checksum = obr.rollout_obs_random(cfg, slots, key, 8, mode)
+        ref, _ = sm.rollout_slots_random(cfg, slots, key, 8)
+        actions = sm.random_actions(slots, key, 8)
         expect, s = 0, slots
         for t in range(8):
             s, res = sm.step_slots(cfg, s, actions[t])
@@ -2101,6 +2130,10 @@ def front_end_phases(cw, dev, tag):
                   f"{mode} obs rollout and rollout_slots_random agree on {f}")
         print(f"{tag} rollout_obs_random {mode} B={B} T=8: checksum {int(checksum)} == stepwise "
               f"recompute (sum {expect}), final state == rollout_slots_random's")
+    # two resets and 40 random steps; a mode: two timed rollouts of 6 runs, then 3
+    # draws of the T=8 check
+    keyed_since(mark, f"{tag} phase 14, the resets and the random rollouts' actions",
+                keyed_counts(2, 2 + 1 + 3 * (2 * (1 + 5) + 3)))
 
     # ---- 15. the façade -----------------------------------------------------------
     acts = np.random.RandomState(15).randint(6, size=120)
@@ -2564,6 +2597,43 @@ RNN_B, RNN_UPDATES = 4096, 3
 FLAT_EPISODES = 16  # bc.py's small-data path (phase 20)
 SNAP_COLS = ("occ_key", "occ_code", "init_key", "init_agent_key", "agent_key", "holding",
              "desired", "achieved")
+
+
+def keyed_mark():
+    """The keyed-draw wrappers' launches and their plain versions' calls now,
+    to read back with ``keyed_since``."""
+    from gym_craftingworld_tpu_torch.ops import keyed_draws as kd
+
+    plains = [kd.counter_draws_plain, kd.reset_draws_plain]
+    return ({k: w.launches for k, w in keyed_wrappers().items()},
+            {f.__name__: f.calls for f in plains})
+
+
+def keyed_counts(resets: int, counters: int) -> dict:
+    """The keyed-draw kernels' launches as ``keyed_since`` reads them."""
+    return {"keyed_reset": resets, "keyed_counter": counters}
+
+
+def keyed_since(mark, what: str, want: dict) -> dict:
+    """Since ``mark`` (``keyed_mark``) the keyed-draw kernels launched exactly
+    ``want`` times and no plain version ran; prints and returns the launches."""
+    now = keyed_mark()
+    launches = {k: n - mark[0][k] for k, n in now[0].items()}
+    calls = {k: n - mark[1][k] for k, n in now[1].items()}
+    check(launches == want and not any(calls.values()),
+          f"{what}: keyed launches {launches}, want {want}; plain calls {calls}")
+    print(f"{what}: keyed draws {launches}, as counted; no plain version")
+    return launches
+
+
+def drawn_params(make) -> int:
+    """The parameters a flax family's init draws (``Rngs``'s log of an init
+    on the CPU): its init launches the counter kernel twice each (27d)."""
+    from gym_craftingworld_tpu_torch.models.flax_rng import Rngs
+
+    log = []
+    make(Rngs(prng_key(0), log=log))
+    return len(log)
 
 
 def zero_counters():
@@ -3816,10 +3886,14 @@ def cpv_phase(cw, dev, tag):
     t_phase = time.perf_counter()
     # ---- 24a. the scaling artifact's card section, counted ------------------------
     wrappers, plains = zero_counters()
+    mark = keyed_mark()
     t0 = time.perf_counter()
     section = sa.run_gpu(None, iters=SCALING_ITERS, scan_steps=SCALING_SCAN_STEPS, device=dev)
     torch.cuda.synchronize()
     t_scaling = time.perf_counter() - t0
+    # the envs' reset, and each plain-scan run (a warm-up and the timed runs,
+    # at T and T/2) draws its actions: randint(PRNGKey(2), (T, B), 0, 6)
+    keyed_since(mark, f"{tag} phase 24a", keyed_counts(1, 1 + (1 + SCALING_ITERS) * 2))
     launches = {k: w.launches for k, w in wrappers.items()}
     calls = {f.__name__: f.calls for f in plains}
     want = {k: 0 for k in launches}
@@ -3911,6 +3985,49 @@ DISTILL_ARGS = ["--teacher", "", "--teacher-channels", "16", "--teacher-hidden",
 GRAPH_STEPS = 12  # student minibatches of 25b's graph-against-eager check
 
 
+def option(args: list, name: str, default) -> int:
+    """The integer value of ``name`` in an argument list (its last), else ``default``."""
+    at = [i for i, a in enumerate(args) if a == name]
+    return int(args[at[-1] + 1]) if at else default
+
+
+def finetune_keyed_launches(args: list, init: int) -> dict:
+    """The keyed-draw kernels' launches of ``finetune_canonical.main(args)``
+    (default ``FTConfig``): the init's ``init``; the envs' reset; each
+    update's draws (``split(key, 4)``, the pool's 2B keys and their reset,
+    the Gumbel uniforms of T planes, ``split(k_perm, E)`` and per epoch a
+    split and a bits draw each round of ``permutation``); each evaluation's
+    reset (the start, every ``--eval-every`` update past the warm-up, the
+    final one)."""
+    from gym_craftingworld_tpu_torch.ops import threefry as tf
+    from gym_craftingworld_tpu_torch.tools.finetune_canonical import FTConfig
+
+    ft, envs = FTConfig(), option(args, "--envs", 2048)
+    updates, warmup = option(args, "--updates", 120), option(args, "--warmup", 15)
+    every = option(args, "--eval-every", 15)
+    evals = 2 + sum(1 for u in range(1, updates + 1) if u % every == 0 and u > warmup)
+    update = 4 + 2 * ft.update_epochs * tf.shuffle_rounds(ft.rollout_steps * envs)
+    return keyed_counts(1 + updates + evals, init + 1 + updates * update + evals)
+
+
+def distill_keyed_launches(args: list, max_steps: int, init: int, chunk: int = 2048) -> dict:
+    """The keyed-draw kernels' launches of ``pixel_distill.main(args)``: the
+    two inits' ``init``; each round's collect, a chunk: its envs' split and
+    reset and 4 counter launches of exploration (``dagger.explore_draws``);
+    each epoch's flips, 4 (``flip_bits``); each evaluation (a round's and the
+    final), a chunk: the argmax's split and reset, the sample's split, reset,
+    ``max_steps`` splits of its chain and one draw of Gumbel uniforms."""
+    rounds = option(args, "--rounds", 6)
+    chunks = lambda n: -(-n // chunk)
+    collects = chunks(option(args, "--episodes0", 24576)) + (rounds - 1) * chunks(
+        option(args, "--episodes", 8192))
+    epochs = option(args, "--epochs0", 10) + (rounds - 1) * option(args, "--epochs", 4)
+    evals = rounds * chunks(option(args, "--eval-episodes", 2048)) + chunks(
+        option(args, "--final-eval-episodes", 8192))
+    return keyed_counts(collects + 2 * evals, init + 5 * collects + 4 * epochs
+                 + evals * (1 + 1 + max_steps + 1))
+
+
 def distill_phase(cw, dev, tag):
     """Phase 25: ``finetune_canonical`` (25a) and ``pixel_distill`` (25b)
     end to end at a small size, ``entry()`` on the card against the CPU (25c)
@@ -3932,13 +4049,18 @@ def distill_phase(cw, dev, tag):
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         # ---- 25a. the fine-tune, small ----------------------------------------------
+        widths = (option(FT_ARGS, "--channels", 96), option(FT_ARGS, "--hidden", 1536))
+        want = finetune_keyed_launches(FT_ARGS, 2 * drawn_params(
+            lambda k: init_grid_policy(k, cfg, *widths)))
         wrappers, plains = zero_counters()
+        mark = keyed_mark()
         t0 = time.perf_counter()
         ft = ftc.main(FT_ARGS + ["--device", dev.type, "--out", str(tmp / "ft.json"),
                                  "--save", str(tmp / "ft")])
         torch.cuda.synchronize()
         seconds["finetune_canonical"] = time.perf_counter() - t0
         no_kernel_ran(wrappers, plains, "phase 25a's fine-tune")
+        keyed_since(mark, f"{tag} phase 25a's fine-tune", want)
         doc = json.loads((tmp / "ft.json").read_text())
         jax_keys = set(json.loads((HERE / "docs" / "canonical_finetune.json").read_text()))
         check(set(doc) == jax_keys | {"card"} and doc == ft["doc"],
@@ -3959,12 +4081,22 @@ def distill_phase(cw, dev, tag):
                   "phase 25a: nothing beat the start, so the start's parameters ship")
 
         # ---- 25b. the distillation, small, and the frames from columns ------------------
+        teacher = (option(DISTILL_ARGS, "--teacher-channels", 96),
+                   option(DISTILL_ARGS, "--teacher-hidden", 1536))
+        student = dict(channels=option(DISTILL_ARGS, "--channels", 96),
+                       hidden=option(DISTILL_ARGS, "--hidden", 1536),
+                       stem=option(DISTILL_ARGS, "--stem", 64))
+        want = distill_keyed_launches(DISTILL_ARGS, cfg.max_steps, 2 * (
+            drawn_params(lambda k: init_grid_policy(k, cfg, *teacher))
+            + drawn_params(lambda k: pd.init_student(k, cfg, **student))))
         wrappers, plains = zero_counters()
+        mark = keyed_mark()
         t0 = time.perf_counter()
         dist = pd.main(DISTILL_ARGS + ["--device", dev.type, "--out", str(tmp / "px.json"),
                                        "--save", str(tmp / "px")])
         torch.cuda.synchronize()
         seconds["pixel_distill"] = time.perf_counter() - t0
+        keyed_since(mark, f"{tag} phase 25b's distillation", want)
         section = json.loads((tmp / "px.json").read_text())["distilled_student"]
         jax_section = json.loads((HERE / "docs" / "pixel_canonical.json").read_text())[
             "distilled_student"]
@@ -3997,7 +4129,7 @@ def distill_phase(cw, dev, tag):
         data["tlogits"] = torch.randn((256, 6), generator=gen, device=dev).to(torch.float16)
         data["soft"] = (torch.rand(256, generator=gen, device=dev) < 0.5).to(torch.float16)
         perm = torch.randint(0, 256, (GRAPH_STEPS * 64,), generator=gen, device=dev)
-        fh, fw = pd.flip_bits(GRAPH_STEPS, 64, gen)
+        fh, fw = pd.flip_bits(prng_key(5, device=dev), GRAPH_STEPS, 64)
         runs = []
         for graph in (False, True):
             student = pd.init_student(prng_key(9, device=dev), cfg, 16, 64, 8)
@@ -4079,6 +4211,23 @@ CPV_DEBUG_ARGS = ["--episodes-per-task", "2", "--epochs", "1", "--hidden", "16",
 PROBE_ARGS = ["all", "--seeds", "1"]
 
 
+def ppo_prof_keyed_launches(ppo, B: int, runs: int, steps: int, init: int) -> dict:
+    """The keyed-draw kernels' launches of ``ppo_prof.main`` (``runs`` runs a
+    stage): the init's ``init`` and three resets; the collect's noise (T
+    splits and the uniforms); a ``train_step`` (``split(key, 3)``, the
+    chain's T splits and uniforms, a reset kernel a collect step,
+    ``split(k_perm, E)`` and per epoch a split and a bits draw each round of
+    ``permutation``); a collect (a reset kernel a step); the resets stage (a
+    split and a reset a step), the grid steps (a split and a ``randint`` a
+    step) and the update epoch (one ``permutation``)."""
+    from gym_craftingworld_tpu_torch.ops import threefry as tf
+
+    T, perm = ppo.rollout_steps, 2 * tf.shuffle_rounds(ppo.rollout_steps * B)
+    train = (1 + T + 1 + 1 + ppo.update_epochs * perm, T)
+    return keyed_counts(3 + runs * (train[1] + T + steps),
+                 init + 3 + (T + 1) + runs * (train[0] + steps + 2 * steps + perm))
+
+
 def tool_lines(what: str, fn, card: str):
     """``fn()``'s result and its printed JSON lines: its standard output is
     captured, printed again, and every line that opens a JSON object must
@@ -4120,6 +4269,7 @@ def tools_phase(cw, dev, tag, card):
     B, iters = B_MAIN, 5
     T = bench.default_steps("packed_fused")
     wrappers, plains = zero_counters()
+    mark = keyed_mark()
     t0 = time.perf_counter()
     try:
         bench_env(BENCH_LAYOUT="packed_fused", BENCH_ENVS=B, BENCH_ITERS=iters)
@@ -4127,6 +4277,9 @@ def tools_phase(cw, dev, tag, card):
     finally:
         bench_env()
     seconds["bench packed_fused"] = time.perf_counter() - t0
+    # the envs' reset; the warm-up's seed randint(PRNGKey(0)), each run's
+    # fold_in(PRNGKey(0), i) and its seed
+    keyed_since(mark, f"{tag} phase 26a", keyed_counts(1, 1 + 1 + 2 * iters))
     launches = {k: w.launches for k, w in wrappers.items()}
     calls = {f.__name__: f.calls for f in plains}
     want = {k: 0 for k in launches}
@@ -4150,6 +4303,7 @@ def tools_phase(cw, dev, tag, card):
 
     # ---- 26b. bench at obs_ray ------------------------------------------------------
     wrappers, plains = zero_counters()
+    mark = keyed_mark()
     t0 = time.perf_counter()
     try:
         bench_env(BENCH_LAYOUT="obs_ray", BENCH_ENVS=B, BENCH_STEPS=OBS_STEPS, BENCH_ITERS=3)
@@ -4158,6 +4312,8 @@ def tools_phase(cw, dev, tag, card):
         bench_env()
     seconds["bench obs_ray"] = time.perf_counter() - t0
     no_kernel_ran(wrappers, plains, "phase 26b's bench at obs_ray")
+    # the envs' reset; the warm-up's actions, each run's fold_in and actions
+    keyed_since(mark, f"{tag} phase 26b", keyed_counts(1, 1 + 1 + 2 * 3))
     check(obs["metric"] == f"env_steps_with_ray_obs_per_s_per_chip_{B // 1024}k_envs",
           f"phase 26b: bench.py's metric: {obs['metric']}")
     print(f"{tag} phase 26b bench obs_ray B={B} T={OBS_STEPS}: {obs['value']:.5e} env-steps/s "
@@ -4201,12 +4357,18 @@ def tools_phase(cw, dev, tag, card):
         check(band[0] <= ratio <= band[1], f"phase 26c {name}: the parts are {ratio:.4f} x full")
 
     # ---- 26d. ppo_prof at its default B ---------------------------------------------
+    ppo = ppo_prof.P.PPOConfig()
+    want = ppo_prof_keyed_launches(ppo, int(os.environ.get("B", 4096)), 1 + 3, ppo_prof.STAGE_STEPS,
+                                   2 * drawn_params(lambda k: ppo_prof.P.init_train_state(
+                                       k, cw.flat_config(), ppo)))
     wrappers, plains = zero_counters()
+    mark = keyed_mark()
     t0 = time.perf_counter()
     stages, _ = tool_lines("ppo_prof", lambda: ppo_prof.main(["--device", dev.type,
                                                                "--reps", "3"]), card)
     seconds["ppo_prof"] = time.perf_counter() - t0
     no_kernel_ran(wrappers, plains, "phase 26d's ppo_prof")
+    keyed_since(mark, f"{tag} phase 26d", want)
     check([l["stage"] for l in stages] == ["train_step", "collect", "reset", "grid_step",
                                            "policy_forward", "update_epoch"],
           f"phase 26d: ppo_prof's stages {[l['stage'] for l in stages]}")
@@ -4349,8 +4511,10 @@ def counter_cases(B, key, planes, half):
 def keys_phase(cw, dev, tag):
     """Phase 27: the keyed draws. (a) both kernels against their plain
     versions bit for bit; (b) the keyed main path, counted, against the JAX
-    package's digests; (c) times by CUDA events. Returns the two kernels'
-    rows of the ``{"kernels": ...}`` line."""
+    package's digests, then (d) the inits, (e) the imitation draws and (f)
+    the ladder's random rollouts and the tools' draws against theirs; (c)
+    times by CUDA events. Returns the two kernels' rows of the
+    ``{"kernels": ...}`` line."""
     import hashlib
 
     import numpy as np
@@ -4452,6 +4616,7 @@ def keys_phase(cw, dev, tag):
     del state, start, rolled, out
     keyed_init_phase(cw, dev, tag, digests["init"])
     keyed_imitation_phase(cw, dev, tag, digests["imitation"])
+    keyed_ladder_phase(cw, dev, tag, digests["ladder"])
 
     # ---- 27c. times: one call, and a CUDA graph of 20 ------------------------------
     B, n = B_MAIN, ray.n_cells
@@ -4697,6 +4862,164 @@ def keyed_imitation_phase(cw, dev, tag, want: dict) -> None:
           f"{len(cols['agent_key'])} states, success {sr:.4f}, {t_collect:.2f} s (host clock); "
           f"launches {launches}")
     print(f"{tag} phase 27e took {time.perf_counter() - t_phase:.1f} s")
+
+
+LADDER_ULPS = 2  # Gumbel noise of the tools' draws: the card's log against the plain one
+
+
+def keyed_ladder_phase(cw, dev, tag, want: dict) -> None:
+    """Phase 27f: the engine ladder's five random rollouts, each from
+    ``PRNGKey(5)`` at 16,384 envs on 21x21 over T = 64 with the counters set
+    to 0 just before, launch the counter kernel once (their actions) and no
+    plain version, and their final slot states and outputs hash to JAX's
+    digests; ``finetune_canonical.draw`` and ``pixel_distill``'s draws of one
+    round (a collect chunk's reset and exploration, an epoch's flips, the
+    sampled evaluation's reset and chain) launch the keyed kernels as counted
+    and hash to JAX's digests, the Gumbel noise by its uniforms, the noise
+    itself within ``LADDER_ULPS`` of ``-log(-log u)`` on the CPU."""
+    import hashlib
+
+    import numpy as np
+
+    from gym_craftingworld_tpu_torch import interop
+    from gym_craftingworld_tpu_torch.core import slots as sm
+    from gym_craftingworld_tpu_torch.models.cnn import init_student
+    from gym_craftingworld_tpu_torch.models.grid_policy import init_grid_policy
+    from gym_craftingworld_tpu_torch.ops import keyed_draws as kd
+    from gym_craftingworld_tpu_torch.ops import obs_rollout as obr
+    from gym_craftingworld_tpu_torch.ops import packed_rollout as pr
+    from gym_craftingworld_tpu_torch.ops import threefry as tf
+    from gym_craftingworld_tpu_torch.ops import transposed_rollout as tr
+    from gym_craftingworld_tpu_torch.tools import finetune_canonical as ftc
+    from gym_craftingworld_tpu_torch.tools import pixel_distill as pd
+
+    t_phase = time.perf_counter()
+    cfg, sizes = cw.ray_config(), want["sizes"]
+    sha = lambda a: hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+    shas = lambda d: {k: sha(v) for k, v in d.items()}
+
+    def same(name, got: dict, digests: dict) -> None:
+        bad = sorted(k for k in digests if got.get(k) != digests[k])
+        check(not bad and set(got) == set(digests), f"27f {name} on the card == JAX's digests "
+              f"({KEYED_DIGESTS}); entries that differ: {bad}")
+
+    # ---- the five random rollouts -------------------------------------------------
+    lad = sizes["ladder"]
+    engines = {
+        "rollout_slots_random": sm.rollout_slots_random,
+        "rollout_t_random": tr.rollout_t_random,
+        "rollout_p_random": pr.rollout_p_random,
+        "rollout_p_bench": pr.rollout_p_bench,
+        "rollout_obs_random(ray)": lambda c, s, k, n: obr.rollout_obs_random(c, s, k, n, "ray"),
+    }
+    check(set(engines) == set(want["rollouts"]), f"27f: the rollouts are the digests' "
+          f"{sorted(want['rollouts'])}")
+    times = {}
+    for name, fn in engines.items():
+        slots = sm.from_env_state(cw.reset_from_seed(cfg, lad["reset_seed"], lad["envs"],
+                                                     device=dev))
+        key = prng_key(lad["key"], device=dev)
+        torch.cuda.synchronize()
+        wrappers, plains = zero_counters()
+        mark = keyed_mark()
+        t0 = time.perf_counter()
+        final, out = fn(cfg, slots, key, lad["steps"])
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        no_kernel_ran(wrappers, plains, f"27f {name}")
+        keyed_since(mark, f"{tag} 27f {name}, its actions", keyed_counts(0, 1))
+        got = shas(interop.slot_state_to_numpy(final))
+        if torch.is_tensor(out):
+            got["total"] = int(out)
+        else:
+            got.update({f"out.{k}": sha(v.cpu().numpy()) for k, v in out._asdict().items()})
+        same(name, got, want["rollouts"][name])
+    print(f"{tag} 27f the ladder's random rollouts from PRNGKey({lad['key']}), "
+          f"{lad['envs']} envs on 21x21, T={lad['steps']}: final states and outputs hash to "
+          f"JAX's; seconds (host clock, synced) "
+          f"{json.dumps({k: round(v, 2) for k, v in times.items()})}")
+
+    def noise_check(what, noise, u) -> float:
+        """The card's Gumbel noise against ``-log(-log u)`` of its uniforms on the CPU, in ulps."""
+        plain = tf.gumbel_from_uniform(u.cpu())
+        step = torch.from_numpy(np.spacing(np.maximum(plain.abs().numpy(), 1).astype(np.float32)))
+        ulps = float(((noise.cpu().double() - plain.double()).abs() / step).max())
+        check(ulps <= LADDER_ULPS, f"27f {what}: the noise within {LADDER_ULPS} ulps of its "
+              f"uniforms' on the CPU ({ulps:.1f})")
+        return ulps
+
+    # ---- finetune_canonical's first update's draws ----------------------------------
+    ftz = sizes["finetune"]
+    ft, B = ftc.FTConfig(), ftz["envs"]
+    key = prng_key(ftz["key"], device=dev)
+    mark = keyed_mark()
+    nxt, draws = ftc.draw(cfg, ft, B, key)
+    torch.cuda.synchronize()
+    rounds = tf.shuffle_rounds(ft.rollout_steps * B)
+    keyed_since(mark, f"{tag} 27f finetune_canonical.draw",
+                keyed_counts(1, 4 + 2 * ft.update_epochs * rounds))
+    k_roll = kd.split_keys(key, 4)[2]
+    u = kd.uniform_cols(k_roll, (1, B * 6), minval=tf.TINY, planes=ft.rollout_steps)
+    ft_ulps = noise_check("finetune noise", draws.noise, u.reshape(draws.noise.shape))
+    same("finetune_canonical.draw", {
+        "next_key": [int(x) for x in nxt.cpu()],
+        "pool": shas(interop.env_state_to_numpy(draws.pool)),
+        "noise_uniforms": sha(u.reshape(draws.noise.shape).cpu().numpy()),
+        "perms": sha(draws.perms.cpu().numpy())}, want["finetune_draw"])
+
+    # ---- pixel_distill's draws of a round, through the tool -------------------------
+    dz = sizes["distill"]
+    D, T = dz["chunk"], cfg.max_steps
+    teacher = init_grid_policy(prng_key(0, device=dev), cfg, 16, 64)
+    student = init_student(prng_key(dz["flip_seed"], device=dev), cfg, channels=16, hidden=64,
+                           stem=8)
+    seen = {}
+    collect, evaluate = pd._rollout_collect, pd._eval_student
+
+    def collect_rec(cfg_, kind, model, state, u_, a_, eps):
+        seen["collect"] = (state, u_, a_)
+        return collect(cfg_, kind, model, state, u_, a_, eps)
+
+    def eval_rec(cfg_, model, state, noise=None):
+        seen["eval"] = (state, noise)
+        return evaluate(cfg_, model, state, noise)
+
+    pd._rollout_collect, pd._eval_student = collect_rec, eval_rec
+    try:
+        mark = keyed_mark()
+        t0 = time.perf_counter()
+        pd.collect_round(cfg, "grid", teacher, D, dz["collect_seed"], 0.02)
+        keyed_since(mark, f"{tag} 27f pixel_distill.collect_round", keyed_counts(1, 1 + 4))
+        mark = keyed_mark()
+        fh, fw = pd.flip_bits(prng_key(dz["flip_seed"], device=dev), dz["flip_steps"],
+                              dz["batch"])
+        keyed_since(mark, f"{tag} 27f pixel_distill.flip_bits", keyed_counts(0, 4))
+        mark = keyed_mark()
+        res = pd.eval_student(cfg, student, D, dz["eval_seed"], chunk=D, mode="sample")
+        keyed_since(mark, f"{tag} 27f pixel_distill.eval_student(sample)",
+                    keyed_counts(1, 1 + T + 1))
+        t_distill = time.perf_counter() - t0
+    finally:
+        pd._rollout_collect, pd._eval_student = collect, evaluate
+    state, eu, ea = seen["collect"]
+    estate, noise = seen["eval"]
+    chain = kd.chain_keys(kd.split_keys(prng_key(dz["eval_seed"], device=dev), D)[0], T)[1]
+    u = kd.uniform_cols(chain, (1, D * 6), minval=tf.TINY).reshape(noise.shape)
+    pd_ulps = noise_check("pixel_distill eval noise", noise, u)
+    same("pixel_distill's round", {
+        "collect_reset": shas(interop.env_state_to_numpy(state)),
+        "explore_uniform": sha(eu.cpu().numpy()), "explore_moves": sha(ea.cpu().numpy()),
+        "flip_h": sha(fh.cpu().numpy()), "flip_w": sha(fw.cpu().numpy()),
+        "eval_reset": shas(interop.env_state_to_numpy(estate)),
+        "eval_noise_uniforms": sha(u.cpu().numpy())}, want["distill_round"])
+    print(f"{tag} 27f finetune_canonical.draw ({B} envs, T={ft.rollout_steps}, key "
+          f"{ftz['key']}) and pixel_distill's draws of a round (a collect chunk of {D} from seed "
+          f"{dz['collect_seed']}, {dz['flip_steps']} minibatches' flips, the sampled "
+          f"evaluation's chain of {T} from seed {dz['eval_seed']}; {t_distill:.1f} s with the "
+          f"collect's and the evaluation's episodes) hash to JAX's; Gumbel noise within "
+          f"{max(ft_ulps, pd_ulps):.1f} ulps of its uniforms' on the CPU; sampled success "
+          f"{res['success_rate']:.4f}")
+    print(f"{tag} phase 27f took {time.perf_counter() - t_phase:.1f} s")
 
 
 def free_port() -> int:

@@ -5,7 +5,7 @@ The JAX package beside this one is the reference; this package imports
 module paths and public names. Batched state lives as integer tensors on an
 explicit ``device``, and random draws come from JAX's key data
 (``ops/threefry``, ``ops/keyed_draws``), bit for bit as ``jax.random`` draws
-them, or, in the tools still queued, from an explicit ``torch.Generator``.
+them.
 
 Ported so far:
 

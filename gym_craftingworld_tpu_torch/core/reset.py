@@ -15,10 +15,6 @@ reference reset pipeline (``craftingworld_ray.py:156-218``) in two layers:
   ``rng`` included (``tests/test_torch_keyed_reset.py``). Each reset stores
   the env's next key (``k_next`` of ``split(key, 4)``) in ``rng``, from
   which the env's auto-reset draws its next world.
-* ``reset_from_generator`` draws the same distributions from a
-  ``torch.Generator`` instead, for the callers whose JAX counterparts draw
-  from keys outside the env layer (the imitation and canonical tools); it
-  is the port's own and ``rng`` stays zero.
 
 World placement is one stable descending sort of iid uniform scores per env:
 iid scores rank the cells in a uniform permutation, so the first 9 cells in
@@ -32,7 +28,7 @@ import torch
 
 from gym_craftingworld_tpu_torch import constants as C
 from gym_craftingworld_tpu_torch.config import EnvConfig
-from gym_craftingworld_tpu_torch.core.imagine import N_GOAL_SCORE_ROWS, imagine_goal
+from gym_craftingworld_tpu_torch.core.imagine import imagine_goal
 from gym_craftingworld_tpu_torch.core.state import EnvState
 from gym_craftingworld_tpu_torch.ops import keyed_draws
 from gym_craftingworld_tpu_torch.ops.threefry import prng_key
@@ -139,28 +135,6 @@ def reset(cfg: EnvConfig, keys: torch.Tensor) -> EnvState:
     objects, agent, init_objects = sample_world(cfg, d.world)
     return _state_from_world(cfg, sample_desired(cfg, d.k, d.perm), objects, agent,
                              init_objects, d.goal, d.k_next)
-
-
-def reset_from_generator(cfg: EnvConfig, batch_size: int, generator: torch.Generator,
-                         device=None) -> EnvState:
-    """Batched reset drawing every random choice from ``generator`` (the
-    port's own stream; ``rng`` stays zero).
-
-    For the callers whose draws are still a ``torch.Generator``'s (the
-    imitation path and the canonical tools). ``device`` defaults to the
-    generator's device; the two must agree.
-    """
-    device = generator.device if device is None else torch.device(device)
-    B, n = batch_size, cfg.n_cells
-    draw = dict(generator=generator, device=device)
-    if cfg.stacking:
-        k = torch.randint(0, cfg.number_of_tasks, (B,), **draw) + 1
-    else:
-        k = torch.ones((B,), dtype=torch.int64, device=device)
-    perm = torch.argsort(torch.rand((B, len(cfg.selected_task_indices)), **draw), dim=1)
-    world_scores = torch.rand((B, n), **draw)
-    goal_scores = torch.rand((B, N_GOAL_SCORE_ROWS, n), **draw)
-    return reset_from_draws(cfg, k, perm, world_scores, goal_scores)
 
 
 def generate_pool_from_scores(cfg: EnvConfig, scores: torch.Tensor):

@@ -28,6 +28,7 @@ import torch
 from gym_craftingworld_tpu_torch import constants as C
 from gym_craftingworld_tpu_torch.config import EnvConfig
 from gym_craftingworld_tpu_torch.core.state import EnvState
+from gym_craftingworld_tpu_torch.ops.keyed_draws import randint_cols
 from gym_craftingworld_tpu_torch.core.step import (
     StepResult,
     _decode,
@@ -229,14 +230,21 @@ def step_slots(cfg: EnvConfig, slots: SlotState, action: torch.Tensor):
     ), res
 
 
-def rollout_slots_random(cfg: EnvConfig, slots: SlotState,
-                         generator: torch.Generator, num_steps: int):
+def random_actions(slots, key: torch.Tensor, num_steps: int, dtype=i32) -> torch.Tensor:
+    """The random rollouts' actions on the slots' device: ``jax.random.randint(
+    key, (T, B), 0, 6, dtype)`` from key data ``key`` int64[2], one launch of
+    the counter kernel on the card."""
+    B = slots.agent.shape[0]
+    return randint_cols(key, (num_steps, B), 0, C.N_ACTIONS, device=slots.agent.device,
+                        dtype=dtype)
+
+
+def rollout_slots_random(cfg: EnvConfig, slots: SlotState, key: torch.Tensor, num_steps: int):
     """T steps of uniform-random actions over the slot layout.
 
     Returns ``(SlotState, StepResult)`` with ``[T, B]`` fields; the actions
-    are ``torch.randint`` draws from ``generator``, int32 ``[T, B]``.
+    are ``random_actions`` of ``key``, int32 ``[T, B]``, as the JAX package
+    draws them.
     """
-    B = slots.agent.shape[0]
-    actions = torch.randint(0, C.N_ACTIONS, (num_steps, B), generator=generator,
-                            device=slots.agent.device, dtype=i32)
+    actions = random_actions(slots, key, num_steps)
     return scan(lambda s, a: step_slots(cfg, s, a), slots, actions)

@@ -34,16 +34,21 @@ the plain version's calls. Both return ``(grads, aux)``: ``grads`` maps the
 ``MLPParams`` names (``w1 b1 w2 b2 wl bl wv bv``) to f32 tensors of the
 parameters' shapes, ``aux`` holds the 0-dim ``loss``, ``pg_loss``,
 ``v_loss`` and ``entropy``.
+
+``random_minibatch`` draws the synthetic minibatch of the JAX package's
+gradient checks and benches from a key, as they draw it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import NamedTuple
 
 import torch
 
 from gym_craftingworld_tpu_torch.ops import _build
+from gym_craftingworld_tpu_torch.ops import keyed_draws as kd
 
 bf16 = torch.bfloat16
 f32 = torch.float32
@@ -86,6 +91,22 @@ def normalize_adv(adv: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------------
 # The plain version: the CPU path, and what the kernel is held against.
 # --------------------------------------------------------------------------
+
+
+def random_minibatch(key: torch.Tensor, n: int, F: int, num: int = 5, feature_rows: int = 0):
+    """The synthetic minibatch of the JAX package's dry run
+    (``__graft_entry__.py``, path 6) and ``tools/fused_update_bench.py``,
+    from key data ``key`` on its device: ``kb = split(key, num)``, then
+    ``normal(kb[0], (rows, F), bf16)`` features (``feature_rows`` rows, by
+    default ``n``), ``randint(kb[1], (n,), 0, 6)`` actions, old log-probs
+    ``-log 6``, and ``normal(kb[2..4], (n,))`` old values, advantages and
+    returns. Returns (kb, (features, action, old_lp, old_v, adv, ret)): the
+    keys past the fifth are the caller's."""
+    kb = kd.split_keys(key, num)
+    x = kd.normal_bf16(kb[0], (feature_rows or n, F))
+    action = kd.randint(kb[1], (n,), 0, 6)
+    old_lp = torch.full((n,), -math.log(6.0), dtype=f32, device=key.device)
+    return kb, (x, action, old_lp, *(kd.normal(kb[i], (n,)) for i in (2, 3, 4)))
 
 
 def ppo_grads_plain(fppo, w: Weights, x, action, old_lp, old_v, adv_n, ret,

@@ -19,9 +19,11 @@ same draws, bit for bit, from the same key data (int64 ``[..., 2]``, see
   keys of a split, ``randint``, the raw 32 bits or ``uniform`` floats.
   ``split_keys``, ``randint_cols`` and ``uniform_cols`` take a slice of a
   split's keys or of a draw's columns, so a rank of a mesh draws its own
-  envs and nothing else; ``fold_in``, ``randint``, ``normal`` and
-  ``permutation`` are ``jax.random``'s on the key's device (the trainers'
-  keys stay there), ``split_permutation`` an epoch's shuffle.
+  envs and nothing else; ``fold_in``, ``randint``, ``bernoulli``,
+  ``normal``, the bfloat16 ``uniform_bf16`` and ``normal_bf16``, and
+  ``permutation`` are ``jax.random``'s on the key's
+  device (the trainers' keys stay there), ``split_permutation`` an epoch's
+  shuffle and ``chain_keys`` the keys of a loop's ``key, k_t = split(key)``.
 
 A CUDA tensor launches the kernel of ``csrc/keyed_draws.cu``
 (``cw_keyed_reset``, ``cw_keyed_counter``) or raises; a CPU tensor runs the
@@ -260,18 +262,57 @@ def split_keys(key: torch.Tensor, num: int, cols: slice = slice(None), device=No
 
 
 def randint_cols(key: torch.Tensor, shape, minval: int, maxval: int,
-                 cols: slice = slice(None), device=None) -> torch.Tensor:
+                 cols: slice = slice(None), device=None, dtype=torch.int32) -> torch.Tensor:
     """Columns ``cols`` of ``jax.random.randint(key, (T, B), minval,
-    maxval)``: int32[T, len(cols)]."""
+    maxval, dtype)``: [T, len(cols)]; a narrower ``dtype`` (int16 or int8)
+    is the int32 draw cast, as JAX draws it."""
     T, B = shape
     col0, width = _bounds(cols, B)
-    return counter_draws(key, "randint", T, B, col0, width, minval, maxval, device=device)
+    out = counter_draws(key, "randint", T, B, col0, width, minval, maxval, device=device)
+    return out if dtype == torch.int32 else out.to(dtype)
 
 
 def randint(key: torch.Tensor, shape, minval: int, maxval: int) -> torch.Tensor:
     """``jax.random.randint(key, shape, minval, maxval)`` (int32) on the key's device."""
     n = math.prod(shape)
     return counter_draws(key, "randint", 1, n, 0, n, minval, maxval)[0].reshape(shape)
+
+
+def bernoulli(key: torch.Tensor, p: float, shape) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)`` for a Python float ``p``:
+    ``uniform(key, shape) < p`` in float32, bool on the key's device; for
+    key data [P, 2], one draw a key, bool[P, *shape], in one launch."""
+    n = math.prod(shape)
+    u = uniform_cols(key, (1, n))[..., 0, :]
+    return (u < p).reshape(tuple(key.shape[:-1]) + tuple(shape))
+
+
+def uniform_bf16(key: torch.Tensor, shape, minval: float = 0.0,
+                 maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, jnp.bfloat16, minval, maxval)`` on
+    the key's device: the counter kernel's 32-bit words, of which JAX keeps
+    the low byte (``ops/threefry.uniform_bf16_from_bits``), scaled in bfloat16."""
+    n = math.prod(shape)
+    bits = counter_draws(key, "bits", 1, n, 0, n)[0]
+    return tf.scale_uniform_bf16(tf.uniform_bf16_from_bits(bits), minval, maxval).reshape(shape)
+
+
+def normal_bf16(key: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.random.normal(key, shape, jnp.bfloat16)`` on the key's device:
+    its uniforms bit for bit, ``erfinv`` torch's in bfloat16."""
+    return tf.normal_bf16_from_uniform(uniform_bf16(key, shape, tf.BF16_NORMAL_LOW, 1.0))
+
+
+def chain_keys(key: torch.Tensor, steps: int):
+    """The sequential chain ``key, k_t = split(key)`` of a loop that draws
+    once a step, unrolled: (the key after ``steps`` steps, the step keys
+    int64[steps, 2]); one counter launch a step on the card, each key being
+    the last one's split."""
+    out = []
+    for _ in range(steps):
+        key, k_t = split_keys(key, 2)
+        out.append(k_t)
+    return key, torch.stack(out) if out else key.new_zeros((0, 2))
 
 
 def uniform_cols(key: torch.Tensor, shape, cols: slice = slice(None), minval: float = 0.0,

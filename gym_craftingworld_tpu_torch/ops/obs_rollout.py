@@ -21,11 +21,11 @@ from __future__ import annotations
 
 import torch
 
-from gym_craftingworld_tpu_torch import constants as C
 from gym_craftingworld_tpu_torch.config import EnvConfig
 from gym_craftingworld_tpu_torch.core.slots import (
     SlotState,
     holding_of,
+    random_actions,
     step_slots,
     to_grid,
 )
@@ -69,18 +69,15 @@ def _rollout_obs(cfg: EnvConfig, slots: SlotState, actions: torch.Tensor,
     return slots, csum & 0xFFFFFFFF
 
 
-def rollout_obs_random(cfg: EnvConfig, slots: SlotState, generator: torch.Generator,
+def rollout_obs_random(cfg: EnvConfig, slots: SlotState, key: torch.Tensor,
                        num_steps: int, obs_mode: str = "ray"):
     """T random-action steps, rendering the observation after every step.
 
-    The actions are drawn from ``generator`` exactly as
-    ``core.slots.rollout_slots_random`` draws them, so from one generator
-    state both reach the same final state. Returns ``(final_slots,
-    checksum)``: ``checksum`` is a 0-dim int64 tensor holding the uint32
-    wrap-sum of every observation pixel plus the reward stream; reading it on
-    the host waits for the whole rollout. The input state is not modified.
+    The actions are ``core.slots.random_actions`` of ``key``, the draw of
+    ``core.slots.rollout_slots_random``, so from one key both reach the same
+    final state. Returns ``(final_slots, checksum)``: ``checksum`` is a 0-dim
+    int64 tensor holding the uint32 wrap-sum of every observation pixel plus
+    the reward stream; reading it on the host waits for the whole rollout.
+    The input state is not modified.
     """
-    B = slots.agent.shape[0]
-    actions = torch.randint(0, C.N_ACTIONS, (num_steps, B), generator=generator,
-                            device=slots.agent.device, dtype=torch.int32)
-    return _rollout_obs(cfg, slots, actions, obs_mode)
+    return _rollout_obs(cfg, slots, random_actions(slots, key, num_steps), obs_mode)

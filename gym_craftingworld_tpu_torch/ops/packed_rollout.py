@@ -32,7 +32,7 @@ import torch
 
 from gym_craftingworld_tpu_torch import constants as C
 from gym_craftingworld_tpu_torch.config import EnvConfig
-from gym_craftingworld_tpu_torch.core.slots import HELD, ON_GRID, REMOVED, SlotState
+from gym_craftingworld_tpu_torch.core.slots import HELD, ON_GRID, REMOVED, SlotState, random_actions
 from gym_craftingworld_tpu_torch.core.step import StepResult, scan
 from gym_craftingworld_tpu_torch.ops.transposed_rollout import (
     TSlotState,
@@ -478,29 +478,22 @@ def rollout_p(cfg: EnvConfig, slots: SlotState, actions, num_steps: int):
     return transpose_out(unpack(cfg, p, ts.desired, _init_rows(ts)), slots.rng), out
 
 
-def _random_actions(slots: SlotState, generator: torch.Generator, num_steps: int):
-    B = slots.agent.shape[0]
-    return torch.randint(0, C.N_ACTIONS, (num_steps, B), generator=generator,
-                         device=slots.agent.device, dtype=i16)
+def rollout_p_random(cfg: EnvConfig, slots: SlotState, key: torch.Tensor, num_steps: int):
+    """T uniform-random-action steps in the packed engine; full outputs. The
+    actions are JAX's ``randint(key, (T, B), 0, 6, jnp.int16)``, its int32
+    draw cast."""
+    return rollout_p(cfg, slots, random_actions(slots, key, num_steps, dtype=i16), num_steps)
 
 
-def rollout_p_random(cfg: EnvConfig, slots: SlotState, generator: torch.Generator,
-                     num_steps: int):
-    """T uniform-random-action steps in the packed engine; full outputs."""
-    actions = _random_actions(slots, generator, num_steps)
-    return rollout_p(cfg, slots, actions, num_steps)
-
-
-def rollout_p_bench(cfg: EnvConfig, slots: SlotState, generator: torch.Generator,
-                    num_steps: int):
+def rollout_p_bench(cfg: EnvConfig, slots: SlotState, key: torch.Tensor, num_steps: int):
     """T random steps, returning only (state, int64 total reward).
 
-    Draws the same actions as ``rollout_p_random`` from the same generator
-    state, so the two agree on the final state and the reward sum.
+    Draws the same actions as ``rollout_p_random`` from the same key, so the
+    two agree on the final state and the reward sum.
     """
     ts = transpose_in(slots)
     p = pack(cfg, ts)
-    actions = _random_actions(slots, generator, num_steps)
+    actions = random_actions(slots, key, num_steps, dtype=i16)
     acc = torch.zeros((), dtype=torch.int64, device=actions.device)
     for t in range(num_steps):
         p, res = _step_p(cfg, p, actions[t])

@@ -25,8 +25,13 @@ a counter, so these functions reproduce its draws bit for bit on any device
   erfinv(u)`` of uniforms on ``[nextafter(-1, 0), 1)``. Their bits are
   JAX's; the logarithms and ``erfinv`` are torch's, which agree with XLA's
   to a few ulp (``tests/test_torch_threefry.py`` states the tolerance).
+* bfloat16 ``uniform`` (and its ``normal``): with 7 mantissa
+  bits JAX draws 8 bits an element, the low byte of the 32-bit word, and
+  keeps its top 7; the scaling and the transforms run in bfloat16, each
+  operation rounded (``uniform_bf16_from_bits``, ``scale_uniform_bf16``).
 * ``randint``: two bit draws from ``split(key)`` folded into the span with
-  32-bit unsigned arithmetic.
+  32-bit unsigned arithmetic; a narrower integer dtype is the int32 draw
+  cast (``tests/test_torch_keyed_ladder.py`` pins it).
 * ``permutation``: ``ceil(3 ln n / ln(2**32 - 1))`` rounds of a stable sort
   by fresh 32-bit keys.
 
@@ -214,6 +219,32 @@ def normal_from_uniform(u: torch.Tensor) -> torch.Tensor:
 def normal(key: torch.Tensor, shape=()) -> torch.Tensor:
     """``jax.random.normal(key, shape)`` (float32)."""
     return normal_from_uniform(uniform(key, shape, NORMAL_LOW, 1.0))
+
+
+BF16_NORMAL_LOW = -(1.0 - 2.0**-8)  # nextafter(-1, 0) in bfloat16
+
+
+def uniform_bf16_from_bits(bits: torch.Tensor) -> torch.Tensor:
+    """bfloat16 in [0, 1) from 32-bit words, as ``jax.random.uniform`` draws
+    bfloat16: with 7 mantissa bits it takes 8 random bits (``rng_bits`` 8),
+    the low byte of each word, and keeps its top 7 under the exponent of 1."""
+    word = ((bits & 0xFF) >> 1) | 0x3F80
+    return word.to(torch.int16).view(torch.bfloat16) - 1.0
+
+
+def scale_uniform_bf16(floats: torch.Tensor, minval: float = 0.0,
+                       maxval: float = 1.0) -> torch.Tensor:
+    """``max(minval, floats * (maxval - minval) + minval)`` with every bound
+    and every operation in bfloat16, each rounded, as XLA's CPU backend runs
+    JAX's bfloat16 ``_uniform`` (measured against JAX 0.9)."""
+    lo = torch.tensor(minval, dtype=torch.bfloat16, device=floats.device)
+    span = torch.tensor(maxval, dtype=torch.bfloat16, device=floats.device) - lo
+    return torch.maximum(lo, floats * span + lo)
+
+
+def normal_bf16_from_uniform(u: torch.Tensor) -> torch.Tensor:
+    """``sqrt(2) * erfinv(u)`` in bfloat16, each operation rounded."""
+    return torch.tensor(float(SQRT2), dtype=torch.bfloat16, device=u.device) * torch.erfinv(u)
 
 
 def randint_from_bits(higher: torch.Tensor, lower: torch.Tensor, minval: int,

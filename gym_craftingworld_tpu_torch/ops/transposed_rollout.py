@@ -14,9 +14,8 @@ from typing import NamedTuple
 
 import torch
 
-from gym_craftingworld_tpu_torch import constants as C
 from gym_craftingworld_tpu_torch.config import EnvConfig
-from gym_craftingworld_tpu_torch.core.slots import SlotState, _step_fields
+from gym_craftingworld_tpu_torch.core.slots import SlotState, _step_fields, random_actions
 from gym_craftingworld_tpu_torch.core.step import scan
 
 
@@ -83,15 +82,12 @@ def _step_t(cfg: EnvConfig, s: TSlotState, action: torch.Tensor):
     return s._replace(**new), res
 
 
-def rollout_t_random(cfg: EnvConfig, slots: SlotState, generator: torch.Generator,
-                     num_steps: int):
+def rollout_t_random(cfg: EnvConfig, slots: SlotState, key: torch.Tensor, num_steps: int):
     """T random-action steps in the transposed layout; returns ``(SlotState, StepResult)``.
 
-    The actions are ``torch.randint`` draws from ``generator``, int32 ``[T, B]``,
+    The actions are ``core/slots.random_actions`` of ``key``, int32 ``[T, B]``,
     as in ``core/slots.py::rollout_slots_random``.
     """
-    B = slots.agent.shape[0]
-    actions = torch.randint(0, C.N_ACTIONS, (num_steps, B), generator=generator,
-                            device=slots.agent.device, dtype=torch.int32)
+    actions = random_actions(slots, key, num_steps)
     ts, out = scan(lambda s, a: _step_t(cfg, s, a), transpose_in(slots), actions)
     return transpose_out(ts, slots.rng), out

@@ -17,8 +17,8 @@ Shapes are the JAX dry run's where the port's blocks allow (its shuffle
 blocks are 128 rows, so a rank holds 128 envs in paths 3 and 5), and so
 are the keys: ``PRNGKey(n)`` of the JAX dry run for the resets, the
 actions, the trainers' envs, parameters (the flax family's of path 1 as
-flax's ``model.init`` draws them) and step keys (paths 1-5); the random
-minibatch of path 6 comes from a generator seeded alike.
+flax's ``model.init`` draws them) and step keys (paths 1-5), and path 6's
+random minibatch (``ops/fused_update.random_minibatch`` of ``PRNGKey(12)``).
 
     torchrun --standalone --nproc_per_node 2 -m gym_craftingworld_tpu_torch.parallel.dryrun
     python -m gym_craftingworld_tpu_torch.parallel.dryrun --device cpu   # one rank
@@ -120,11 +120,7 @@ def dryrun_multichip(n_devices: int, device=None) -> str:
     params_k = fp.init_params(key(11), cfg_r, fppo_k)
     n_shard = 256
     Nk, Fk = n_shard * n_devices, fp.feature_rows(cfg_r)
-    g = torch.Generator(device=dev).manual_seed(12)
-    batch_k = (torch.randn((Nk, Fk), generator=g, device=dev).to(torch.bfloat16),
-               torch.randint(0, 6, (Nk,), generator=g, device=dev, dtype=torch.int32),
-               torch.full((Nk,), -math.log(6.0), device=dev),
-               *(torch.randn((Nk,), generator=g, device=dev) for _ in range(3)))
+    _, batch_k = fu.random_minibatch(key(12), Nk, Fk)
     shard = lambda i: tuple(x[i * n_shard:(i + 1) * n_shard] for x in batch_k)
     grads, _ = fu.fused_minibatch_grads(fppo_k, params_k, shard(mesh.rank))
     grads = {k: mesh.all_reduce(v.clone()) / n_devices for k, v in grads.items()}

@@ -118,15 +118,6 @@ def mixed_train_chunk(cfg: EnvConfig, ts: dagger.BCTrainState, data: dict, n_val
     return ts, {k: float(v) for k, v in stats.items()}
 
 
-def generator_gumbel(shape, generator: torch.Generator) -> torch.Tensor:
-    """Standard Gumbel noise f32 of ``shape`` from ``generator``, on its device
-    (``jax.random.gumbel``'s law, uniforms from the smallest normal f32 up):
-    the sampled rollouts of ``finetune_canonical`` and ``pixel_distill``,
-    whose draws do not follow JAX's keys yet."""
-    u = torch.rand(shape, generator=generator, device=generator.device)
-    return -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
-
-
 def save_params(model: torch.nn.Module, out: Path, tag: str | None) -> Path:
     """``model``'s ``state_dict`` as ``params_<tag>.pt`` under ``out``
     (``params.pt`` with no tag)."""

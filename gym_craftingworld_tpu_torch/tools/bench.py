@@ -17,9 +17,13 @@ variables, engines and metric names, one JSON line of the same keys.
 * ``BENCH_ITERS``: timed runs (11).
 
 Each run continues from the last run's state (``step_num`` saturates at
-``max_steps``, so a long rollout without resets is safe) with seed ``i``:
-the bench kernel's Philox seed, or the seed of a ``torch.Generator`` the
-other engines draw their actions from. After one warm-up run each run lies
+``max_steps``, so a long rollout without resets is safe) and draws from
+JAX's keys as the JAX tool's ``_median_time`` does: the warm-up from
+``PRNGKey(0)``, run ``i`` from ``fold_in(PRNGKey(0), i)``, key data on the
+device (the counter kernel draws on the card). The plain engines draw
+their actions from the key (``randint(key, (T, B), 0, 6)``); for
+``packed_fused`` the bench kernel's Philox seed is ``randint(key, (), 0,
+2**31 - 1)``, read back to the host. After the warm-up run each run lies
 between two CUDA events; the reward checksums, int64 sums, are read after
 the last run. The JAX tool's relay workarounds (T-against-T/2 deltas, stall
 retries, cool-downs) are gone.
@@ -49,6 +53,7 @@ import torch
 import gym_craftingworld_tpu_torch as cw
 from gym_craftingworld_tpu_torch.core import slots as sm
 from gym_craftingworld_tpu_torch.core.rollout import rollout_random
+from gym_craftingworld_tpu_torch.ops import keyed_draws as kd
 from gym_craftingworld_tpu_torch.ops.threefry import prng_key
 from gym_craftingworld_tpu_torch.ops import obs_rollout as obr
 from gym_craftingworld_tpu_torch.ops import packed_fused as pf
@@ -75,30 +80,32 @@ def metric_name(layout: str, envs: int) -> str:
     return f"env_steps_per_s_per_chip_{envs // 1024}k_envs"
 
 
+def bench_seed(key: torch.Tensor) -> int:
+    """``packed_fused``'s Philox seed of a run: ``randint(key, (), 0, 2**31 -
+    1)``, as the JAX tool draws it, read back to the host."""
+    return int(kd.randint(key, (), 0, 2**31 - 1))
+
+
 def make_engine(layout: str, cfg, state):
-    """``(roll, state)``: ``roll(state, seed, T) -> (state, int64 checksum)``
+    """``(roll, state)``: ``roll(state, key, T) -> (state, int64 checksum)``
     runs ``layout``'s engine from ``state`` (an ``EnvState``, converted here to
-    the engine's layout) for T steps, as the JAX tool's ``_make_engine``."""
+    the engine's layout) for T steps from key data ``key``, as the JAX tool's
+    ``_make_engine``."""
     if layout not in LAYOUTS:
         raise SystemExit(f"unknown BENCH_LAYOUT {layout!r}")
     if layout == "grid":
-        def roll(st, seed, n):
-            st, out = rollout_random(cfg, st, prng_key(seed), n)
-            return st, out.reward.sum(dtype=torch.int64)
-
-        return roll, state
+        engine = lambda st, k, n: rollout_random(cfg, st, k, n)
     else:
         state = sm.from_env_state(state)
         if layout == "packed_fused":
-            return (lambda st, seed, n: pf.fused_rollout_packed_bench(cfg, st, seed, n)), state
-        engine = {"packed": lambda st, g, n: pr.rollout_p_bench(cfg, st, g, n),
-                  "transposed": lambda st, g, n: tr.rollout_t_random(cfg, st, g, n),
-                  "slots": lambda st, g, n: sm.rollout_slots_random(cfg, st, g, n)}.get(
-            layout, lambda st, g, n: obr.rollout_obs_random(cfg, st, g, n, layout[4:]))
+            return (lambda st, k, n: pf.fused_rollout_packed_bench(cfg, st, bench_seed(k), n)), state
+        engine = {"packed": lambda st, k, n: pr.rollout_p_bench(cfg, st, k, n),
+                  "transposed": lambda st, k, n: tr.rollout_t_random(cfg, st, k, n),
+                  "slots": lambda st, k, n: sm.rollout_slots_random(cfg, st, k, n)}.get(
+            layout, lambda st, k, n: obr.rollout_obs_random(cfg, st, k, n, layout[4:]))
 
-    def roll(st, seed, n):
-        gen = torch.Generator(device=st.agent.device).manual_seed(seed)
-        st, out = engine(st, gen, n)
+    def roll(st, key, n):
+        st, out = engine(st, key, n)
         return st, (out if torch.is_tensor(out) else out.reward.sum(dtype=torch.int64))
 
     return roll, state
@@ -127,14 +134,17 @@ def reference_steps_per_s(n_steps: int = 3000) -> float | None:
 
 def measure(layout: str, envs: int, steps: int, iters: int, device) -> dict:
     """``timed_runs`` of ``layout``'s engine (``median_ms``, ``runs_ms``) and
-    the reward checksum of every run, the warm-up's first."""
+    the reward checksum of every run, the warm-up's first: the warm-up from
+    ``PRNGKey(0)``, timed run ``i`` from ``fold_in(PRNGKey(0), i)``."""
     cfg = cw.ray_config()
     roll, state = make_engine(layout, cfg, cw.reset_from_seed(cfg, 0, envs, device=device))
-    box = {"state": state, "seed": 0, "checksums": []}
+    key = prng_key(0, device=device)
+    box = {"state": state, "run": -1, "checksums": []}
 
     def run():
-        box["state"], checksum = roll(box["state"], box["seed"], steps)
-        box["seed"] += 1
+        k = key if box["run"] < 0 else kd.fold_in(key, box["run"])
+        box["state"], checksum = roll(box["state"], k, steps)
+        box["run"] += 1
         box["checksums"].append(checksum)
 
     t = timed_runs(run, device, reps=iters, warmup=1)

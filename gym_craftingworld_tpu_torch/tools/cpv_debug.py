@@ -15,10 +15,10 @@ and classify every failed episode with ``_cpv.failure_kind``, as
 * ``timeout``: distinct states until the step cap.
 
 The façade and the policy run on ``--device``, the card unless asked for the
-CPU; the façade draws its resets from a ``torch.Generator``, other worlds
-than the JAX tool's ``jax.random`` for the same seed
-(``trace_pair(..., rng_mode="parity")`` draws the reference's RandomState,
-the JAX façade's worlds bit for bit, as the tests compare the two tools).
+CPU; the façade's fast mode (the default, as the JAX tool's) draws its
+resets from JAX's key chain, so the same seeds give the JAX tool's worlds
+bit for bit; ``trace_pair(..., rng_mode="parity")`` draws the reference's
+RandomState instead, the JAX façade's parity-mode worlds.
 Prints the JAX tool's lines, a pair's counts as ``<pair>: {json}``, and one
 JSON line of every pair with the card.
 

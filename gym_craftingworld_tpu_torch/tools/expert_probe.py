@@ -13,12 +13,12 @@ success is printed in the JAX tool's format:
 
 The façade runs on ``--device`` (the card unless asked for the CPU; the
 expert reads the episode's init grid from a host copy,
-``train/evaluate._HostView``) and draws its resets from a
-``torch.Generator``, as the JAX tool's draws from ``jax.random``: the same
-seeds give other worlds. ``probe(..., rng_mode="parity")`` draws the
-reference's RandomState instead, the JAX façade's worlds bit for bit (the
-tests compare the two tools so). ``--seeds N`` takes each mode's first N
-seeds.
+``train/evaluate._HostView``). Its fast mode, the default as in the JAX
+tool, draws its resets from JAX's key chain, so the same seeds give the
+JAX tool's worlds bit for bit; ``probe(..., rng_mode="parity")`` draws the
+reference's RandomState instead, the JAX façade's parity-mode worlds (the
+tests compare the two tools both ways). ``--seeds N`` takes each mode's
+first N seeds.
 
     python -m gym_craftingworld_tpu_torch.tools.expert_probe [all|single|stacked|flat]
     python -m gym_craftingworld_tpu_torch.tools.expert_probe flat --seeds 2 --device cpu

@@ -14,12 +14,13 @@ Recipe, as in JAX:
   * a low learning rate and a best checkpoint kept at each evaluation, so
     the fine-tune never ships a regression.
 
-What differs: the pool, the Gumbel noise of the sampled actions and the
-epoch permutations come from one ``torch.Generator`` seeded ``--seed + 1``
-on the device (``train_step`` also takes them explicitly, as ``Draws``);
-parameters load from and save to ``params_<tag>.pt`` state dicts; the JSON
-goes to ``--out`` with the card and an ``analysis`` line written from the
-run's own numbers.
+Every draw is JAX's, from the same key data on the device (``draw``): the
+envs reset from ``split(PRNGKey(--seed), envs)``, and each update splits
+``PRNGKey(--seed + 1)``'s chain into its pool, its Gumbel noise and its
+epoch permutations as JAX's ``train_step`` does (the keyed-draw kernels on
+the card). What differs: parameters load from and save to
+``params_<tag>.pt`` state dicts; the JSON goes to ``--out`` with the card
+and an ``analysis`` line written from the run's own numbers.
 
     python -m gym_craftingworld_tpu_torch.tools.finetune_canonical \\
         --updates 260 --warmup 10 --lr 1e-5 --ent-coef 1e-4 --eval-every 25
@@ -38,19 +39,19 @@ from typing import NamedTuple
 
 import torch
 
-from gym_craftingworld_tpu_torch import constants as C
 from gym_craftingworld_tpu_torch.config import EnvConfig, ray_config
-from gym_craftingworld_tpu_torch.core.reset import reset_from_generator
+from gym_craftingworld_tpu_torch.core.reset import reset
 from gym_craftingworld_tpu_torch.core.rollout import _select
 from gym_craftingworld_tpu_torch.core.state import EnvState
 from gym_craftingworld_tpu_torch.core.step import step
 from gym_craftingworld_tpu_torch.models.grid_policy import (init_grid_policy, planes_from_snaps,
                                                             planes_from_state,
                                                             snap_columns_from_state)
+from gym_craftingworld_tpu_torch.ops import keyed_draws as kd
 from gym_craftingworld_tpu_torch.ops.threefry import prng_key
-from gym_craftingworld_tpu_torch.tools._canonical import (RUNS, generator_gumbel, load_params, log,
-                                                          save_params, shown)
+from gym_craftingworld_tpu_torch.tools._canonical import RUNS, load_params, log, save_params, shown
 from gym_craftingworld_tpu_torch.train import dagger, fast_ppo
+from gym_craftingworld_tpu_torch.train.ppo import gumbel_noise
 from gym_craftingworld_tpu_torch.utils.profiling import card_identity
 
 OUT = RUNS / "canonical_finetune.json"
@@ -99,15 +100,19 @@ def init_state(model: torch.nn.Module, ft: FTConfig) -> FTState:
     return FTState(model, make_tx(ft).init(dict(model.named_parameters())))
 
 
-def draw(cfg: EnvConfig, ft: FTConfig, B: int, generator: torch.Generator) -> Draws:
-    """An update's draws from ``generator``: the pool, then the noise, then
-    the permutations."""
-    pool = reset_from_generator(cfg, 2 * B, generator)
-    noise = generator_gumbel((ft.rollout_steps, B, C.N_ACTIONS), generator)
+def draw(cfg: EnvConfig, ft: FTConfig, B: int, key: torch.Tensor):
+    """An update's draws from key data ``key``, as JAX's ``train_step`` makes
+    them: ``key, k_pool, k_roll, k_perm = split(key, 4)``; the pool is the
+    reset of ``split(k_pool, 2B)``; step ``t``'s noise is ``categorical``'s
+    Gumbel draw (float32, the logits' dtype) of ``split(k_roll, T)[t]``;
+    epoch ``e``'s rows are ``permutation(split(k_perm, E)[e], T * B)``.
+    Returns (the next key, Draws), on the key's device."""
+    key, k_pool, k_roll, k_perm = kd.split_keys(key, 4)
+    pool = reset(cfg, kd.split_keys(k_pool, 2 * B))
+    noise = gumbel_noise(k_roll, B, planes=ft.rollout_steps)
     N = ft.rollout_steps * B
-    perms = torch.stack([torch.randperm(N, generator=generator, device=generator.device)
-                         for _ in range(ft.update_epochs)])
-    return Draws(pool, noise, perms)
+    perms = torch.stack([kd.permutation(k, N) for k in kd.split_keys(k_perm, ft.update_epochs)])
+    return key, Draws(pool, noise, perms)
 
 
 def _window(pool: EnvState, off: int, B: int) -> EnvState:
@@ -207,14 +212,13 @@ def update_phase(cfg: EnvConfig, ft: FTConfig, ts: FTState, flat: dict, perms: t
 
 
 @torch.no_grad()
-def train_step(cfg: EnvConfig, ft: FTConfig, ts: FTState, env: EnvState, value_only: bool,
-               generator: torch.Generator | None = None, draws: Draws | None = None):
-    """One PPO iteration of the GridPolicy on the canonical env, from
-    ``draws`` or from ``generator``'s. Returns (ts, env, metrics as 0-dim
-    tensors); the parameters are updated in place."""
+def train_step(cfg: EnvConfig, ft: FTConfig, ts: FTState, env: EnvState, key: torch.Tensor,
+               value_only: bool):
+    """One PPO iteration of the GridPolicy on the canonical env, drawing from
+    key data ``key`` (``draw``). Returns (ts, env, the next key, metrics as
+    0-dim tensors), as JAX's; the parameters are updated in place."""
     B = env.objects.shape[0]
-    if draws is None:
-        draws = draw(cfg, ft, B, generator)
+    key, draws = draw(cfg, ft, B, key)
     env, traj, last_value = collect(cfg, ft, ts.params, env, draws.pool, draws.noise)
     adv, ret = gae(ft, traj, last_value)
     N = ft.rollout_steps * B
@@ -227,7 +231,7 @@ def train_step(cfg: EnvConfig, ft: FTConfig, ts: FTState, env: EnvState, value_o
     metrics = {"loss": mean[0], "pg": mean[1], "v_loss": mean[2], "entropy": mean[3],
                "success_rate": (traj["raw"] == cfg.max_steps).sum() / done.sum().clamp_min(1),
                "done_frac": done.to(torch.float32).mean()}
-    return ts, env, metrics
+    return ts, env, key, metrics
 
 
 def analysis(base: float, curve: list, best: str, final: float, warmup: int) -> str:
@@ -287,8 +291,8 @@ def main(argv=None) -> dict:
         log(f"loaded {args.init_params}")
     ft = FTConfig(lr=args.lr, ent_coef=args.ent_coef)
     ts = init_state(model, ft)
-    env = reset_from_generator(cfg, args.envs, torch.Generator(device=dev).manual_seed(args.seed))
-    gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    env = reset(cfg, kd.split_keys(prng_key(args.seed, device=dev), args.envs))
+    key = prng_key(args.seed + 1, device=dev)
 
     def evaluate(tag, n, seed):
         res = dagger.evaluate_grid_policy(cfg, model, n, seed)
@@ -302,7 +306,7 @@ def main(argv=None) -> dict:
     head_kept, history = None, []
     for u in range(1, args.updates + 1):
         value_only = u <= args.warmup
-        ts, env, m = train_step(cfg, ft, ts, env, value_only, gen)
+        ts, env, key, m = train_step(cfg, ft, ts, env, key, value_only)
         m = {k: float(v) for k, v in m.items()}
         history.append({"update": u, "value_only": value_only, **m})
         if u == args.warmup:

@@ -11,6 +11,13 @@ FLOP (forward, backward and weight gradients), as a share of the H100's
 gradient's product shapes (cuBLAS; the yardstick, used nowhere in the port).
 Prints one JSON line.
 
+The minibatch is the JAX tool's draw (``ops/fused_update.random_minibatch``
+of ``split(PRNGKey(1), 6)``, key data on the device), its features drawn
+for the eight minibatches' blocks the indexed kernel picks from; the pick
+is ``permutation(kb[5], blocks)``, the key the JAX tool splits off and
+leaves unused. The yardstick's operands are bf16 normals of
+``split(PRNGKey(2), 6)``.
+
 The JAX tool's sweep over row tiles (``TILES``) is gone: it chose Mosaic's
 row tile, which has no counterpart here. The CUDA kernel's tiles are
 compile-time constants (``CW_BN``, ``csrc/wgmma_gemm.cuh``).
@@ -28,6 +35,7 @@ import torch
 
 import gym_craftingworld_tpu_torch as cw
 from gym_craftingworld_tpu_torch.ops import fused_update as fu
+from gym_craftingworld_tpu_torch.ops import keyed_draws as kd
 from gym_craftingworld_tpu_torch.ops.threefry import prng_key
 from gym_craftingworld_tpu_torch.train import fast_ppo as fp
 from gym_craftingworld_tpu_torch.utils.profiling import card_identity, device_time_ms, timed_runs
@@ -36,10 +44,11 @@ PEAK_BF16 = 989e12  # H100 SXM, dense bf16 FLOP/s at 700 W
 MINIBATCHES = 8  # the default update's minibatches: featb holds 8 minibatches of blocks
 
 
-def five_matmuls(gen, dev, n, F, H):
-    """The gradient's five products as five bf16 ``torch.matmul`` calls."""
-    r = lambda *shape: torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
-    x, h1, dz1, dz2, w1, w2 = r(n, F), r(n, H), r(n, H), r(n, H), r(H, F), r(H, H)
+def five_matmuls(key, n, F, H):
+    """The gradient's five products as five bf16 ``torch.matmul`` calls, on
+    bf16 normals of ``split(key, 6)``."""
+    shapes = ((n, F), (n, H), (n, H), (n, H), (H, F), (H, H))
+    x, h1, dz1, dz2, w1, w2 = (kd.normal_bf16(k, s) for k, s in zip(kd.split_keys(key, 6), shapes))
 
     def run():
         torch.matmul(x, w1.T)
@@ -62,23 +71,19 @@ def main(argv=None) -> dict:
     cfg = cw.ray_config()
     fppo = fp.FastPPOConfig(hidden=args.hidden)
     N, H, F = args.rows, args.hidden, fp.feature_rows(cfg)
-    gen = torch.Generator(device=dev).manual_seed(0)
     params = fp.init_params(prng_key(0, device=dev), cfg, fppo)
     # the update phase's layout: blocks of BLK rows, this minibatch's blocks
     # picked out of MINIBATCHES minibatches' worth by a permutation
     BLK = fp.shuffle_block(1, N, 1)
     NB = MINIBATCHES * N // BLK
-    featb = (torch.rand((NB, BLK, F), generator=gen, device=dev) < 0.3).to(torch.bfloat16)
-    ids = torch.randperm(NB, generator=gen, device=dev)[: N // BLK]
-    rest = (torch.randint(0, 6, (N,), generator=gen, device=dev, dtype=torch.int32),
-            -torch.rand((N,), generator=gen, device=dev) - 1.0,
-            torch.randn((N,), generator=gen, device=dev),
-            torch.randn((N,), generator=gen, device=dev),
-            torch.randn((N,), generator=gen, device=dev))
+    kb, (x, *rest) = fu.random_minibatch(prng_key(1, device=dev), N, F, num=6,
+                                         feature_rows=NB * BLK)
+    featb = x.reshape(NB, BLK, F)
+    ids = kd.permutation(kb[5], NB)[: N // BLK]
     call = lambda: fu.fused_minibatch_grads_indexed(fppo, params, featb, ids, rest)
     t = timed_runs(call, dev, reps=20)
     device = device_time_ms(call) if dev.type == "cuda" else None
-    lib = timed_runs(five_matmuls(gen, dev, N, F, H), dev, reps=20)
+    lib = timed_runs(five_matmuls(prng_key(2, device=dev), N, F, H), dev, reps=20)
     flop = 6 * N * (F * H + H * H + 7 * H)
     rate = lambda ms: flop / (ms / 1e3)
     line = {"tool": "fused_update_bench", "card": card, "rows": N, "hidden": H, "features": F,

@@ -20,9 +20,11 @@ the init frame, rendered RGB; craftingworld_ray.py:84-92) and nothing else.
             fit 0.9 soft + 0.1 hard cross-entropy on teacher rows, hard on
             student rows; 50/50 mixture batches by upsampling the core.
 
-What differs: resets, exploration draws, flips and sampled evaluations come
-from ``torch.Generator``s seeded as JAX seeds its keys; the host draws
-(``RandomState``) are JAX's, so the same columns give the same rows; on the
+Every ``jax.random`` draw is JAX's, from the same key data on the device
+(the keyed-draw kernels on the card): the rollouts' resets and exploration
+(``collect_round``), the minibatches' flips (``flip_bits``) and the sampled
+evaluation's chain (``eval_student``); the host draws (``RandomState``) are
+JAX's too, so the same columns give the same rows. What differs: on the
 card an epoch's minibatch updates replay one CUDA graph (``student_epoch``;
 launched one by one from the host, the ~400 launches of a minibatch set the
 pace, not the card); the student relabel runs in several host processes
@@ -46,7 +48,7 @@ import torch
 
 from gym_craftingworld_tpu_torch import constants as C
 from gym_craftingworld_tpu_torch.config import EnvConfig, ray_config
-from gym_craftingworld_tpu_torch.core.reset import reset_from_generator
+from gym_craftingworld_tpu_torch.core.reset import reset
 from gym_craftingworld_tpu_torch.core.rollout import _select
 from gym_craftingworld_tpu_torch.core.state import EnvState
 from gym_craftingworld_tpu_torch.core.step import step
@@ -55,10 +57,11 @@ from gym_craftingworld_tpu_torch.models.grid_policy import (init_grid_policy, pl
                                                             planes_from_state,
                                                             snap_columns_from_state)
 from gym_craftingworld_tpu_torch.render.raster import render_ray
+from gym_craftingworld_tpu_torch.ops import keyed_draws as kd
 from gym_craftingworld_tpu_torch.ops.threefry import prng_key
-from gym_craftingworld_tpu_torch.tools._canonical import (RUNS, generator_gumbel, load_params, log,
-                                                          relabel, shown)
+from gym_craftingworld_tpu_torch.tools._canonical import RUNS, load_params, log, relabel, shown
 from gym_craftingworld_tpu_torch.train import dagger
+from gym_craftingworld_tpu_torch.train.ppo import collect_noise
 from gym_craftingworld_tpu_torch.train.evaluate import summarize
 from gym_craftingworld_tpu_torch.train.fast_ppo import AdamState
 from gym_craftingworld_tpu_torch.utils.profiling import card_identity
@@ -214,16 +217,17 @@ def keep_rows(cols: dict, goal_cols: dict, live: np.ndarray, success: np.ndarray
 def collect_round(cfg: EnvConfig, kind: str, model, episodes: int, seed: int, eps: float,
                   chunk: int = 2048, fail_cap: int | None = None):
     """Chunked rollouts on the model's device -> (host column dict, success
-    rate). Chunk ``i`` (its first episode) resets from a generator seeded
-    ``seed + i`` and explores from one seeded ``seed ^ (7 + i)``."""
+    rate). Chunk ``i`` (its first episode) resets from ``split(PRNGKey(seed +
+    i), B)`` and explores with the draws of ``PRNGKey(seed ^ (7 + i))``:
+    step ``t``'s ``k_u, k_a = split(split(key, max_steps)[t])``, a move
+    ``randint(k_a, (B,), 0, 4)`` where ``uniform(k_u, (B,)) < eps``
+    (``dagger.explore_draws``), as the JAX tool draws them."""
     dev = next(model.parameters()).device
     parts, succ = [], []
     for i in range(0, episodes, chunk):
         B = min(chunk, episodes - i)
-        state = reset_from_generator(cfg, B, torch.Generator(device=dev).manual_seed(seed + i))
-        g = torch.Generator(device=dev).manual_seed(seed ^ (7 + i))
-        u = torch.rand((cfg.max_steps, B), generator=g, device=dev)
-        a = torch.randint(0, 4, (cfg.max_steps, B), generator=g, device=dev)
+        state = reset(cfg, kd.split_keys(prng_key(seed + i, device=dev), B))
+        u, a = dagger.explore_draws(prng_key(seed ^ (7 + i), device=dev), cfg.max_steps, B)
         cols, goal_cols, live, success = _rollout_collect(cfg, kind, model, state, u, a, eps)
         host = lambda d: {k: v.cpu().numpy() for k, v in d.items()}
         success = success.cpu().numpy()
@@ -409,12 +413,15 @@ def student_epoch(cfg: EnvConfig, model, opt: AdamState, data: dict, perm, batch
     return opt, sums[0] / steps, sums[1] / steps
 
 
-def flip_bits(steps: int, batch_size: int, generator: torch.Generator):
-    """An epoch's flips (fh, fw) bool[steps, batch_size], each a fair coin."""
-    dev = generator.device
-    fh = torch.rand((steps, batch_size), generator=generator, device=dev) < 0.5
-    fw = torch.rand((steps, batch_size), generator=generator, device=dev) < 0.5
-    return fh, fw
+def flip_bits(aug_key: torch.Tensor, steps: int, batch_size: int):
+    """An epoch's flips (fh, fw) bool[steps, batch_size] from key data
+    ``aug_key``, as the JAX tool's ``augment_flips`` draws minibatch ``i``'s:
+    ``kh, kw = split(fold_in(aug_key, i))``, then ``bernoulli(kh, 0.5, (B,))``
+    and ``bernoulli(kw, 0.5, (B,))``. ``fold_in(key, i)`` is the key at
+    counter ``i``, key ``i`` of a split: four counter launches an epoch,
+    made before the epoch's CUDA graph, which then draws nothing."""
+    k = kd.counter_draws(kd.split_keys(aug_key, steps), "split", 1, 2, 0, 2)[:, 0]
+    return kd.bernoulli(k[:, 0], 0.5, (batch_size,)), kd.bernoulli(k[:, 1], 0.5, (batch_size,))
 
 
 # ---------------------------------------------------------------------------
@@ -425,7 +432,7 @@ def flip_bits(steps: int, batch_size: int, generator: torch.Generator):
 @torch.no_grad()
 def _eval_student(cfg: EnvConfig, model, state: EnvState, noise=None) -> dict:
     """One episode per env from ``state``, greedy, or with ``noise`` f32[T, B,
-    A] (``_canonical.generator_gumbel``) a draw from the student's softmax each step;
+    A] (``categorical``'s Gumbel noise) a draw from the student's softmax each step;
     finished episodes are frozen, and the loop stops once every one is done."""
     B = state.objects.shape[0]
     dev = state.objects.device
@@ -449,17 +456,21 @@ def _eval_student(cfg: EnvConfig, model, state: EnvState, noise=None) -> dict:
 def eval_student(cfg: EnvConfig, model, episodes: int, seed: int, chunk: int = 2048,
                  mode: str = "argmax") -> dict:
     """``train/evaluate.summarize`` of ``episodes`` episodes in chunks; chunk
-    ``i`` resets from a generator seeded ``seed + 31 * i``, whose next draws
-    are the ``sample`` mode's noise."""
+    ``i`` resets from ``keys = split(PRNGKey(seed + 31 * i), B)``. The
+    ``sample`` mode draws as the JAX tool's ``while_loop`` does, from the
+    first env's key ``keys[0]`` by the sequential chain ``k, k_t = split(k)``
+    once a step and ``categorical(k_t, logits)``: its ``max_steps`` step keys
+    are made before the episode (``train/ppo.collect_noise``), the loop
+    reading as many as it runs."""
     if mode not in ("argmax", "sample"):
         raise ValueError(f"unknown mode {mode!r}")
     dev = next(model.parameters()).device
     outs = []
     for i in range(0, episodes, chunk):
         B = min(chunk, episodes - i)
-        g = torch.Generator(device=dev).manual_seed(seed + 31 * i)
-        state = reset_from_generator(cfg, B, g)
-        noise = generator_gumbel((cfg.max_steps, B, C.N_ACTIONS), g) if mode == "sample" else None
+        keys = kd.split_keys(prng_key(seed + 31 * i, device=dev), B)
+        state = reset(cfg, keys)
+        noise = collect_noise(keys[0], cfg.max_steps, B) if mode == "sample" else None
         outs.append({k: v.cpu().numpy() for k, v in _eval_student(cfg, model, state, noise).items()})
     return summarize({k: np.concatenate([o[k] for o in outs]) for k in outs[0]})
 
@@ -571,8 +582,8 @@ def main(argv=None) -> dict:
         for ep in range(args.epochs0 if r == 0 else args.epochs):
             order = np.random.RandomState(args.seed + 17 * r + ep).permutation(n)
             perm = torch.from_numpy(idx_all[order].astype(np.int32)).to(dev)
-            fh, fw = flip_bits(n // args.batch, args.batch, torch.Generator(
-                device=dev).manual_seed(args.seed + 1000 * r + ep))
+            fh, fw = flip_bits(prng_key(args.seed + 1000 * r + ep, device=dev), n // args.batch,
+                               args.batch)
             opt, loss, acc = student_epoch(cfg, student, opt, on_dev, perm, args.batch, fh, fw)
             core_share = 1 - (0 if student_data is None else n1 / n)
             log(f"  train ep {ep}: loss {float(loss):.4f} acc {float(acc):.4f} ({n} mixture "

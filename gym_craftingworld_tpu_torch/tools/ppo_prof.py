@@ -8,16 +8,20 @@ between CUDA events:
 
 * ``train_step``: ``train_step`` in full, carrying its state; its env-steps/s;
 * ``collect``: ``_collect`` of 64 policy steps with auto-reset;
-* ``reset``: 64 resets of B envs from their keys (``core/reset.reset``);
-* ``grid_step``: 64 grid steps (``core/step.step``) with random actions;
+* ``reset``: 64 resets of B envs, each from ``split(c, B)`` of a chained
+  key ``c`` (the split's first key next), as the JAX tool's scan;
+* ``grid_step``: 64 grid steps (``core/step.step``) with random actions,
+  each ``kk, ka = split(kk)`` and ``randint(ka, (B,), 0, 6)``;
 * ``policy_forward``: 64 forwards of the policy on one snapshot;
 * ``update_epoch``: one epoch of 4 minibatch updates (autograd, clip and
-  Adam) on a synthetic batch of T x B rows, as the JAX tool builds it.
+  Adam) on a synthetic batch of T x B rows, as the JAX tool builds it, its
+  rows in ``permutation(key, T * B)``.
 
 Prints a line a stage with the card and one JSON line a stage. Of the
-hand-written kernels only the keyed draws' run on this path: the resets'
-and the step's draws from JAX's key chain (``train_step`` from
-``PRNGKey(0)``, the collect's noise from ``PRNGKey(1)``).
+hand-written kernels only the keyed draws' run on this path: every draw is
+JAX's from the tool's one key ``PRNGKey(0)`` (``train_step``'s chain, the
+collect's noise, the resets', the steps' and the epoch's permutation),
+key data on the device.
 
     python -m gym_craftingworld_tpu_torch.tools.ppo_prof
     B=16 python -m gym_craftingworld_tpu_torch.tools.ppo_prof --device cpu --reps 1
@@ -35,6 +39,7 @@ import gym_craftingworld_tpu_torch as cw
 from gym_craftingworld_tpu_torch import constants as C
 from gym_craftingworld_tpu_torch.core.reset import reset
 from gym_craftingworld_tpu_torch.core.step import step
+from gym_craftingworld_tpu_torch.ops import keyed_draws as kd
 from gym_craftingworld_tpu_torch.ops.threefry import prng_key
 from gym_craftingworld_tpu_torch.train import fast_ppo
 from gym_craftingworld_tpu_torch.train import ppo as P
@@ -44,10 +49,10 @@ STAGE_STEPS = 64  # resets, grid steps and forwards a run, as the JAX tool's sca
 
 
 def update_epoch(ppo: P.PPOConfig, apply_fn, ts: P.TrainState, snap: P.Snapshot,
-                 generator: torch.Generator):
+                 key: torch.Tensor):
     """One epoch of minibatch updates on the JAX tool's synthetic batch: the
     snapshot tiled T times, actions 0, old log-probs and values 0,
-    advantages and returns 1; rows in a permutation from ``generator``."""
+    advantages and returns 1; rows in ``permutation(key, T * B)``."""
     T, B = ppo.rollout_steps, snap.objects.shape[0]
     n = T * B
     dev = snap.objects.device
@@ -56,7 +61,7 @@ def update_epoch(ppo: P.PPOConfig, apply_fn, ts: P.TrainState, snap: P.Snapshot,
     flat = (obs, torch.zeros(n, dtype=torch.int32, device=dev), zeros, zeros, ones, ones)
     optimizer = P.make_optimizer(ppo)
     params, opt_state = ts.params, ts.opt_state
-    perm = torch.randperm(n, generator=generator, device=dev)
+    perm = kd.permutation(key, n)
     mb = n // ppo.num_minibatches
     losses = []
     for i in range(ppo.num_minibatches):
@@ -80,11 +85,10 @@ def main(argv=None) -> list:
     cfg = cw.flat_config()
     ppo = P.PPOConfig()
     T = ppo.rollout_steps
-    gen = torch.Generator(device=dev).manual_seed(0)  # the synthetic draws
+    key = prng_key(0, device=dev)  # the JAX tool's one key
     _, apply_fn = P.make_policy(ppo)
-    ts = P.init_train_state(prng_key(0, device=dev), cfg, ppo)
-    carry = {"ts": ts, "env": cw.reset_from_seed(cfg, 0, B, device=dev),
-             "key": prng_key(0, device=dev)}
+    ts = P.init_train_state(key, cfg, ppo)
+    carry = {"ts": ts, "env": cw.reset_from_seed(cfg, 0, B, device=dev), "key": key}
 
     def train_step():
         carry["ts"], carry["env"], carry["key"], _ = P.train_step(cfg, ppo, carry["ts"],
@@ -92,7 +96,7 @@ def main(argv=None) -> list:
 
     st1 = cw.reset_from_seed(cfg, 1, B, device=dev)
     st2 = cw.reset_from_seed(cfg, 2, B, device=dev)
-    noise = P.collect_noise(prng_key(1, device=dev), T, B)
+    noise = P.collect_noise(key, T, B)
 
     @torch.no_grad()
     def collect():
@@ -100,15 +104,18 @@ def main(argv=None) -> list:
 
     @torch.no_grad()
     def resets():
+        c = key
         for _ in range(STAGE_STEPS):
-            reset(cfg, st1.rng)
+            ks = kd.split_keys(c, B)
+            reset(cfg, ks)
+            c = ks[0]
 
     @torch.no_grad()
     def grid_steps():
-        st = st2
+        st, kk = st2, key
         for _ in range(STAGE_STEPS):
-            a = torch.randint(0, C.N_ACTIONS, (B,), generator=gen, device=dev, dtype=torch.int32)
-            st, _ = step(cfg, st, a)
+            kk, ka = kd.split_keys(kk, 2)
+            st, _ = step(cfg, st, kd.randint(ka, (B,), 0, C.N_ACTIONS))
 
     @torch.no_grad()
     def forwards():
@@ -118,7 +125,7 @@ def main(argv=None) -> list:
 
     stages = {"train_step": train_step, "collect": collect, "reset": resets,
               "grid_step": grid_steps, "policy_forward": forwards,
-              "update_epoch": lambda: update_epoch(ppo, apply_fn, carry["ts"], P.snapshot(st2), gen)}
+              "update_epoch": lambda: update_epoch(ppo, apply_fn, carry["ts"], P.snapshot(st2), key)}
     setting = {"envs": B, "rollout_steps": T, "hidden": ppo.hidden, "policy": ppo.policy,
                "epochs": ppo.update_epochs, "minibatches": ppo.num_minibatches,
                "device": args.device, "reps": args.reps}

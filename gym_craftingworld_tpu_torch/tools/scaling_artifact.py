@@ -18,7 +18,9 @@ Counterpart of the JAX package's ``tools/scaling_artifact.py``, which writes
   ``fused_rollout_packed_bench_sharded`` at T = 131,072, and the plain packed
   scan (``rollout_p_sharded``) at ``--scan-steps`` (512: the scan is plain
   torch, paced by the host at ~2 ms a step, where JAX's 32,768 would take a
-  quarter of an hour and tell nothing new). Both delta-timed as JAX's are:
+  quarter of an hour and tell nothing new), each run drawing its actions
+  ``randint(PRNGKey(2), (T, B), 0, 6)`` as JAX's does (the counter kernel
+  on the card). Both delta-timed as JAX's are:
   the extra T/2 steps over the extra time, median of 7 runs after a
   warm-up, so that pack and unpack cancel; timed with CUDA events::
 
@@ -34,8 +36,6 @@ import argparse
 import json
 import os
 from pathlib import Path
-
-import torch
 
 from gym_craftingworld_tpu_torch.config import EnvConfig, ray_config
 from gym_craftingworld_tpu_torch.tools._canonical import RUNS
@@ -105,6 +105,8 @@ def run_gpu(out=OUT, iters: int = 7, scan_steps: int = 512, device="cuda", envs:
     the CPU); merged into ``out`` when it is not None. Returns it."""
     from gym_craftingworld_tpu_torch.core import slots as sm
     from gym_craftingworld_tpu_torch.core.reset import reset_from_seed
+    from gym_craftingworld_tpu_torch.ops.keyed_draws import randint_cols
+    from gym_craftingworld_tpu_torch.ops.threefry import prng_key
     from gym_craftingworld_tpu_torch.parallel import sharded_engine as se
     from gym_craftingworld_tpu_torch.parallel.mesh import make_env_mesh
 
@@ -117,11 +119,9 @@ def run_gpu(out=OUT, iters: int = 7, scan_steps: int = 512, device="cuda", envs:
         se.fused_rollout_packed_bench_sharded(cfg, slots, 3, T, mesh=mesh)
 
     fused_rate = _delta_rate(run_fused, envs, fused_steps, iters, dev)
-    gen = torch.Generator(device=dev)
 
-    def run_scan(T):
-        actions = torch.randint(0, 6, (T, envs), generator=gen.manual_seed(2), device=dev,
-                                dtype=torch.int32)
+    def run_scan(T):  # the JAX tool's draw, inside each timed run as there
+        actions = randint_cols(prng_key(2, device=dev), (T, envs), 0, 6)
         se.rollout_p_sharded(cfg, slots, actions, T, mesh)
 
     scan_rate = _delta_rate(run_scan, envs, scan_steps, iters, dev)

@@ -173,13 +173,9 @@ def gumbel_noise(keys: torch.Tensor, B: int, cols: slice = slice(None),
 
 def collect_noise(k_roll: torch.Tensor, T: int, B: int, cols: slice = slice(None)) -> torch.Tensor:
     """The collect's noise from ``k_roll``: the chain ``k, k_act = split(k)``
-    a step (the counter kernel's split on the device), then ``gumbel_noise``
-    of the T ``k_act``s."""
-    k, acts = k_roll, []
-    for _ in range(T):
-        k, k_act = kd.split_keys(k, 2)
-        acts.append(k_act)
-    return gumbel_noise(torch.stack(acts), B, cols)
+    a step (``keyed_draws.chain_keys``), then ``gumbel_noise`` of the T
+    ``k_act``s."""
+    return gumbel_noise(kd.chain_keys(k_roll, T)[1], B, cols)
 
 
 def _collect(cfg: EnvConfig, ppo: PPOConfig, apply_fn, params: nn.Module,

@@ -34,6 +34,7 @@ from gym_craftingworld_tpu_torch.ops import obs_rollout as obr
 from gym_craftingworld_tpu_torch.ops import packed_fused as pf
 from gym_craftingworld_tpu_torch.ops import packed_rollout as pr
 from gym_craftingworld_tpu_torch.ops import transposed_rollout as tr
+from gym_craftingworld_tpu_torch.ops import threefry as tf
 from gym_craftingworld_tpu_torch.ops.threefry import prng_key
 from gym_craftingworld_tpu_torch.tools import (bench, collect_prof, cpv_debug, cpv_matrix,
                                                expert_probe, fast_ppo_prof, ppo_prof)
@@ -96,45 +97,46 @@ def test_bench_prints_bench_py_s_line(layout, monkeypatch, capsys):
     assert pf.rollout_packed_bench_plain.calls == (3 if layout == "packed_fused" else 0)
 
 
-def direct(layout, cfg, state, seed, T):
+def direct(layout, cfg, state, key, T):
     """The engine ``layout`` names, called on its own from its own layout's
-    ``state`` (an EnvState for ``grid``, else a SlotState): (final state,
-    checksum)."""
-    gen = torch.Generator().manual_seed(seed)
+    ``state`` (an EnvState for ``grid``, else a SlotState) with key data
+    ``key``: (final state, checksum). ``packed_fused``'s seed is JAX's
+    ``randint(key, (), 0, 2**31 - 1)``, drawn here by ``ops/threefry``."""
     if layout == "grid":
-        st, out = rollout_random(cfg, state, prng_key(seed), T)
+        st, out = rollout_random(cfg, state, key, T)
         return st, out.reward.sum(dtype=torch.int64)
     if layout == "packed_fused":
-        return pf.fused_rollout_packed_bench(cfg, state, seed, T)
+        return pf.fused_rollout_packed_bench(cfg, state, int(tf.randint(key, (), 0, 2**31 - 1)), T)
     if layout == "packed":
-        return pr.rollout_p_bench(cfg, state, gen, T)
+        return pr.rollout_p_bench(cfg, state, key, T)
     if layout.startswith("obs_"):
-        return obr.rollout_obs_random(cfg, state, gen, T, layout[4:])
+        return obr.rollout_obs_random(cfg, state, key, T, layout[4:])
     engine = tr.rollout_t_random if layout == "transposed" else sm.rollout_slots_random
-    st, out = engine(cfg, state, gen, T)
+    st, out = engine(cfg, state, key, T)
     return st, out.reward.sum(dtype=torch.int64)
 
 
 @pytest.mark.parametrize("layout", bench.LAYOUTS)
 def test_bench_checksum_is_the_named_engine_s(layout):
-    """``bench``'s engine from a state and seed gives the checksum and final
-    state of a direct call of the engine it names; its warm-up and timed runs
-    continue from each run's state with seeds 0, 1, ..., so their checksums
-    are those of the direct calls chained the same way."""
+    """``bench``'s engine from a state and key gives the checksum and final
+    state of a direct call of the engine it names; its warm-up (``PRNGKey(0)``)
+    and timed runs (``fold_in(PRNGKey(0), i)``) continue from each run's
+    state, so their checksums are those of the direct calls chained the same
+    way with those keys."""
     cfg = cw.ray_config()
     start = lambda seed: (lambda s: s if layout == "grid" else sm.from_env_state(s))(
         cw.reset_from_seed(cfg, seed, 48, device="cpu"))
     roll, st0 = bench.make_engine(layout, cfg, cw.reset_from_seed(cfg, 4, 48, device="cpu"))
-    got_st, got = roll(st0, 5, 12)
-    want_st, want = direct(layout, cfg, start(4), 5, 12)
+    got_st, got = roll(st0, prng_key(5), 12)
+    want_st, want = direct(layout, cfg, start(4), prng_key(5), 12)
     assert got.dtype == want.dtype == torch.int64 and int(got) == int(want)
     fields = lambda st: ([getattr(st, f.name) for f in dataclasses.fields(st)]
                          if dataclasses.is_dataclass(st) else list(st))
     assert all(torch.equal(a, b) for a, b in zip(fields(got_st), fields(want_st)))
     measured = bench.measure(layout, 48, 12, 2, "cpu")["checksums"]
     st, chained = start(0), []
-    for seed in range(3):
-        st, c = direct(layout, cfg, st, seed, 12)
+    for key in (prng_key(0), tf.fold_in(prng_key(0), 0), tf.fold_in(prng_key(0), 1)):
+        st, c = direct(layout, cfg, st, key, 12)
         chained.append(int(c))
     assert measured == chained and any(measured)
 
@@ -224,20 +226,24 @@ def test_ppo_prof_times_the_jax_tool_s_stages(monkeypatch, capsys):
     assert lines[0]["env_steps_per_s"] == pytest.approx(16 * 8 / (lines[0]["ms"] / 1e3))
 
 
-def jax_probe(mode: str, seeds: int) -> list:
+def jax_env(kind: str, task, seed: int, rng_mode: str):
+    """The JAX tool's env of an episode (``tools/expert_probe.py``)."""
+    if kind == "single":
+        return jge.CraftingWorldEnvRay(seed=seed, selected_tasks=[task], stacking=False,
+                                       max_steps=300, rng_mode=rng_mode)
+    if kind == "stacked":
+        return jge.CraftingWorldEnvRay(seed=seed, stacking=True, max_steps=300,
+                                       rng_mode=rng_mode)
+    return jge.CraftingWorldEnvFlat(seed=seed, stacking=True, rng_mode=rng_mode)
+
+
+def jax_probe(mode: str, seeds: int, rng_mode: str = "parity") -> list:
     """The JAX tool's loop (``tools/expert_probe.py``) through the JAX façade
-    in parity mode: every episode's (kind, task, seed, reward, desired,
-    achieved, success)."""
+    (in parity mode unless asked): every episode's (kind, task, seed, reward,
+    desired, achieved, success)."""
     out = []
     for kind, task, seed, _ in expert_probe.episodes(mode, seeds):
-        if kind == "single":
-            env = jge.CraftingWorldEnvRay(seed=seed, selected_tasks=[task], stacking=False,
-                                          max_steps=300, rng_mode="parity")
-        elif kind == "stacked":
-            env = jge.CraftingWorldEnvRay(seed=seed, stacking=True, max_steps=300,
-                                          rng_mode="parity")
-        else:
-            env = jge.CraftingWorldEnvFlat(seed=seed, stacking=True, rng_mode="parity")
+        env = jax_env(kind, task, seed, rng_mode)
         env.reset()
         r = JExpert(env).run_episode()
         d = np.asarray(env.desired_goal_vector).reshape(-1).tolist()
@@ -261,6 +267,32 @@ def test_expert_probe_equals_the_jax_tool_in_parity_mode(capsys):
     line = json.loads(out[-1])
     assert line["card"] == "cpu" and line["failures"] == fails and line["episodes"] == 1
     assert out[-2] == f"total failures: {len(fails)}"
+
+
+def test_expert_probe_in_fast_mode_sees_the_jax_tool_s_worlds():
+    """The port's fast-mode façade (the tools' default) resets to the JAX
+    façade's fast-mode worlds on the first seed of each of the tool's modes
+    (every observation array, the goal vectors), since both draw them from
+    JAX's key chain; and ``probe`` in fast mode on ``flat`` seeds 0-1
+    reports the JAX tool's episodes and failures."""
+    seen = set()
+    for kind, task, seed, make_env in expert_probe.episodes("all", 1):
+        if kind in seen:
+            continue
+        seen.add(kind)
+        je, te = jax_env(kind, task, seed, "fast"), make_env(device="cpu", rng_mode="fast")
+        jo, to = je.reset(), te.reset()
+        if not isinstance(jo, dict):  # the flat env observes one array
+            jo, to = {"obs": jo}, {"obs": to}
+        for k in jo:
+            np.testing.assert_array_equal(to[k], jo[k], err_msg=f"{kind}: {k}")
+        for v in ("desired_goal_vector", "achieved_goal_vector"):
+            np.testing.assert_array_equal(np.asarray(getattr(te, v)), np.asarray(getattr(je, v)))
+    assert seen == {"single", "stacked", "flat"}
+    got = expert_probe.probe("flat", 2, "cpu", verbose=False)
+    want = jax_probe("flat", 2, "fast")
+    assert got == want and len(got) == 2
+    assert expert_probe.failures(got) == [r[:3] + r[4:6] for r in want if not r[6]]
 
 
 def test_expert_probe_prints_failures_in_the_jax_format(monkeypatch, capsys):

@@ -3,10 +3,11 @@
 against the JAX package's ``tools/`` on the CPU.
 
 The JAX tools are loaded from their files (``jax_tool``). Parameters, reset
-states and pools cross as numpy (``interop``); random draws are JAX's,
-recovered from its keys as the JAX code splits them, and handed to the port
-explicitly. Integer results must match bit for bit; bf16 forwards within the
-tolerances stated at each test. ``main`` runs tiny with ``--device cpu``,
+states and pools cross as numpy (``interop``); the port draws from the same
+key data as the JAX tools (``tests/test_torch_keyed_tools.py`` holds the
+draws themselves), and the tests of one piece take JAX's draws, recovered
+from its keys, explicitly. Integer results must match bit for bit; bf16
+forwards within the tolerances stated at each test. ``main`` runs tiny with ``--device cpu``,
 where its timers read the host clock: no number here is a device number.
 """
 
@@ -37,6 +38,7 @@ from gym_craftingworld_tpu_torch.train import dagger as tdagger
 
 from test_torch_canonical_tools import REPO, jax_tool
 from test_torch_dagger import CFG, agreeing_envs, host, on_jax, trained  # noqa: F401 (a fixture)
+from test_torch_keyed_trainers import NOISE_ULPS, noise_ulps
 from test_torch_learning import GUMBEL_SLACK
 from test_torch_packed_rollout import assert_tree_equal, np_tree, tcfg
 
@@ -516,8 +518,11 @@ def jax_finetune(jft):
 
 
 def test_finetune_train_step_in_lockstep_with_jax(jax_finetune):
-    """Three updates of ``train_step`` (the first value-only) from JAX's
-    draws and JAX's fresh parameters: the actions, rewards, dones, raw rewards, the auto-reset env after
+    """Three updates of ``train_step`` (the first value-only) from JAX's key
+    alone (``PRNGKey(FT_SEED + 1)``, carried from update to update as both
+    tools return it) and JAX's fresh parameters: the draws the port makes
+    from it (``draw``) are JAX's (the noise within 2 ulps); the actions,
+    rewards, dones, raw rewards, the auto-reset env after
     the collect and the success metrics equal JAX's; the loss terms within
     rtol 2e-3 / atol 2e-4 and the parameters within 2 lr per optimizer step
     so far; the value-only update leaves the policy head bit-identical on
@@ -531,14 +536,16 @@ def test_finetune_train_step_in_lockstep_with_jax(jax_finetune):
     model = interop.grid_policy_from_numpy(jparams, device="cpu")
     ts = ftc.init_state(model, ft)
     env = interop.env_state_from_numpy(jenv, "cpu")
+    key = prng_key(FT_SEED + 1)
     assert all(u["traj"]["done"].any() for u in updates)  # the auto-reset fires in each
     assert sum(u["metrics"]["success_rate"] for u in updates) > 0  # some episode won
     steps = 0
     for i, (value_only, want) in enumerate(zip(FT_VALUE_ONLY, updates)):
         assert_tree_equal(want["collect_env"], want["env"])  # _jax_collect is the tool's
-        pool = interop.env_state_from_numpy(want["pool"], "cpu")
-        noise = torch.from_numpy(want["noise"])
-        draws = ftc.Draws(pool, noise, torch.from_numpy(want["perms"]))
+        _, (pool, noise, perms) = ftc.draw(cfg, ft, FT_B, key)
+        assert_tree_equal(interop.env_state_to_numpy(pool), want["pool"])
+        assert noise_ulps(noise, want["noise"]) <= NOISE_ULPS
+        assert_same(perms, want["perms"], "perms")
         with torch.no_grad():
             _, traj, _ = ftc.collect(cfg, ft, model, env, pool, noise)
             logits = torch.stack([model(*planes_from_snaps(
@@ -555,7 +562,7 @@ def test_finetune_train_step_in_lockstep_with_jax(jax_finetune):
         assert_same(traj["reward"], np.where(win, np.float32(1.0),
                                              np.float32(-1.0 / CFG.max_steps)), "reward")
         head = {k: v.clone() for k, v in model.policy.state_dict().items()}
-        ts, env, metrics = ftc.train_step(cfg, ft, ts, env, value_only, draws=draws)
+        ts, env, key, metrics = ftc.train_step(cfg, ft, ts, env, key, value_only)
         steps += ft.update_epochs * ft.num_minibatches
         assert_tree_equal(interop.env_state_to_numpy(env), want["env"])
         for k in ("success_rate", "done_frac"):

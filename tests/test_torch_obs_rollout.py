@@ -1,10 +1,11 @@
 """The port's observation-interleaved rollout (``ops/obs_rollout.py``) against
 the JAX package's.
 
-The port draws its actions from a ``torch.Generator``; its body also takes
-explicit actions, so JAX's own draw (``jax.random.randint(key, (T, B), 0,
-6)``) goes through both packages. Checksums and final slot states must match
-bit for bit.
+The port draws its actions from JAX's key data as JAX does
+(``jax.random.randint(key, (T, B), 0, 6)``, ``tests/test_torch_keyed_ladder.py``
+holds the whole rollouts); its body also takes explicit actions, so JAX's
+own draw goes through both packages. Checksums and final slot states must
+match bit for bit.
 """
 
 import jax
@@ -19,6 +20,8 @@ from gym_craftingworld_tpu.ops import obs_rollout as jobr
 from gym_craftingworld_tpu_torch import interop
 from gym_craftingworld_tpu_torch.core import slots as tsm
 from gym_craftingworld_tpu_torch.ops import obs_rollout as tobr
+from gym_craftingworld_tpu_torch.ops.keyed_draws import randint_cols
+from gym_craftingworld_tpu_torch.ops.threefry import prng_key
 from gym_craftingworld_tpu_torch.render import raster as tr
 
 from test_torch_packed_rollout import assert_tree_equal, jax_and_port_slots, np_tree, tcfg
@@ -60,10 +63,8 @@ def test_checksum_equals_stepwise_recompute(obs_mode):
     cfg = tcfg(jcw.flat_config())
     _, s = jax_and_port_slots(jcw.flat_config(), 4, 5)
     T = 30
-    gen = torch.Generator().manual_seed(2)
-    _, checksum = tobr.rollout_obs_random(cfg, s, gen, T, obs_mode)
-    actions = torch.randint(0, 6, (T, 5), generator=torch.Generator().manual_seed(2),
-                            dtype=torch.int32)
+    _, checksum = tobr.rollout_obs_random(cfg, s, prng_key(2), T, obs_mode)
+    actions = randint_cols(prng_key(2), (T, 5), 0, 6)
     render = {"ray": tr.render_ray, "altobs": tr.render_altobs, "onehot": tr.render_onehot}[obs_mode]
     expect = 0
     for t in range(T):
@@ -75,9 +76,11 @@ def test_checksum_equals_stepwise_recompute(obs_mode):
 
 
 def test_final_state_equals_slot_rollout_from_one_generator_state():
+    """From one key the observation rollout and the slot rollout draw the
+    same actions and reach the same final state."""
     cfg = tcfg(jcw.flat_config())
     _, s = jax_and_port_slots(jcw.flat_config(), 1, 16)
-    a, _ = tsm.rollout_slots_random(cfg, s, torch.Generator().manual_seed(3), 150)
-    b, _ = tobr.rollout_obs_random(cfg, s, torch.Generator().manual_seed(3), 150, "onehot")
+    a, _ = tsm.rollout_slots_random(cfg, s, prng_key(3), 150)
+    b, _ = tobr.rollout_obs_random(cfg, s, prng_key(3), 150, "onehot")
     assert_tree_equal(interop.slot_state_to_numpy(b), interop.slot_state_to_numpy(a))
     assert int((a.step_num == 100).sum()) == 16

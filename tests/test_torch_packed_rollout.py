@@ -21,6 +21,7 @@ from gym_craftingworld_tpu_torch import interop
 from gym_craftingworld_tpu_torch.core import slots as tsm
 from gym_craftingworld_tpu_torch.ops import packed_rollout as tpr
 from gym_craftingworld_tpu_torch.ops import transposed_rollout as ttr
+from gym_craftingworld_tpu_torch.ops.threefry import prng_key
 
 torch.set_num_threads(1)
 
@@ -123,9 +124,8 @@ def test_rollout_p_equals_jax(name):
 def test_rollout_p_bench_matches_random():
     cfg = tcw.ray_config()
     sl = tsm.from_env_state(tcw.reset_from_seed(cfg, 3, 16, device="cpu"))
-    gen = lambda: torch.Generator().manual_seed(11)
-    sa, out = tpr.rollout_p_random(cfg, sl, gen(), 200)
-    sb, acc = tpr.rollout_p_bench(cfg, sl, gen(), 200)
+    sa, out = tpr.rollout_p_random(cfg, sl, prng_key(11), 200)
+    sb, acc = tpr.rollout_p_bench(cfg, sl, prng_key(11), 200)
     assert acc.dtype == torch.int64 and int(out.reward.sum()) == int(acc)
     for f in tsm.SlotState._fields:
         assert torch.equal(getattr(sa, f), getattr(sb, f)), f

@@ -136,21 +136,21 @@ def test_slot_engines_equal_grid_step(cfg, seed, steps):
 
 
 def test_random_rollouts_agree():
-    """``rollout_slots_random`` and ``rollout_t_random`` draw the same int32
-    actions from one generator state and agree with the grid ``rollout`` of
-    those actions, which ``rollout_random`` runs on its key's actions."""
+    """``rollout_slots_random``, ``rollout_t_random`` and the grid's
+    ``rollout_random`` draw the same int32 actions from one key,
+    ``randint(key, (T, B), 0, 6)``, and agree with the grid ``rollout`` of
+    those actions."""
     cfg = tcw.flat_config()
     B, T = 32, 128
     grid = tcw.reset_from_seed(cfg, 9, B, device="cpu")
     sl = tsm.from_env_state(grid)
-    gen = lambda: torch.Generator().manual_seed(4)
-    actions = torch.randint(0, 6, (T, B), generator=gen(), dtype=torch.int32)
+    actions = randint_cols(prng_key(4), (T, B), 0, 6)
+    assert torch.equal(tsm.random_actions(sl, prng_key(4), T), actions)
     g_st, g_out = tcw.rollout(cfg, grid, actions)
     k_st, k_out = tcw.rollout_random(cfg, grid, prng_key(4), T)
-    k_ref, ref_out = tcw.rollout(cfg, grid, randint_cols(prng_key(4), (T, B), 0, 6))
-    assert torch.equal(k_out.reward, ref_out.reward) and torch.equal(k_st.objects, k_ref.objects)
-    s_st, s_out = tsm.rollout_slots_random(cfg, sl, gen(), T)
-    t_st, t_out = ttr.rollout_t_random(cfg, sl, gen(), T)
+    assert torch.equal(k_out.reward, g_out.reward) and torch.equal(k_st.objects, g_st.objects)
+    s_st, s_out = tsm.rollout_slots_random(cfg, sl, prng_key(4), T)
+    t_st, t_out = ttr.rollout_t_random(cfg, sl, prng_key(4), T)
     for out in (s_out, t_out):
         assert torch.equal(out.reward, g_out.reward) and torch.equal(out.done, g_out.done)
         assert out.reward.dtype == torch.int32 and out.changed.shape == (T, B)
