@@ -66,6 +66,7 @@ from gym_craftingworld_tpu_torch.train.fast_ppo import (
     rollout_metrics,
     shard_mean,
 )
+from gym_craftingworld_tpu_torch.utils.profiling import trace
 
 bf16 = torch.bfloat16
 f32 = torch.float32
@@ -343,8 +344,9 @@ def _collect_pixel(cfg: EnvConfig, ppo: PixelPPOConfig, params: ConvParams,
     lose = torch.tensor(-1.0 / cfg.max_steps, device=dev)
     st = env
     for t in range(T):
-        logits, value = _policy_tb(params, cfg, st, ppo.stride1, chunk)
-        action, log_prob = _sample_action(u[t], logits)
+        with trace("ppo.policy"):
+            logits, value = _policy_tb(params, cfg, st, ppo.stride1, chunk)
+            action, log_prob = _sample_action(u[t], logits)
         for dst, src in zip(tr.state, st):
             dst[t] = src
         st, raw, done = rollout_packed_actions(cfg, st, action[None])
@@ -461,7 +463,8 @@ def _update_phase(cfg: EnvConfig, ppo: PixelPPOConfig, ts: PixelTrainState, traj
     params, opt_state = ts.params, ts.opt_state
     losses, auxes = [], []
     for batch, n_total in minibatches(ppo, traj, adv, ret, perms, mesh):
-        grads, aux = minibatch_grads(ppo, params, cfg, batch, n_total, mesh)
+        with trace("ppo.grads"):
+            grads, aux = minibatch_grads(ppo, params, cfg, batch, n_total, mesh)
         updates, opt_state = optimizer.update(grads, opt_state)
         apply_updates(params, updates)
         losses.append(aux.pop("loss"))
@@ -490,7 +493,8 @@ def rollout_phase(cfg: EnvConfig, ppo: PixelPPOConfig, ts: PixelTrainState, env:
     key, k_pool, k_roll, k_perm = kd.split_keys(key, 4)
     pool = fresh_packed_batch(cfg, k_pool, 2 * B)
     u = gumbel_uniforms(k_roll, T, B, slice(None) if mesh is None else mesh.cols(B))
-    env, traj = _collect_pixel(cfg, ppo, ts.params, env, pool, u, mesh)
+    with trace("ppo.collect"):
+        env, traj = _collect_pixel(cfg, ppo, ts.params, env, pool, u, mesh)
     _, last_value = _policy_tb(ts.params, cfg, env, ppo.stride1)
     adv, ret = _gae(ppo.as_fast, traj, last_value)
     perms = epoch_perms(k_perm, ppo.update_epochs, NB)
@@ -506,7 +510,9 @@ def train_step_pixel(cfg: EnvConfig, ppo: PixelPPOConfig, ts: PixelTrainState,
     ``mesh`` ``env`` is this rank's columns
     (``parallel/sharded_engine.pixel_train_step_sharded``)."""
     env, (traj, adv, ret, perms), key = rollout_phase(cfg, ppo, ts, env, key, mesh)
-    params, opt_state, losses, auxes = _update_phase(cfg, ppo, ts, traj, adv, ret, perms, mesh)
+    with trace("ppo.update"):
+        params, opt_state, losses, auxes = _update_phase(cfg, ppo, ts, traj, adv, ret, perms,
+                                                         mesh)
     metrics = rollout_metrics(cfg, traj, losses, auxes, mesh)
     return PixelTrainState(params, opt_state, ts.update_idx + 1), env, key, metrics
 

@@ -71,6 +71,7 @@ from gym_craftingworld_tpu_torch.ops.fused_reset import assemble, fresh_packed_f
 from gym_craftingworld_tpu_torch.ops.packed_fused import rollout_packed_actions
 from gym_craftingworld_tpu_torch.ops.packed_rollout import PackedState
 from gym_craftingworld_tpu_torch.parallel.mesh import sum_over_ranks
+from gym_craftingworld_tpu_torch.utils.profiling import trace
 
 # f32 matmuls must be f32 (JAX's preferred_element_type=f32), not TF32
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -400,9 +401,10 @@ def _collect(cfg: EnvConfig, fppo: FastPPOConfig, params: MLPParams,
     lose = torch.tensor(-1.0 / cfg.max_steps, device=dev)
     st = env
     for t in range(T):
-        feat = features(cfg, st)
-        logits, value = apply_policy(params, feat)
-        action, log_prob = _sample_action(u[t], logits)
+        with trace("ppo.policy"):
+            feat = features(cfg, st)
+            logits, value = apply_policy(params, feat)
+            action, log_prob = _sample_action(u[t], logits)
         st, raw, done = rollout_packed_actions(cfg, st, action[None])
         st = _autoreset(st, _window(pool, t, B, mesh), done[0])
         for dst, src in zip(tr, (feat, action, log_prob, value,
@@ -606,7 +608,8 @@ def _update_phase(fppo: FastPPOConfig, ts: FastTrainState, traj: _Traj, adv, ret
     params, opt_state = ts.params, ts.opt_state
     losses, auxes = [], []
     for mb in minibatches(fppo, traj, adv, ret, perms, mesh):
-        grads, aux = minibatch_grads(fppo, params, mb, use_fused_kernel, mesh)
+        with trace("ppo.grads"):
+            grads, aux = minibatch_grads(fppo, params, mb, use_fused_kernel, mesh)
         updates, opt_state = optimizer.update(grads, opt_state)
         apply_updates(params, updates)
         losses.append(aux.pop("loss"))
@@ -666,7 +669,8 @@ def rollout_phase(cfg: EnvConfig, fppo: FastPPOConfig, ts: FastTrainState, env: 
     key, k_pool, k_roll, k_perm = kd.split_keys(key, 4)
     pool = _fresh_pool(cfg, k_pool, 2 * B, fused=pool_choice(fused_pool, mesh))
     u = gumbel_uniforms(k_roll, T, B, slice(None) if mesh is None else mesh.cols(B))
-    env, traj = _collect(cfg, fppo, ts.params, env, pool, u, mesh)
+    with trace("ppo.collect"):
+        env, traj = _collect(cfg, fppo, ts.params, env, pool, u, mesh)
     _, last_value = apply_policy(ts.params, features(cfg, env))
     adv, ret = _gae(fppo, traj, last_value)
     perms = epoch_perms(k_perm, fppo.update_epochs, NB)
@@ -708,8 +712,9 @@ def train_step_fast(cfg: EnvConfig, fppo: FastPPOConfig, ts: FastTrainState,
     the same parameters.
     """
     env, r, key = rollout_phase(cfg, fppo, ts, env, key, fused_pool=fused_pool, mesh=mesh)
-    params, opt_state, losses, auxes = _update_phase(
-        fppo, ts, r.traj, r.adv, r.ret, r.perms, use_fused_kernel=fused_update, mesh=mesh)
+    with trace("ppo.update"):
+        params, opt_state, losses, auxes = _update_phase(
+            fppo, ts, r.traj, r.adv, r.ret, r.perms, use_fused_kernel=fused_update, mesh=mesh)
     metrics = rollout_metrics(cfg, r.traj, losses, auxes, mesh)
     return FastTrainState(params, opt_state, ts.update_idx + 1), env, key, metrics
 

@@ -72,7 +72,7 @@ def main(argv=None):
     )
     from gym_craftingworld_tpu_torch.train import checkpoint
     from gym_craftingworld_tpu_torch.train.ppo import PPOConfig, init_train_state
-    from gym_craftingworld_tpu_torch.utils.profiling import Throughput, trace
+    from gym_craftingworld_tpu_torch.utils.profiling import trace
 
     torch.use_deterministic_algorithms(True)
     initialize_distributed(device=args.device)
@@ -115,13 +115,11 @@ def main(argv=None):
 
     step = ppo_train_step_sharded(cfg, ppo, mesh)
     steps_per_update = args.envs * ppo.rollout_steps
-    tput = Throughput()
     t_start = time.time()
     last_log_t, last_log_u = None, 0
     for u in range(start_u, args.updates):
         with trace("train_step"):
             ts, env_state, key, metrics = step(ts, env_state, key)
-        tput.tick(steps_per_update)
         if u % args.log_every == 0 or u == args.updates - 1:
             # the host reads the metrics, which waits for the card: the rate
             # is taken over the wall time between log points

@@ -1,10 +1,26 @@
 """Tracing / profiling helpers.
 
-Counterpart of ``gym_craftingworld_tpu/utils/profiling.py``: ``trace``
-annotates a region for ``torch.profiler`` (the JAX package's
-``TraceAnnotation``), ``capture_trace`` records a Chrome trace of the host
-and, where there is one, the card; ``Throughput`` is a copy of the JAX
-package's framework-free counter.
+Counterpart of ``gym_craftingworld_tpu/utils/profiling.py``. ``trace(name)``
+is the port's one span API (the JAX package's ``TraceAnnotation``): while a
+``torch.profiler`` session records, it enters
+``torch.profiler.record_function(name)``, so the span lands in the
+profiler's trace beside the device operations it launches, on the same
+clock; otherwise it is an empty context and costs one check of the
+profiler's state. Spans live only in the profiler's trace: the port keeps
+no file, thread or buffer of its own for them.
+
+The trainers' spans, the same names in ``train/fast_ppo.py`` and
+``train/fast_pixel_ppo.py``, which ``benchmark/spans.py`` reduces to device
+and idle time by phase:
+
+* ``ppo.collect``: the collect of an iteration (once an iteration);
+* ``ppo.policy``: step t's policy forward and action draw, inside the
+  collect (T an iteration);
+* ``ppo.update``: the update phase (once an iteration);
+* ``ppo.grads``: a minibatch's gradient call, inside the update (epochs x
+  minibatches an iteration).
+
+``train/run.py`` wraps each step in ``train_step``.
 
 The port adds what its tools (``gym_craftingworld_tpu_torch/tools/``) share:
 ``card_identity`` names the card and its power limit, ``timed_runs`` times a
@@ -20,7 +36,6 @@ from __future__ import annotations
 
 import contextlib
 import importlib
-import os
 import statistics
 import subprocess
 import time
@@ -28,45 +43,16 @@ import time
 import torch
 
 
-@contextlib.contextmanager
+_NO_SPAN = contextlib.nullcontext()
+
+
 def trace(name: str):
-    """Annotate a region for torch.profiler traces."""
-    with torch.profiler.record_function(name):
-        yield
-
-
-@contextlib.contextmanager
-def capture_trace(log_dir: str):
-    """Record a trace of the block, host and card, as ``log_dir/trace.json``
-    (Chrome trace format; open it in Perfetto or chrome://tracing)."""
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-    os.makedirs(log_dir, exist_ok=True)
-    with torch.profiler.profile(activities=activities) as prof:
-        yield
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
-
-
-class Throughput:
-    """Env-steps/s counter with exponential smoothing."""
-
-    def __init__(self, alpha: float = 0.2):
-        self.alpha = alpha
-        self.rate = None
-        self._t = None
-
-    def tick(self, steps: int) -> float | None:
-        now = time.perf_counter()
-        if self._t is not None:
-            inst = steps / (now - self._t)
-            self.rate = (
-                inst
-                if self.rate is None
-                else self.alpha * inst + (1 - self.alpha) * self.rate
-            )
-        self._t = now
-        return self.rate
+    """A span named ``name`` in the profiler's trace while one records, else
+    an empty context. Enters no ``record_function`` and makes no host sync
+    when no profiler records."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 def card_identity(device) -> str:

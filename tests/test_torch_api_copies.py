@@ -69,15 +69,13 @@ def test_copy_equals_jax_source(rel):
 # framework-free code copied out of JAX modules (which import JAX): the
 # snapshot dataset, its host extraction and the array expert of
 # ``train/demos.py``, the flat dataset helpers of ``train/bc.py`` and the
-# relabelling of ``train/dagger.py``, and the throughput counter of
-# ``utils/profiling.py``
+# relabelling of ``train/dagger.py``
 COPIED_PARTS = {
     "train/demos.py": ["_BITS9", "_DELTAS", "SnapDataset", "occupancy_from_grids",
                        "init_keys_from_grids", "bits_to_mask", "mask_to_bits", "grids_from_snaps",
                        "_ArrayView", "NumpyExpert", "label_snapshot"],
     "train/bc.py": ["Demos", "augment_stacked_goals", "concat_demos"],
     "train/dagger.py": ["_COL_FIELDS", "_LATCH_MASK", "expert_relabel"],
-    "utils/profiling.py": ["Throughput"],
 }
 
 
